@@ -1,0 +1,265 @@
+"""Slide reading, tissue masks and resizing: the port against the JAX package.
+
+Slides written by either package's deflate writer must read back pixel for
+pixel the same through both readers, at every pyramid level and at
+resolutions that are integer downscales of a level. Tissue masks (Otsu and
+morphological) must be identical: the port reproduces OpenCV's greyscale,
+structuring element and dilation anchor. ``imresize`` must equal OpenCV's
+``INTER_AREA`` for integer downscales and ``INTER_NEAREST``; area at other
+factors is held to one grey level, because OpenCV's general area path
+accumulates in float32 and the port in float64.
+"""
+
+from __future__ import annotations
+
+import cv2
+import numpy as np
+import pytest
+import torch
+
+from tiatoolbox_tpu.data.synth import synthetic_he_patch
+from tiatoolbox_tpu.tools import tissuemask as jax_tissuemask
+from tiatoolbox_tpu.utils import transforms as jax_transforms
+from tiatoolbox_tpu.wsicore import tiffio as jax_tiffio
+from tiatoolbox_tpu.wsicore.wsireader import VirtualWSIReader as JaxVirtualReader
+from tiatoolbox_tpu.wsicore.wsireader import WSIReader as JaxReader
+from tiatoolbox_tpu_torch.data import synth as port_synth
+from tiatoolbox_tpu_torch.tools import tissuemask as port_tissuemask
+from tiatoolbox_tpu_torch.utils import transforms as port_transforms
+from tiatoolbox_tpu_torch.wsicore import tiffio as port_tiffio
+from tiatoolbox_tpu_torch.wsicore.wsireader import VirtualWSIReader as PortVirtualReader
+from tiatoolbox_tpu_torch.wsicore.wsireader import WSIReader as PortReader
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _two_torch_threads():
+    """Two intra-op threads for this module's tests; the setting is restored after."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(before)
+
+
+SIZE = (640, 448)  # width, height
+
+
+def _pyramid(base: np.ndarray, levels: int) -> list[np.ndarray]:
+    images = [base]
+    for _ in range(levels - 1):
+        prev = images[-1]
+        images.append(
+            cv2.resize(prev, (prev.shape[1] // 2, prev.shape[0] // 2), interpolation=cv2.INTER_AREA)
+        )
+    return images
+
+
+@pytest.fixture(scope="module")
+def jax_slide(tmp_path_factory) -> str:
+    path = tmp_path_factory.mktemp("wsi") / "jax_deflate.tiff"
+    base = synthetic_he_patch(SIZE, seed=31)
+    description = (
+        f"Aperio Image Library v0.0.0\n{SIZE[0]}x{SIZE[1]} (128x128) "
+        "Deflate/RGB|AppMag = 20|MPP = 0.5"
+    )
+    jax_tiffio.TiffPyramidWriter(
+        path, tile_size=128, description=description, mpp=(0.5, 0.5), compression="deflate"
+    ).write(_pyramid(base, 3))
+    return str(path)
+
+
+@pytest.fixture(scope="module")
+def port_slide(tmp_path_factory) -> str:
+    path = tmp_path_factory.mktemp("wsi") / "port_deflate.tiff"
+    port_synth.make_synthetic_slide(path, size=SIZE, tile_size=128, seed=32)
+    return str(path)
+
+
+READS = [
+    ("rect", (0, 0), (200, 150), 0, "level"),
+    ("rect", (100, 60), (128, 128), 1, "level"),
+    ("rect", (500, 300), (100, 100), 2, "level"),
+    ("rect", (-40, -20), (96, 80), 0, "level"),
+    ("rect", (64, 32), (100, 90), 1.0, "mpp"),
+    ("rect", (64, 32), (60, 50), 4.0, "mpp"),
+    ("rect", (32, 16), (90, 70), 5.0, "power"),
+    ("bounds", (0, 0, 640, 448), None, 2, "level"),
+    ("bounds", (40, 40, 424, 296), None, 1.0, "mpp"),
+    ("bounds", (0, 0, 640, 448), None, 1.25, "power"),
+    ("bounds", (600, 400, 700, 500), None, 0, "level"),
+]
+
+
+@pytest.mark.parametrize("read", READS, ids=[f"{r[0]}-{r[3]}{r[4]}-{i}" for i, r in enumerate(READS)])
+@pytest.mark.parametrize("which", ["jax_slide", "port_slide"])
+def test_reads_match_jax_reader(read, which, request) -> None:
+    path = request.getfixturevalue(which)
+    kind, loc, size, res, units = read
+    jax_reader, port_reader = JaxReader.open(path), PortReader.open(path)
+    if kind == "rect":
+        want = jax_reader.read_rect(loc, size, resolution=res, units=units)
+        got = port_reader.read_rect(loc, size, resolution=res, units=units)
+    else:
+        want = jax_reader.read_bounds(loc, resolution=res, units=units)
+        got = port_reader.read_bounds(loc, resolution=res, units=units)
+    assert got.dtype == want.dtype == np.uint8
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("which", ["jax_slide", "port_slide"])
+def test_metadata_and_resolution_frame_reads_match(which, request) -> None:
+    path = request.getfixturevalue(which)
+    jax_reader, port_reader = JaxReader.open(path), PortReader.open(path)
+    for key, want in jax_reader.info.as_dict().items():
+        got = port_reader.info.as_dict()[key]
+        if key == "mpp":
+            np.testing.assert_array_equal(np.asarray(got), np.asarray(want))
+        else:
+            assert got == want, key
+    kwargs = dict(resolution=0.5, units="mpp", coord_space="resolution")
+    np.testing.assert_array_equal(
+        port_reader.read_rect((224, 224), (224, 224), **kwargs),
+        jax_reader.read_rect((224, 224), (224, 224), **kwargs),
+    )
+    assert port_reader.slide_dimensions(1.0, "mpp") == jax_reader.slide_dimensions(1.0, "mpp")
+
+
+VIRTUAL_READS = [
+    ("rect", (0, 0), (64, 48), 0, "level"),
+    ("rect", (16, 8), (32, 32), 1.0, "baseline"),
+    ("rect", (10, 10), (20, 15), 0.5, "baseline"),
+    ("rect", (-6, 90), (30, 30), 1.0, "baseline"),
+    ("bounds", (0, 0, 128, 96), None, 0.5, "baseline"),
+    ("bounds", (-8, -8, 40, 40), None, 1.0, "baseline"),
+    ("bounds", (32, 16, 96, 80), None, 0.25, "baseline"),
+]
+
+
+@pytest.mark.parametrize(
+    "read", VIRTUAL_READS, ids=[f"{r[0]}-{r[3]}{r[4]}-{i}" for i, r in enumerate(VIRTUAL_READS)]
+)
+@pytest.mark.parametrize("mode", ["rgb", "bool"])
+def test_virtual_reader_matches_jax(read, mode) -> None:
+    """Array-backed reads, as tissue masks are read: RGB at integer
+    downscales, and boolean masks with a donor slide's metadata."""
+    kind, loc, size, res, units = read
+    rgb = synthetic_he_patch((128, 96), seed=33)
+    if mode == "rgb":
+        jax_reader, port_reader = JaxVirtualReader(rgb), PortVirtualReader(rgb)
+    else:
+        mask = (rgb[..., 0] < 200).astype(np.uint8)[::4, ::4]
+        info = PortVirtualReader(rgb).info
+        jax_reader = JaxVirtualReader(mask, info=JaxVirtualReader(rgb).info, mode="bool")
+        port_reader = PortVirtualReader(mask, info=info, mode="bool")
+    if kind == "rect":
+        want = jax_reader.read_rect(loc, size, resolution=res, units=units)
+        got = port_reader.read_rect(loc, size, resolution=res, units=units)
+    else:
+        want = jax_reader.read_bounds(loc, resolution=res, units=units)
+        got = port_reader.read_bounds(loc, resolution=res, units=units)
+    assert got.dtype == want.dtype
+    np.testing.assert_array_equal(got, want)
+
+
+def test_codecs_match_jax() -> None:
+    rng = np.random.default_rng(3)
+    data = bytes(rng.integers(0, 4, 3000, dtype=np.uint8))
+    packed = _packbits_encode(data)
+    assert port_tiffio._packbits_decode(packed) == jax_tiffio._packbits_decode(packed) == data
+    lzw = _lzw_encode(data)
+    assert port_tiffio._lzw_decode(lzw) == jax_tiffio._lzw_decode(lzw) == data
+
+
+@pytest.mark.parametrize("which", ["jax_slide", "port_slide"])
+def test_tissue_masks_match_jax(which, request) -> None:
+    path = request.getfixturevalue(which)
+    jax_reader, port_reader = JaxReader.open(path), PortReader.open(path)
+    np.testing.assert_array_equal(port_reader.tissue_mask().img, jax_reader.tissue_mask().img)
+    thumb = jax_reader.slide_thumbnail(resolution=2.5, units="power")
+    np.testing.assert_array_equal(
+        port_tissuemask.OtsuTissueMasker().fit_transform([thumb]),
+        jax_tissuemask.OtsuTissueMasker().fit_transform([thumb]),
+    )
+    for kwargs in ({"power": 2.5}, {"kernel_size": 4}, {"kernel_size": 3, "min_region_size": 30}):
+        np.testing.assert_array_equal(
+            port_tissuemask.MorphologicalMasker(**kwargs).fit_transform([thumb]),
+            jax_tissuemask.MorphologicalMasker(**kwargs).fit_transform([thumb]),
+        )
+
+
+@pytest.mark.parametrize("dtype", [np.uint8, np.float32, np.bool_])
+@pytest.mark.parametrize(
+    ("in_hw", "out_wh", "interp", "max_diff"),
+    [
+        ((96, 128), (64, 48), "area", 0),
+        ((96, 128), (32, 24), "area", 0),
+        ((96, 128), (16, 12), "area", 0),
+        ((90, 120), (40, 15), "area", 0),
+        ((96, 128), (50, 37), "area", 1),
+        ((96, 128), (50, 37), "nearest", 0),
+        ((40, 30), (91, 77), "nearest", 0),
+    ],
+)
+def test_imresize_matches_jax(in_hw, out_wh, interp, max_diff, dtype) -> None:
+    rng = np.random.default_rng(5)
+    img = rng.integers(0, 256, (*in_hw, 3)).astype(dtype)
+    want = jax_transforms.imresize(img, output_size=out_wh, interpolation=interp)
+    got = port_transforms.imresize(img, output_size=out_wh, interpolation=interp)
+    assert got.shape == want.shape and got.dtype == want.dtype
+    np.testing.assert_allclose(got.astype(float), want.astype(float), atol=max_diff, rtol=1e-6)
+
+
+def _packbits_encode(data: bytes) -> bytes:
+    out = bytearray()
+    i = 0
+    while i < len(data):
+        run = 1
+        while i + run < len(data) and run < 128 and data[i + run] == data[i]:
+            run += 1
+        if run > 1:
+            out += bytes([257 - run, data[i]])
+            i += run
+            continue
+        j = i
+        while j < len(data) and j - i < 128 and (j + 1 >= len(data) or data[j + 1] != data[j]):
+            j += 1
+        j = max(j, i + 1)
+        out += bytes([j - i - 1]) + data[i:j]
+        i = j
+    return bytes(out)
+
+
+def _lzw_encode(data: bytes) -> bytes:
+    """TIFF LZW (MSB-first codes, early change), for the decoder test."""
+    codes: list[tuple[int, int]] = []
+    table = {bytes([i]): i for i in range(256)}
+    bits, next_code = 9, 258
+    codes.append((256, bits))
+    w = b""
+    for byte in data:
+        wc = w + bytes([byte])
+        if wc in table:
+            w = wc
+            continue
+        codes.append((table[w], bits))
+        table[wc] = next_code
+        next_code += 1
+        if next_code >= (1 << bits) and bits < 12:
+            bits += 1
+        if next_code >= 4094:
+            codes.append((256, bits))
+            table = {bytes([i]): i for i in range(256)}
+            bits, next_code = 9, 258
+        w = bytes([byte])
+    if w:
+        codes.append((table[w], bits))
+    codes.append((257, bits))
+    acc, n_bits, out = 0, 0, bytearray()
+    for code, width in codes:
+        acc = (acc << width) | code
+        n_bits += width
+        while n_bits >= 8:
+            n_bits -= 8
+            out.append((acc >> n_bits) & 255)
+    if n_bits:
+        out.append((acc << (8 - n_bits)) & 255)
+    return bytes(out)

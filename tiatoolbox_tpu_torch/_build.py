@@ -1,0 +1,100 @@
+"""Build the port's CUDA kernels with plain ``nvcc`` and load them with ctypes.
+
+Each kernel source under ``csrc/`` exposes a C interface, so the build needs
+neither PyTorch's headers nor ``torch.utils.cpp_extension``: one ``nvcc``
+call per source compiles in seconds. Libraries go to ``<repo>/build_torch/``,
+named by a hash of the source and the flags, and are built at first use.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+
+PACKAGE_DIR = Path(__file__).resolve().parent
+CSRC_DIR = PACKAGE_DIR / "csrc"
+BUILD_DIR = PACKAGE_DIR.parent / "build_torch"
+
+NVCC_FLAGS = (
+    "-gencode",
+    "arch=compute_90a,code=sm_90a",
+    "-std=c++17",
+    "-O3",
+    "-shared",
+    "-Xcompiler",
+    "-fPIC",
+)
+
+_load_lock = threading.Lock()
+_loaded: dict[str, ctypes.CDLL] = {}
+
+
+def find_nvcc() -> str:
+    """Path of ``nvcc``: on ``PATH``, else under ``CUDA_HOME`` or ``/usr/local/cuda``."""
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cuda_home = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda"))
+    candidate = cuda_home / "bin" / "nvcc"
+    if candidate.exists():
+        return str(candidate)
+    msg = "nvcc not found on PATH, under CUDA_HOME or in /usr/local/cuda/bin."
+    raise RuntimeError(msg)
+
+
+def library_path(source: str) -> Path:
+    """Where the library built from ``csrc/<source>`` lives."""
+    src = CSRC_DIR / source
+    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{src.stem}-{digest.hexdigest()[:16]}.so"
+
+
+def build(source: str) -> Path:
+    """Compile ``csrc/<source>`` into a shared library unless it is built.
+
+    Raises:
+        RuntimeError: ``nvcc`` is missing or fails (the message carries
+            its stderr), or the build directory cannot be written.
+    """
+    out = library_path(source)
+    if out.exists():
+        return out
+    try:
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    except OSError as exc:
+        msg = f"Cannot create the kernel build directory {BUILD_DIR}: {exc}"
+        raise RuntimeError(msg) from exc
+    if not os.access(BUILD_DIR, os.W_OK):
+        msg = f"The kernel build directory {BUILD_DIR} is not writable."
+        raise RuntimeError(msg)
+    # Write under a private name, then rename: concurrent builds of the
+    # same source never see a half-written library.
+    tmp = out.with_name(f"{out.stem}.{os.getpid()}.{threading.get_ident()}.tmp.so")
+    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / source)]
+    proc = subprocess.run(cmd, capture_output=True, text=True, check=False)
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        msg = f"nvcc failed to build {source} (exit {proc.returncode}):\n{proc.stderr}"
+        raise RuntimeError(msg)
+    os.replace(tmp, out)
+    return out
+
+
+def build_all() -> dict[str, Path]:
+    """Build every ``csrc/*.cu``."""
+    return {p.name: build(p.name) for p in sorted(CSRC_DIR.glob("*.cu"))}
+
+
+def load(source: str) -> ctypes.CDLL:
+    """Build (if needed) and load the library of ``csrc/<source>``, once per process."""
+    with _load_lock:
+        lib = _loaded.get(source)
+        if lib is None:
+            lib = ctypes.CDLL(str(build(source)))
+            _loaded[source] = lib
+        return lib
