@@ -56,6 +56,23 @@ def _constants(seed: int) -> dict:
     return norm.prepare_tile_transform(synthetic_he_patch((96, 96), seed=seed + 1))
 
 
+# Pixel counts around the CUDA kernel's 16-pixel lane step and 512-pixel
+# warp step (and one main-path batch of 64x224x224 plus 5), and a contiguous
+# view 3 bytes into a buffer, which the kernel cannot read with 16-byte vectors.
+_RAGGED_PIXELS = {f"{n}_pixels": n for n in (1, 15, 16, 17, 511, 512, 513)}
+RAGGED_CASES = [*_RAGGED_PIXELS, "batch_plus_5_pixels", "view_3_bytes_in"]
+
+
+def _ragged(case: str, device: str = "cpu") -> torch.Tensor:
+    """The uint8 ``[n, 3]`` input of a ragged or misaligned case on ``device``."""
+    rng = np.random.default_rng(RAGGED_CASES.index(case))
+    if case == "view_3_bytes_in":
+        buf = torch.from_numpy(rng.integers(0, 256, 3 + 3 * 4099, dtype=np.uint8)).to(device)
+        return buf[3:].view(-1, 3)
+    n = _RAGGED_PIXELS.get(case, 64 * 224 * 224 + 5)
+    return torch.from_numpy(rng.integers(0, 256, (n, 3), dtype=np.uint8)).to(device)
+
+
 def _assert_u8_close(a: np.ndarray, b: np.ndarray) -> None:
     diff = np.abs(a.astype(np.int16) - b.astype(np.int16))
     assert a.shape == b.shape
@@ -130,6 +147,24 @@ def test_plain_version_matches_jax_stain_transform(seed: int) -> None:
     got = port_stain.stain_transform(
         torch.from_numpy(tiles), c["conc_proj"], c["target_stains"], c["conc_scale"]
     )
+    _assert_u8_close(got.numpy(), want)
+
+
+@pytest.mark.parametrize("case", RAGGED_CASES)
+def test_ragged_and_misaligned_inputs_match_jax_on_cpu(case: str) -> None:
+    tiles, c = _ragged(case), _constants(8)
+    assert tiles.is_contiguous()
+    if case == "view_3_bytes_in":
+        assert tiles.storage_offset() == 3
+    want = np.asarray(
+        jax_stain_transform(
+            jnp.asarray(tiles.numpy()),
+            jnp.asarray(c["conc_proj"]),
+            jnp.asarray(c["target_stains"]),
+            jnp.asarray(c["conc_scale"]),
+        )
+    )
+    got = port_stain.stain_transform(tiles, c["conc_proj"], c["target_stains"], c["conc_scale"])
     _assert_u8_close(got.numpy(), want)
 
 
@@ -256,11 +291,61 @@ def test_build_reports_missing_nvcc_and_unwritable_dir(monkeypatch, tmp_path) ->
     assert name.startswith("libstain-") and name.endswith(".so")
 
 
-def test_cuda_kernel_matches_plain_version_on_the_card() -> None:
+def test_library_hash_follows_headers_and_flags(monkeypatch, tmp_path) -> None:
+    monkeypatch.setattr(_build, "CSRC_DIR", tmp_path)
+    (tmp_path / "k.cu").write_text('#include "k.cuh"\n')
+    before = _build.library_path("k.cu")
+    (tmp_path / "k.cuh").write_text("// a header\n")
+    with_header = _build.library_path("k.cu")
+    (tmp_path / "k.cuh").write_text("// the header, edited\n")
+    edited = _build.library_path("k.cu")
+    monkeypatch.setattr(_build, "NVCC_FLAGS", (*_build.NVCC_FLAGS, "-lineinfo"))
+    flags = _build.library_path("k.cu")
+    assert len({before, with_header, edited, flags}) == 4
+    assert all(p.name.startswith("libk-") for p in (before, with_header, edited, flags))
+
+
+def test_build_keeps_the_ptxas_report(monkeypatch, tmp_path) -> None:
+    """A stand-in nvcc writes the library and ptxas-style lines on stderr."""
+    nvcc = tmp_path / "bin" / "nvcc"
+    nvcc.parent.mkdir()
+    nvcc.write_text(
+        "#!/bin/sh\n"
+        'while [ "$1" != "-o" ]; do shift; done\n'
+        'echo lib > "$2"\n'
+        "echo \"ptxas info    : Compiling entry function 'kern' for 'sm_90a'\" >&2\n"
+        "echo 'ptxas info    : Function properties for kern' >&2\n"
+        "echo '    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads' >&2\n"
+        "echo 'ptxas info    : Used 40 registers, 1024 bytes smem, 440 bytes cmem[0]' >&2\n"
+    )
+    nvcc.chmod(0o755)
+    monkeypatch.setattr(_build.shutil, "which", lambda _name: str(nvcc))
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    lib = _build.build("stain.cu")
+    assert lib.read_text() == "lib\n"
+    assert lib.parent == tmp_path / "build"
+    assert sorted(p.name for p in lib.parent.iterdir()) == sorted([lib.name, lib.stem + ".ptxas"])
+    want = [
+        "ptxas info    : Compiling entry function 'kern' for 'sm_90a'",
+        "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 40 registers, 1024 bytes smem, 440 bytes cmem[0]",
+    ]
+    assert _build.ptxas_report("stain.cu") == want
+    nvcc.unlink()  # built: a second call neither compiles nor needs nvcc
+    assert _build.build("stain.cu") == lib
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["tiles", *RAGGED_CASES])
+def test_cuda_kernel_matches_plain_version_on_the_card(case: str) -> None:
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card; chip_smoke.py runs this check on the card")
-    tiles, c = _tiles(7, (8, 64, 64, 3)), _constants(7)
-    dev = torch.from_numpy(tiles).cuda()
+    c = _constants(7)
+    if case == "tiles":
+        dev = torch.from_numpy(_tiles(7, (8, 64, 64, 3))).cuda()
+    else:
+        dev = _ragged(case, "cuda")
+        assert (dev.data_ptr() % 16 != 0) == (case == "view_3_bytes_in")
     before = port_stain.stain_transform.launches
     got = port_stain.stain_transform(dev, c["conc_proj"], c["target_stains"], c["conc_scale"])
     torch.cuda.synchronize()

@@ -3,7 +3,9 @@
 Each kernel source under ``csrc/`` exposes a C interface, so the build needs
 neither PyTorch's headers nor ``torch.utils.cpp_extension``: one ``nvcc``
 call per source compiles in seconds. Libraries go to ``<repo>/build_torch/``,
-named by a hash of the source and the flags, and are built at first use.
+named by a hash of the source, every ``csrc/*.cuh`` header and the flags, and
+are built at first use. Beside each library a ``.ptxas`` file keeps what
+``ptxas -v`` said of its kernels (registers, spills, shared memory).
 """
 
 from __future__ import annotations
@@ -28,6 +30,8 @@ NVCC_FLAGS = (
     "-shared",
     "-Xcompiler",
     "-fPIC",
+    "-Xptxas",
+    "-v",
 )
 
 _load_lock = threading.Lock()
@@ -50,7 +54,10 @@ def find_nvcc() -> str:
 def library_path(source: str) -> Path:
     """Where the library built from ``csrc/<source>`` lives."""
     src = CSRC_DIR / source
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(src.read_bytes())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        digest.update(header.name.encode() + b"\0" + header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{src.stem}-{digest.hexdigest()[:16]}.so"
 
 
@@ -72,8 +79,9 @@ def build(source: str) -> Path:
     if not os.access(BUILD_DIR, os.W_OK):
         msg = f"The kernel build directory {BUILD_DIR} is not writable."
         raise RuntimeError(msg)
-    # Write under a private name, then rename: concurrent builds of the
-    # same source never see a half-written library.
+    # Write under private names, then rename, the library last: concurrent
+    # builds of the same source never see a half-written library, and a
+    # library always has its ptxas report beside it.
     tmp = out.with_name(f"{out.stem}.{os.getpid()}.{threading.get_ident()}.tmp.so")
     cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / source)]
     proc = subprocess.run(cmd, capture_output=True, text=True, check=False)
@@ -81,8 +89,21 @@ def build(source: str) -> Path:
         tmp.unlink(missing_ok=True)
         msg = f"nvcc failed to build {source} (exit {proc.returncode}):\n{proc.stderr}"
         raise RuntimeError(msg)
+    report = [
+        line.strip()
+        for line in proc.stderr.splitlines()
+        if "Compiling entry function" in line or "registers" in line or "spill" in line
+    ]
+    tmp_report = tmp.with_suffix(".ptxas")
+    tmp_report.write_text("".join(f"{line}\n" for line in report))
+    os.replace(tmp_report, out.with_suffix(".ptxas"))
     os.replace(tmp, out)
     return out
+
+
+def ptxas_report(source: str) -> list[str]:
+    """``ptxas -v``'s lines for the built library of ``csrc/<source>``."""
+    return build(source).with_suffix(".ptxas").read_text().splitlines()
 
 
 def build_all() -> dict[str, Path]:
