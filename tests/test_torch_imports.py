@@ -2,9 +2,9 @@
 
 A subprocess installs a ``sys.meta_path`` finder that refuses jax, flax,
 cv2, yaml, PIL, pandas, tqdm, psutil and the JAX package, imports every
-module of ``tiatoolbox_tpu_torch`` and ``chip_smoke``, and runs the slice
-(stain transform and whole-slide patch classification) on the CPU on a
-tiny slide.
+module of ``tiatoolbox_tpu_torch`` and ``chip_smoke``, and runs the slices
+(stain transform, whole-slide patch classification and whole-slide
+semantic segmentation) on the CPU on a tiny slide.
 """
 
 from __future__ import annotations
@@ -68,6 +68,19 @@ GUARDED_RUN = textwrap.dedent(
                                 verbose=False, device="cpu").run([slide], patch_mode=False, ioconfig=io)
         probs = result[str(slide)]["probabilities"]
         assert probs.shape[1] == 9 and np.allclose(probs.sum(axis=1), 1, atol=1e-4)
+
+        from tiatoolbox_tpu_torch.models.architecture.unet import UNetModel
+        from tiatoolbox_tpu_torch.models.engine import IOSegmentorConfig, SemanticSegmentor
+
+        unet = UNetModel(3, 2, encoder="unet", encoder_levels=[8, 16], device="cpu")
+        seg_io = IOSegmentorConfig(input_resolutions=[{"units": "mpp", "resolution": 0.5}],
+                                   output_resolutions=[{"units": "mpp", "resolution": 0.5}],
+                                   patch_input_shape=(64, 64), patch_output_shape=(32, 32),
+                                   stride_shape=(24, 24))
+        segmentor = SemanticSegmentor(unet, batch_size=4, verbose=False, device="cpu")
+        seg = segmentor.run([slide], patch_mode=False, ioconfig=seg_io, auto_get_mask=False)
+        assert seg[str(slide)]["predictions"].shape == (384, 512)
+        assert segmentor.last_stage_summary["path"] == "device-canvas+region-feed"
 
     leaked = sorted(n for n in sys.modules if n.split(".")[0] in BLOCKED)
     assert not leaked, leaked

@@ -136,3 +136,74 @@ def test_models_run_on_cuda_unless_the_cpu_is_asked_for(monkeypatch) -> None:
     assert CNNModel.infer_batch(port, batch, device="cpu").shape == (1, 2)
     model, _ = get_pretrained_model("resnet18-kather100k", device="cpu")
     assert model.device.type == "cpu"
+
+
+@pytest.mark.parametrize("seed", [2, 3])
+def test_bf16_cnn_model_matches_flax_bf16(seed: int) -> None:
+    """A bfloat16 compute dtype casts the weights too, so the forward runs
+    (it used to fail on a bf16 input against float32 weights). Tolerance
+    2e-2 on probabilities: bf16 rounds at other places in the two frameworks."""
+    jax_model = JaxCNNModel("resnet18", num_classes=9)
+    jax_model.init(input_shape=(1, 64, 64, 3))
+    variables = _randomize(jax_model.variables, seed)
+    jax_bf16 = JaxCNNModel("resnet18", num_classes=9, compute_dtype=jax.numpy.bfloat16)
+    jax_bf16.load_weights(variables)
+    jax_bf16.optimize_for_inference()
+    port = CNNModel("resnet18", num_classes=9, compute_dtype=torch.bfloat16, device="cpu")
+    port.load_state_dict(flax_resnet_to_torch(variables))
+    assert {p.dtype for p in port.parameters()} == {torch.bfloat16}
+    batch = np.random.default_rng(seed).integers(0, 256, (3, 64, 64, 3), dtype=np.uint8)
+    got = CNNModel.infer_batch(port, batch)
+    assert got.dtype == np.float32 and got.shape == (3, 9)
+    np.testing.assert_allclose(got.sum(axis=1), 1.0, atol=1e-5)
+    want = np.asarray(JaxCNNModel.infer_batch(jax_bf16, batch))
+    np.testing.assert_allclose(got, want, atol=2e-2, rtol=0)
+
+
+def test_local_checkpoints_are_found_and_loaded_in_the_jax_order(monkeypatch, tmp_path) -> None:
+    """``get_pretrained_model`` without weights looks under
+    ``TIATOOLBOX_HOME/models`` for ``.npz``, then ``.pth``, then ``.tar``,
+    as the JAX package's ``fetch_pretrained_weights`` does."""
+    from tiatoolbox_tpu import rcParam as jax_rc
+    from tiatoolbox_tpu.models.architecture import fetch_pretrained_weights as jax_fetch
+    from tiatoolbox_tpu.models.architecture.weight_converter import save_flax_npz, torch_unet_to_flax
+    from tiatoolbox_tpu_torch import rcParam
+    from tiatoolbox_tpu_torch.models.architecture import fetch_pretrained_weights
+    from tiatoolbox_tpu_torch.models.architecture.unet import UNetModel
+
+    monkeypatch.setitem(rcParam, "TIATOOLBOX_HOME", tmp_path)
+    monkeypatch.setitem(jax_rc, "TIATOOLBOX_HOME", tmp_path)
+    models = tmp_path / "models"
+    models.mkdir()
+    name = "resnet18-kather100k"
+
+    def loaded_equals(want: dict) -> None:
+        model, _ = get_pretrained_model(name, device="cpu")
+        for key, value in model.state_dict().items():
+            torch.testing.assert_close(value, want[key], rtol=0, atol=0)
+
+    assert fetch_pretrained_weights(name) is None is jax_fetch(name)
+    tar_state = CNNModel("resnet18", num_classes=9, seed=11, device="cpu").state_dict()
+    torch.save({"state_dict": tar_state}, models / f"{name}.tar")
+    loaded_equals(tar_state)
+    pth_state = CNNModel("resnet18", num_classes=9, seed=12, device="cpu").state_dict()
+    torch.save(pth_state, models / f"{name}.pth")
+    assert fetch_pretrained_weights(name) == models / f"{name}.pth" == jax_fetch(name)
+    loaded_equals(pth_state)
+    npz_state = CNNModel("resnet18", num_classes=9, seed=13, device="cpu").state_dict()
+    save_flax_npz(
+        torch_resnet_to_flax({k: v.numpy() for k, v in npz_state.items()}), models / f"{name}.npz"
+    )
+    assert fetch_pretrained_weights(name) == models / f"{name}.npz" == jax_fetch(name)
+    loaded_equals(npz_state)
+
+    unet_state = UNetModel(3, 2, decoder_block=(3,), seed=14, device="cpu").state_dict()
+    save_flax_npz(
+        torch_unet_to_flax({k: v.numpy() for k, v in unet_state.items()}),
+        models / "fcn-tissue_mask.npz",
+    )
+    unet, ioconfig = get_pretrained_model("fcn-tissue_mask", device="cpu")
+    assert isinstance(unet, UNetModel) and tuple(ioconfig.patch_output_shape) == (512, 512)
+    assert unet.preproc_func is UNetModel.preproc
+    for key, value in unet.state_dict().items():
+        torch.testing.assert_close(value, unet_state[key], rtol=0, atol=0)

@@ -91,7 +91,7 @@ def resolve_device(device: str | torch.device | None = None) -> torch.device:
     return dev
 
 
-# The ``resnet18-kather100k`` entry of ``tiatoolbox_tpu/data/pretrained_model.yaml``.
+# Entries of ``tiatoolbox_tpu/data/pretrained_model.yaml``, copied by hand.
 PRETRAINED_MODELS: dict = {
     "resnet18-kather100k": {
         "architecture": {
@@ -105,6 +105,52 @@ PRETRAINED_MODELS: dict = {
                 "input_resolutions": [{"resolution": 0.5, "units": "mpp"}],
                 "patch_input_shape": [224, 224],
                 "stride_shape": [224, 224],
+            },
+        },
+    },
+    "fcn-tissue_mask": {
+        "architecture": {
+            "class": "unet.UNetModel",
+            "kwargs": {
+                "decoder_block": [3],
+                "encoder": "resnet50",
+                "num_input_channels": 3,
+                "num_output_channels": 2,
+            },
+        },
+        "ioconfig": {
+            "class": "IOSegmentorConfig",
+            "kwargs": {
+                "ignore_index": 0,
+                "input_resolutions": [{"resolution": 2.0, "units": "mpp"}],
+                "output_resolutions": [{"resolution": 2.0, "units": "mpp"}],
+                "patch_input_shape": [1024, 1024],
+                "patch_output_shape": [512, 512],
+                "save_resolution": {"resolution": 8.0, "units": "mpp"},
+                "stride_shape": [450, 450],
+            },
+        },
+    },
+    "fcn_resnet50_unet-bcss": {
+        "architecture": {
+            "class": "unet.UNetModel",
+            "kwargs": {
+                "decoder_block": [3, 3],
+                "encoder": "resnet50",
+                "num_input_channels": 3,
+                "num_output_channels": 5,
+            },
+        },
+        "ioconfig": {
+            "class": "IOSegmentorConfig",
+            "kwargs": {
+                "ignore_index": 0,
+                "input_resolutions": [{"resolution": 0.25, "units": "mpp"}],
+                "output_resolutions": [{"resolution": 0.25, "units": "mpp"}],
+                "patch_input_shape": [1024, 1024],
+                "patch_output_shape": [512, 512],
+                "save_resolution": {"resolution": 0.25, "units": "mpp"},
+                "stride_shape": [450, 450],
             },
         },
     },

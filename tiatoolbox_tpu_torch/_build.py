@@ -16,6 +16,7 @@ import os
 import shutil
 import subprocess
 import threading
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 PACKAGE_DIR = Path(__file__).resolve().parent
@@ -107,8 +108,10 @@ def ptxas_report(source: str) -> list[str]:
 
 
 def build_all() -> dict[str, Path]:
-    """Build every ``csrc/*.cu``."""
-    return {p.name: build(p.name) for p in sorted(CSRC_DIR.glob("*.cu"))}
+    """Build every ``csrc/*.cu``, one ``nvcc`` per source, all started together."""
+    names = [p.name for p in sorted(CSRC_DIR.glob("*.cu"))]
+    with ThreadPoolExecutor(max(1, len(names))) as pool:
+        return dict(zip(names, pool.map(build, names)))
 
 
 def load(source: str) -> ctypes.CDLL:

@@ -2,17 +2,56 @@
 
 ``get_pretrained_model`` is the counterpart of
 ``tiatoolbox_tpu/models/architecture/__init__.py:89``: it builds a registry
-model and its ioconfig. Weights load from a local ``.pth`` ``state_dict``
-only; without one the model keeps its seeded random initialisation.
+model (``vanilla.CNNModel`` or ``unet.UNetModel``) and its ioconfig.
+Without ``pretrained_weights`` it looks for a local checkpoint first
+(``fetch_pretrained_weights``, :21-43), in the JAX package's order: flax
+``.npz``, then torch ``.pth`` and ``.tar`` ``state_dict``s. It never
+downloads; without a checkpoint the model keeps its seeded random
+initialisation.
 """
 
 from __future__ import annotations
 
+import importlib
 from pathlib import Path
 
 import torch
 
-from tiatoolbox_tpu_torch import PRETRAINED_MODELS, logger
+from tiatoolbox_tpu_torch import PRETRAINED_MODELS, logger, rcParam
+
+
+def fetch_pretrained_weights(model_name: str) -> Path | None:
+    """The first of ``{name}.npz``, ``.pth`` and ``.tar`` under
+    ``rcParam["TIATOOLBOX_HOME"]/models``, or None."""
+    home = Path(rcParam["TIATOOLBOX_HOME"]) / "models"
+    for suffix in (".npz", ".pth", ".tar"):
+        candidate = home / f"{model_name}{suffix}"
+        if candidate.exists():
+            return candidate
+    return None
+
+
+def load_weights(model, path: str | Path) -> None:
+    """Load a flax ``.npz`` (through the converter) or a torch ``state_dict`` into ``model``."""
+    from tiatoolbox_tpu_torch.models.architecture import weight_converter
+    from tiatoolbox_tpu_torch.models.architecture.unet import UNetModel
+
+    path = Path(path)
+    if path.suffix == ".npz":
+        variables = weight_converter.load_flax_npz(path)
+        convert = (
+            weight_converter.flax_unet_to_torch
+            if isinstance(model, UNetModel)
+            else weight_converter.flax_resnet_to_torch
+        )
+        state = convert(variables)
+    else:
+        state = torch.load(path, map_location="cpu", weights_only=True)
+        if "state_dict" in state:
+            state = state["state_dict"]
+        # the reference UNet's fixed nearest-upsample matrix is no parameter
+        state.pop("upsample2x.unpool_mat", None)
+    model.load_state_dict(state)
 
 
 def get_pretrained_model(
@@ -27,7 +66,6 @@ def get_pretrained_model(
     Returns:
         (ModelABC, ModelIOConfigABC) tuple.
     """
-    from tiatoolbox_tpu_torch.models.architecture import vanilla
     from tiatoolbox_tpu_torch.models.dataset.classification import predefined_preproc_func
     from tiatoolbox_tpu_torch.models.engine import io_config
 
@@ -36,15 +74,22 @@ def get_pretrained_model(
         raise ValueError(msg)
     cfg = PRETRAINED_MODELS[pretrained_model]
     arch = cfg["architecture"]
-    model = getattr(vanilla, arch["class"].rsplit(".", 1)[-1])(**arch["kwargs"], device=device)
+    module_name, class_name = arch["class"].rsplit(".", 1)
+    module = importlib.import_module(f"tiatoolbox_tpu_torch.models.architecture.{module_name}")
+    model = getattr(module, class_name)(**arch["kwargs"], device=device)
+    if pretrained_weights is None:
+        pretrained_weights = fetch_pretrained_weights(pretrained_model)
     if pretrained_weights is not None:
-        model.load_state_dict(torch.load(pretrained_weights, map_location="cpu"))
+        load_weights(model, pretrained_weights)
     else:
         logger.warning(
-            "No weights given for %s; using the seeded random initialisation.",
+            "No local weights found for %s under %s/models; using the seeded "
+            "random initialisation.",
             pretrained_model,
+            rcParam["TIATOOLBOX_HOME"],
         )
-    model.preproc_func = predefined_preproc_func(cfg["dataset"])
+    if "dataset" in cfg:
+        model.preproc_func = predefined_preproc_func(cfg["dataset"])
     io_cfg = cfg["ioconfig"]
     ioconfig = getattr(io_config, io_cfg["class"])(**io_cfg["kwargs"])
     return model, ioconfig

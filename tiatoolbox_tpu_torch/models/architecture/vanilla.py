@@ -6,7 +6,8 @@ the reference tiatoolbox ``CNNModel``, so its ``.pth`` checkpoints load as
 they are. ``forward`` returns logits; ``infer_batch_device`` adds the
 softmax in float32, as the flax module's ``__call__`` does. The model is
 built on ``resolve_device(device)``: CUDA unless ``device="cpu"`` is asked
-for, and an error where CUDA is asked for and absent.
+for, and an error where CUDA is asked for and absent. A reduced-precision
+``compute_dtype`` casts the weights too (``ModelABC.place``).
 """
 
 from __future__ import annotations
@@ -14,7 +15,6 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from tiatoolbox_tpu_torch import resolve_device
 from tiatoolbox_tpu_torch.models.architecture.resnet import (
     RESNET_CONFIGS,
     RESNET_FEATURES,
@@ -52,8 +52,7 @@ class CNNModel(ModelABC):
         self.feat_extract = ResNet(**RESNET_CONFIGS[backbone])
         self.classifier = nn.Linear(RESNET_FEATURES[backbone], num_classes)
         init_resnet_weights(self, torch.Generator().manual_seed(seed))
-        self.to(resolve_device(device), memory_format=torch.channels_last)
-        self.eval()
+        self.place(device)
 
     def forward(self, batch: torch.Tensor) -> torch.Tensor:
         """NHWC float batch -> logits ``[N, num_classes]``."""

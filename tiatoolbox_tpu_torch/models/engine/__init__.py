@@ -1,1 +1,9 @@
 """Inference engines of the port."""
+
+from tiatoolbox_tpu_torch.models.engine.io_config import (  # noqa: F401
+    IOPatchPredictorConfig,
+    IOSegmentorConfig,
+    ModelIOConfigABC,
+)
+from tiatoolbox_tpu_torch.models.engine.patch_predictor import PatchPredictor  # noqa: F401
+from tiatoolbox_tpu_torch.models.engine.semantic_segmentor import SemanticSegmentor  # noqa: F401

@@ -28,7 +28,8 @@ class EngineABC(ABC):
 
     Args:
         model: Registry name or a ``ModelABC``.
-        weights: Optional local ``.pth`` ``state_dict``.
+        weights: Optional local checkpoint: a ``.pth``/``.tar`` ``state_dict``
+            or a flax ``.npz``.
         batch_size: Fixed device batch size.
         num_loader_workers: Host reader threads.
         device: Where the model runs; ``rcParam["device"]`` by default.
@@ -77,9 +78,9 @@ class EngineABC(ABC):
             return get_pretrained_model(model, weights, device)
         if isinstance(model, ModelABC):
             if weights is not None:
-                import torch
+                from tiatoolbox_tpu_torch.models.architecture import load_weights
 
-                model.load_state_dict(torch.load(weights, map_location="cpu"))
+                load_weights(model, weights)
             return model, None
         msg = "`model` must be a registry name or a ModelABC instance."
         raise TypeError(msg)

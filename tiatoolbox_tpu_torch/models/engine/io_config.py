@@ -1,8 +1,9 @@
 """Model I/O configuration (counterpart of ``tiatoolbox_tpu/models/engine/io_config.py``).
 
-``ModelIOConfigABC`` (:16) and ``IOPatchPredictorConfig`` (:108), copied:
-resolution lists per input/output head, patch and stride shapes, and the
-highest-input-resolution selection.
+``ModelIOConfigABC`` (:16), ``IOPatchPredictorConfig`` (:108) and
+``IOSegmentorConfig`` (:113-125), copied: resolution lists per input/output
+head, patch and stride shapes, the highest-input-resolution selection, and
+for segmentation the output patch shape, save resolution and tile shape.
 """
 
 from __future__ import annotations
@@ -62,3 +63,17 @@ class ModelIOConfigABC:
 @dataclass
 class IOPatchPredictorConfig(ModelIOConfigABC):
     """I/O config for patch prediction (reference ``io_config.py:326``)."""
+
+
+@dataclass
+class IOSegmentorConfig(ModelIOConfigABC):
+    """I/O config for segmentation; adds output patch shape + save resolution."""
+
+    patch_output_shape: tuple | list | np.ndarray = None
+    save_resolution: dict | None = None
+    tile_shape: tuple | list | np.ndarray = None
+
+    def __post_init__(self) -> None:
+        super().__post_init__()
+        if self.patch_output_shape is None:
+            self.patch_output_shape = self.patch_input_shape

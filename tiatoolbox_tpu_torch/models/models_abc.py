@@ -12,7 +12,11 @@ methods keep the JAX names:
   the device tensor without a synchronisation. A ``device`` given to either
   moves the model there first (through ``resolve_device``, which raises
   where CUDA is asked for and absent); without one the model runs where
-  its parameters are.
+  its parameters are;
+- ``place`` puts a built model on its device and, for a compute dtype
+  other than float32, casts its floating parameters and buffers to that
+  dtype, as ``optimize_for_inference`` (:171-190) casts the flax variables,
+  so the forward runs in that dtype.
 """
 
 from __future__ import annotations
@@ -39,6 +43,14 @@ class ModelABC(nn.Module):
         self.compute_dtype = compute_dtype or rcParam["compute_dtype"]
         self._preproc_func: Callable | None = None
         self._transfer_streams: dict[torch.device, torch.cuda.Stream] = {}
+
+    def place(self, device: str | torch.device | None = None) -> None:
+        """Move to ``resolve_device(device)`` in channels_last, cast to the
+        compute dtype unless it is float32, and switch to eval mode."""
+        self.to(resolve_device(device), memory_format=torch.channels_last)
+        if self.compute_dtype != torch.float32:
+            self.to(self.compute_dtype)
+        self.eval()
 
     @property
     def device(self) -> torch.device:
