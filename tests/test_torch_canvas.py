@@ -3,7 +3,9 @@
 ``scatter_accumulate`` and ``extract_patches`` are held to exact equality:
 both sides add float32 patches in the same order one element at a time, or
 copy bytes. Normalisation is one IEEE division and a round-to-nearest cast,
-also exact. ``BandPlan.build`` must equal the JAX plan field by field. The
+also exact, and so is the packed plane of the multitask engine
+(``pack_fg_tp``: the same division, ``>= 0.5``, half-to-even rounding and
+shift as JAX's normalised block with HoVerNet's ``block_fetch_transform``). ``BandPlan.build`` must equal the JAX plan field by field. The
 card tests (marker ``cuda``) hold each CUDA kernel against its plain
 version bit for bit; they skip where there is no card.
 """
@@ -199,6 +201,50 @@ def test_band_plan_cases_cover_accepted_and_rejected_grids() -> None:
     assert bands("irregular_mesh") is bands("stride_not_uniform") is bands("sizes_differ") is None
 
 
+def _pack_canvas(seed: int):
+    """A 4-channel [np, hv0, hv1, tp] canvas and count whose normalised type
+    values land on halves (2.5, 3.5, ...), so half-to-even rounding shows."""
+    rng = np.random.default_rng(seed)
+    count = rng.integers(0, 4, (H, W, 1)).astype(np.float32)
+    c = rng.random((H, W, 4), dtype=np.float32)
+    c[..., 0] = np.where(rng.random((H, W)) < 0.2, 0.5, c[..., 0]) * np.maximum(count[..., 0], 1)
+    c[..., 3] = rng.integers(0, 12, (H, W)).astype(np.float32) / 2 * np.maximum(count[..., 0], 1)
+    return c, count
+
+
+@pytest.mark.parametrize(("with_tp", "crop"), [(True, (H, W)), (True, (H - 3, W - 5)), (False, (H, W))])
+def test_pack_fg_tp_equals_jax_block_fetch(with_tp: bool, crop) -> None:
+    from types import SimpleNamespace
+
+    from tiatoolbox_tpu.models.architecture.hovernet import HoVerNet as JaxHoVerNet
+    from tiatoolbox_tpu.models.engine.semantic_segmentor import SemanticSegmentor as JaxSegmentor
+
+    c, n = _pack_canvas(7)
+    head_channels = [1, 2, 1] if with_tp else [1, 2]
+    c = c if with_tp else c[..., :3].copy()
+    h, w = crop
+    block_fn = JaxSegmentor._make_normalized_block_fn(
+        None,
+        SimpleNamespace(canvas=jnp.asarray(c), count=jnp.asarray(n)),
+        w,
+        transform=lambda rows: JaxHoVerNet.block_fetch_transform(None, rows, head_channels),
+    )
+    want = np.asarray(block_fn(0, h))
+    got = canvas.pack_fg_tp(
+        torch.from_numpy(c), torch.from_numpy(n), h, w, tp_channel=3 if with_tp else -1
+    )
+    assert got.dtype == torch.uint8 and tuple(got.shape) == (h, w, 1)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_pack_fg_tp_rejects_bad_arguments() -> None:
+    c, n = (torch.from_numpy(a) for a in _pack_canvas(1))
+    with pytest.raises(ValueError, match="does not fit"):
+        canvas.pack_fg_tp(c, n, H + 1, W)
+    with pytest.raises(ValueError, match="outside"):
+        canvas.pack_fg_tp(c, n, H, W, tp_channel=4)
+
+
 def _on_card() -> None:
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card; chip_smoke.py runs this check on the card")
@@ -259,5 +305,18 @@ def test_extract_kernel_matches_plain_version_on_the_card(pw: int) -> None:
     starts = np.array([[0, 0], [5, 7], [21, 29], [3, 0], [-3, 40]], np.int32)
     got = region.extract_patches(band, starts, (16, pw))
     want = region.extract_patches_reference(band, starts, (16, pw))
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    ("tp_channel", "crop"), [(3, (H, W)), (3, (H - 3, W - 5)), (-1, (H, W)), (3, (1, 1))]
+)
+def test_pack_kernel_matches_plain_version_on_the_card(tp_channel: int, crop) -> None:
+    _on_card()
+    c, n = (torch.from_numpy(a).cuda() for a in _pack_canvas(3))
+    got = canvas.pack_fg_tp(c, n, *crop, tp_channel=tp_channel)
+    want = canvas.pack_fg_tp_reference(c, n, *crop, tp_channel=tp_channel)
     torch.cuda.synchronize()
     assert torch.equal(got, want)

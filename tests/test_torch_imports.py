@@ -3,8 +3,9 @@
 A subprocess installs a ``sys.meta_path`` finder that refuses jax, flax,
 cv2, yaml, PIL, pandas, tqdm, psutil and the JAX package, imports every
 module of ``tiatoolbox_tpu_torch`` and ``chip_smoke``, and runs the slices
-(stain transform, whole-slide patch classification and whole-slide
-semantic segmentation) on the CPU on a tiny slide.
+(stain transform, whole-slide patch classification, whole-slide semantic
+segmentation and whole-slide nucleus instance segmentation, which builds
+and loads the host C++ library) on the CPU on a tiny slide.
 """
 
 from __future__ import annotations
@@ -81,6 +82,20 @@ GUARDED_RUN = textwrap.dedent(
         seg = segmentor.run([slide], patch_mode=False, ioconfig=seg_io, auto_get_mask=False)
         assert seg[str(slide)]["predictions"].shape == (384, 512)
         assert segmentor.last_stage_summary["path"] == "device-canvas+region-feed"
+
+        from tiatoolbox_tpu_torch.models.architecture import get_pretrained_model
+        from tiatoolbox_tpu_torch.models.architecture.hovernet_checkpoint import (
+            functional_hovernet_state_dict,
+        )
+        from tiatoolbox_tpu_torch.models.engine import MultiTaskSegmentor
+
+        small = make_synthetic_slide(f"{tmp}/nuclei.tiff", size=(164, 164), mpp=0.25,
+                                     objective_power=40, seed=5)
+        hovernet, hv_io = get_pretrained_model("hovernet_fast-pannuke", device="cpu")
+        hovernet.load_state_dict(functional_hovernet_state_dict())
+        nuclei = MultiTaskSegmentor(hovernet, batch_size=2, verbose=False, device="cpu").run(
+            [small], patch_mode=False, ioconfig=hv_io, auto_get_mask=False)
+        assert len(nuclei[str(small)]["instances"]) > 0
 
     leaked = sorted(n for n in sys.modules if n.split(".")[0] in BLOCKED)
     assert not leaked, leaked

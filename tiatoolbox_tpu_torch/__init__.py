@@ -155,3 +155,69 @@ PRETRAINED_MODELS: dict = {
         },
     },
 }
+
+_HOVERNET_RESOLUTION = {"resolution": 0.25, "units": "mpp"}
+
+
+def _hovernet_entry(
+    mode: str, num_types, nuc_type_dict, patch: int, out: int, tile: int, *, ignore_index: bool = True
+) -> dict:
+    """A ``hovernet.HoVerNet`` registry entry (``pretrained_model.yaml:666-829``)."""
+    kwargs = {
+        "input_resolutions": [dict(_HOVERNET_RESOLUTION)],
+        "margin": 128,
+        "output_resolutions": [dict(_HOVERNET_RESOLUTION) for _ in range(3 if num_types else 2)],
+        "patch_input_shape": [patch, patch],
+        "patch_output_shape": [out, out],
+        "save_resolution": dict(_HOVERNET_RESOLUTION),
+        "stride_shape": [out, out],
+        "tile_shape": [tile, tile],
+    }
+    if ignore_index:
+        kwargs["ignore_index"] = 0
+    arch = {"mode": mode, "num_types": num_types}
+    if nuc_type_dict is not None:
+        arch["nuc_type_dict"] = nuc_type_dict
+    return {
+        "architecture": {"class": "hovernet.HoVerNet", "kwargs": arch},
+        "ioconfig": {"class": "IOInstanceSegmentorConfig", "kwargs": kwargs},
+    }
+
+
+PRETRAINED_MODELS.update(
+    {
+        "hovernet_fast-monusac": _hovernet_entry(
+            "fast",
+            5,
+            {0: "Background", 1: "Epithelial", 2: "Lymphocyte", 3: "Macrophage", 4: "Neutrophil"},
+            256,
+            164,
+            1024,
+        ),
+        "hovernet_fast-pannuke": _hovernet_entry(
+            "fast",
+            6,
+            {
+                0: "Background",
+                1: "Neoplastic",
+                2: "Inflammatory",
+                3: "Connective",
+                4: "Dead",
+                5: "Non-Neoplastic Epithelial",
+            },
+            256,
+            164,
+            1024,
+        ),
+        "hovernet_original-consep": _hovernet_entry(
+            "original",
+            5,
+            {0: "Background", 1: "Epithelial", 2: "Inflammatory", 3: "Spindle-Shaped", 4: "Miscellaneous"},
+            270,
+            80,
+            1024,
+            ignore_index=False,
+        ),
+        "hovernet_original-kumar": _hovernet_entry("original", None, None, 270, 80, 2048),
+    }
+)

@@ -1,11 +1,13 @@
-"""Build the port's CUDA kernels with plain ``nvcc`` and load them with ctypes.
+"""Build the port's CUDA kernels and host C++ and load them with ctypes.
 
-Each kernel source under ``csrc/`` exposes a C interface, so the build needs
+Each source under ``csrc/`` exposes a C interface, so the build needs
 neither PyTorch's headers nor ``torch.utils.cpp_extension``: one ``nvcc``
-call per source compiles in seconds. Libraries go to ``<repo>/build_torch/``,
-named by a hash of the source, every ``csrc/*.cuh`` header and the flags, and
-are built at first use. Beside each library a ``.ptxas`` file keeps what
-``ptxas -v`` said of its kernels (registers, spills, shared memory).
+call per CUDA source (``*.cu``) and one ``g++`` call per host source
+(``*.cpp``) compiles in seconds. Libraries go to ``<repo>/build_torch/``,
+named by a hash of the source, every ``csrc/*.cuh`` header and the
+compiler's flags, and are built at first use. Beside each CUDA library a
+``.ptxas`` file keeps what ``ptxas -v`` said of its kernels (registers,
+spills, shared memory). A failed build raises; nothing falls back.
 """
 
 from __future__ import annotations
@@ -35,6 +37,8 @@ NVCC_FLAGS = (
     "-v",
 )
 
+HOST_FLAGS = ("-std=c++17", "-O3", "-shared", "-fPIC")
+
 _load_lock = threading.Lock()
 _loaded: dict[str, ctypes.CDLL] = {}
 
@@ -52,13 +56,30 @@ def find_nvcc() -> str:
     raise RuntimeError(msg)
 
 
+def find_gxx() -> str:
+    """Path of the host C++ compiler ``g++`` on ``PATH``."""
+    found = shutil.which("g++")
+    if not found:
+        msg = "g++ not found on PATH; it builds the port's host C++ (csrc/*.cpp)."
+        raise RuntimeError(msg)
+    return found
+
+
+def _is_host(source: str) -> bool:
+    return source.endswith(".cpp")
+
+
+def _flags(source: str) -> tuple[str, ...]:
+    return HOST_FLAGS if _is_host(source) else NVCC_FLAGS
+
+
 def library_path(source: str) -> Path:
     """Where the library built from ``csrc/<source>`` lives."""
     src = CSRC_DIR / source
     digest = hashlib.sha256(src.read_bytes())
     for header in sorted(CSRC_DIR.glob("*.cuh")):
         digest.update(header.name.encode() + b"\0" + header.read_bytes())
-    digest.update(" ".join(NVCC_FLAGS).encode())
+    digest.update(" ".join(_flags(source)).encode())
     return BUILD_DIR / f"lib{src.stem}-{digest.hexdigest()[:16]}.so"
 
 
@@ -66,8 +87,9 @@ def build(source: str) -> Path:
     """Compile ``csrc/<source>`` into a shared library unless it is built.
 
     Raises:
-        RuntimeError: ``nvcc`` is missing or fails (the message carries
-            its stderr), or the build directory cannot be written.
+        RuntimeError: the compiler (``nvcc``, or ``g++`` for a ``.cpp``) is
+            missing or fails (the message carries its stderr), or the build
+            directory cannot be written.
     """
     out = library_path(source)
     if out.exists():
@@ -84,11 +106,15 @@ def build(source: str) -> Path:
     # builds of the same source never see a half-written library, and a
     # library always has its ptxas report beside it.
     tmp = out.with_name(f"{out.stem}.{os.getpid()}.{threading.get_ident()}.tmp.so")
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / source)]
+    compiler = find_gxx() if _is_host(source) else find_nvcc()
+    cmd = [compiler, *_flags(source), "-o", str(tmp), str(CSRC_DIR / source)]
     proc = subprocess.run(cmd, capture_output=True, text=True, check=False)
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
-        msg = f"nvcc failed to build {source} (exit {proc.returncode}):\n{proc.stderr}"
+        msg = (
+            f"{Path(compiler).name} failed to build {source} "
+            f"(exit {proc.returncode}):\n{proc.stderr}"
+        )
         raise RuntimeError(msg)
     report = [
         line.strip()
@@ -103,13 +129,14 @@ def build(source: str) -> Path:
 
 
 def ptxas_report(source: str) -> list[str]:
-    """``ptxas -v``'s lines for the built library of ``csrc/<source>``."""
+    """``ptxas -v``'s lines for the built library of ``csrc/<source>`` (none for host C++)."""
     return build(source).with_suffix(".ptxas").read_text().splitlines()
 
 
 def build_all() -> dict[str, Path]:
-    """Build every ``csrc/*.cu``, one ``nvcc`` per source, all started together."""
-    names = [p.name for p in sorted(CSRC_DIR.glob("*.cu"))]
+    """Build every ``csrc/*.cu`` and ``csrc/*.cpp``, one compiler process per
+    source, all started together."""
+    names = [p.name for p in sorted([*CSRC_DIR.glob("*.cu"), *CSRC_DIR.glob("*.cpp")])]
     with ThreadPoolExecutor(max(1, len(names))) as pool:
         return dict(zip(names, pool.map(build, names)))
 

@@ -1,5 +1,5 @@
-// Whole-slide canvas stitching for Hopper (sm_90a): scatter-accumulate (K2)
-// and normalise-crop-cast (K3).
+// Whole-slide canvas stitching for Hopper (sm_90a): scatter-accumulate (K2),
+// normalise-crop-cast (K3) and normalise-and-pack (K6).
 //
 // K2 replaces the XLA program `scatter_accumulate` in
 // tiatoolbox_tpu/ops/canvas.py:19-72, a lax.scan of dynamic_update_slice:
@@ -26,7 +26,16 @@
 // division is IEEE (no --use_fast_math) and the float16 cast rounds to
 // nearest even, as PyTorch's `.to(torch.float16)` does.
 //
-// Both are bound by device memory: K2 reads the patches once and reads and
+// K6 replaces the pointwise fetch plane of the multitask engine:
+// `_make_normalized_block_fn` (semantic_segmentor.py:461-495) with HoVerNet's
+// `block_fetch_transform` (hovernet.py:662-672). For rows [0, h) and columns
+// [0, w) it packs (canvas[np] / max(count, 1) >= 0.5) in bit 0 and
+// round(canvas[tp] / max(count, 1)) (half to even, as jnp.round) shifted left
+// by one into one uint8. It reads the two channels and the count (12 bytes a
+// pixel) and writes 1 byte; the same IEEE divide, compare, rint and shift as
+// the plain version, so the two agree bit for bit.
+//
+// All three are bound by device memory: K2 reads the patches once and reads and
 // writes the covered canvas and count once; K3 reads the canvas rows and
 // their counts and writes the output once. Neither does more than one
 // arithmetic operation per byte. Both kernels are simple, with 4-byte
@@ -156,6 +165,42 @@ extern "C" int canvas_normalize_rows(const float* canvas, const float* count, in
         normalize_rows_kernel<float><<<grid, kThreads, 0, s>>>(
             canvas, count, width, channels, y0, bh, row_elems, static_cast<float*>(out));
     }
+    return static_cast<int>(cudaGetLastError());
+}
+
+// One thread per output pixel, grid-striding over the h x w crop.
+__global__ void pack_fg_tp_kernel(const float* __restrict__ canvas, const float* __restrict__ count,
+                                  int64_t width, int channels, int tp_channel, int h, int w,
+                                  uint8_t* __restrict__ out) {
+    const int64_t n = static_cast<int64_t>(h) * w;
+    for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x; i < n;
+         i += static_cast<int64_t>(gridDim.x) * blockDim.x) {
+        const int64_t y = i / w;
+        const int64_t pixel = y * width + (i - y * w);
+        const float hits = fmaxf(count[pixel], 1.0f);
+        const float* at = canvas + pixel * channels;
+        unsigned v = at[0] / hits >= 0.5f ? 1u : 0u;
+        if (tp_channel >= 0) {
+            const unsigned tp = static_cast<unsigned>(rintf(at[tp_channel] / hits));
+            v |= (tp << 1) & 0xffu;
+        }
+        out[i] = static_cast<uint8_t>(v);
+    }
+}
+
+// out: uint8 [h, w]; channel 0 is the foreground probability; tp_channel < 0
+// packs the foreground bit only.
+extern "C" int canvas_pack_fg_tp(const float* canvas, const float* count, int64_t width,
+                                 int channels, int tp_channel, int h, int w, uint8_t* out,
+                                 cudaStream_t s) {
+    if (h <= 0 || w <= 0) {
+        return static_cast<int>(cudaSuccess);
+    }
+    const int64_t n = static_cast<int64_t>(h) * w;
+    const int64_t want = (n + kThreads - 1) / kThreads;
+    const int blocks = static_cast<int>(want < 132 * 32 ? want : 132 * 32);
+    pack_fg_tp_kernel<<<blocks, kThreads, 0, s>>>(canvas, count, width, channels, tp_channel, h,
+                                                  w, out);
     return static_cast<int>(cudaGetLastError());
 }
 

@@ -2,7 +2,8 @@
 
 ``get_pretrained_model`` is the counterpart of
 ``tiatoolbox_tpu/models/architecture/__init__.py:89``: it builds a registry
-model (``vanilla.CNNModel`` or ``unet.UNetModel``) and its ioconfig.
+model (``vanilla.CNNModel``, ``unet.UNetModel`` or ``hovernet.HoVerNet``)
+and its ioconfig.
 Without ``pretrained_weights`` it looks for a local checkpoint first
 (``fetch_pretrained_weights``, :21-43), in the JAX package's order: flax
 ``.npz``, then torch ``.pth`` and ``.tar`` ``state_dict``s. It never
@@ -34,16 +35,18 @@ def fetch_pretrained_weights(model_name: str) -> Path | None:
 def load_weights(model, path: str | Path) -> None:
     """Load a flax ``.npz`` (through the converter) or a torch ``state_dict`` into ``model``."""
     from tiatoolbox_tpu_torch.models.architecture import weight_converter
+    from tiatoolbox_tpu_torch.models.architecture.hovernet import HoVerNet
     from tiatoolbox_tpu_torch.models.architecture.unet import UNetModel
 
     path = Path(path)
     if path.suffix == ".npz":
         variables = weight_converter.load_flax_npz(path)
-        convert = (
-            weight_converter.flax_unet_to_torch
-            if isinstance(model, UNetModel)
-            else weight_converter.flax_resnet_to_torch
-        )
+        if isinstance(model, HoVerNet):
+            convert = weight_converter.flax_hovernet_to_torch
+        elif isinstance(model, UNetModel):
+            convert = weight_converter.flax_unet_to_torch
+        else:
+            convert = weight_converter.flax_resnet_to_torch
         state = convert(variables)
     else:
         state = torch.load(path, map_location="cpu", weights_only=True)

@@ -2,12 +2,15 @@
 
 ``flax_resnet_to_torch`` is the inverse of ``torch_resnet_to_flax``
 (``tiatoolbox_tpu/models/architecture/weight_converter.py:28-97``) and
-``flax_unet_to_torch`` the inverse of ``torch_unet_to_flax`` (:910-988):
+``flax_unet_to_torch`` the inverse of ``torch_unet_to_flax`` (:910-988),
+``flax_hovernet_to_torch`` the inverse of ``torch_hovernet_to_flax``
+(:354-462):
 conv kernels HWIO -> OIHW, dense kernels [in, out] -> [out, in], and
 batch-norm scale/bias/mean/var -> weight/bias/running_mean/running_var.
 Keys follow the reference tiatoolbox models (``CNNModel``: ``feat_extract.*``
 with torchvision names inside, ``classifier.*``; ``UNetModel``:
-``backbone.*``, ``conv1x1``, ``uplist.*``, ``clf``), so the same
+``backbone.*``, ``conv1x1``, ``uplist.*``, ``clf``; ``HoVerNet``:
+``conv0./``, ``d0.units.0.conv1/bn``, ``decoder.np.u3.dense.*``), so the same
 ``state_dict`` is what a reference ``.pth`` holds. ``load_flax_npz`` reads
 the JAX package's flattened ``.npz`` variables (``load_flax_npz`` :114).
 """
@@ -103,6 +106,51 @@ def flax_unet_to_torch(variables: dict) -> dict[str, torch.Tensor]:
     """
     pre_activation = "conv1" in variables["params"]["backbone"]
     return _convert(variables, lambda path: _unet_module_path(path, pre_activation))
+
+
+def _hovernet_module_path(path: tuple[str, ...]) -> str:
+    """Upstream HoVerNet module name of a flax module path."""
+    head, *rest = path
+    if head == "conv0":
+        return "conv0./"
+    if head == "bn0":
+        return "conv0.bn"
+    if head == "conv_bot":
+        return head
+    if re.fullmatch(r"d\d", head):
+        return f"{head}.{_unit_name(rest[0], preact='preact/bn')}"
+    # decoder branch: np, hv, tp
+    name = rest[0]
+    if name in ("u0_bn", "u0_conv"):
+        return f"decoder.{head}.u0.{name[3:]}"
+    stage, part = name.split("_", 1)
+    if part == "dense":
+        return f"decoder.{head}.{stage}.dense.{_unit_name(rest[1], preact='preact_bna/bn')}"
+    return f"decoder.{head}.{stage}.{part}"
+
+
+def _unit_name(name: str, preact: str) -> str:
+    """``shortcut``, ``blk_bn``, ``u{j}_preact_bn``, ``u{j}_bn{c}`` or
+    ``u{j}_conv{c}`` of a residual or dense block -> upstream name."""
+    if name == "blk_bn":
+        return "blk_bna.bn"
+    if name == "shortcut":
+        return name
+    unit = re.fullmatch(r"u(\d+)_(preact_bn|bn(\d)|conv\d)", name)
+    if unit is None:
+        msg = f"Unexpected HoVerNet block member {name!r}."
+        raise ValueError(msg)
+    j, part, bn = unit.group(1), unit.group(2), unit.group(3)
+    if part == "preact_bn":
+        return f"units.{j}.{preact}"
+    if bn is not None:
+        return f"units.{j}.conv{bn}/bn"
+    return f"units.{j}.{part}"
+
+
+def flax_hovernet_to_torch(variables: dict) -> dict[str, torch.Tensor]:
+    """Convert flax ``HoVerNet`` variables (either mode) to an upstream-named ``state_dict``."""
+    return _convert(variables, _hovernet_module_path)
 
 
 def _convert(variables: dict, module_path) -> dict[str, torch.Tensor]:

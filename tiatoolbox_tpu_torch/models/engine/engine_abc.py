@@ -183,7 +183,17 @@ class EngineABC(ABC):
         )
 
     def infer_patches(self, dataloader: BatchLoader, *, return_coordinates: bool = False) -> dict:
-        """Stream batches through the model; gather host outputs in order."""
+        """Stream batches through the model; gather host outputs in order.
+
+        A model with several heads (HoVerNet's np, hv, tp) gives a list of
+        per-head arrays under ``"probabilities"`` (:300-318).
+        """
+
+        def _fetch(out, n: int):
+            if isinstance(out, (tuple, list)):
+                return tuple(head[:n].cpu().numpy() for head in out)
+            return out[:n].cpu().numpy()
+
         window = max(1, int(self.max_inflight_batches))
         inflight: deque = deque()
         probabilities, coordinates, labels = [], [], []
@@ -197,8 +207,7 @@ class EngineABC(ABC):
             out = self.model.infer_batch_device(self.model, batch["image"])
             inflight.append((out, n_valid))
             if len(inflight) > window:
-                out, n = inflight.popleft()
-                probabilities.append(out[:n].cpu().numpy())
+                probabilities.append(_fetch(*inflight.popleft()))
             n_total += n_valid
             if return_coordinates:
                 if "coords" in batch:
@@ -209,12 +218,19 @@ class EngineABC(ABC):
             if self.return_labels and "label" in batch:
                 labels.append(np.asarray(batch["label"])[:n_valid])
         while inflight:
-            out, n = inflight.popleft()
-            probabilities.append(out[:n].cpu().numpy())
+            probabilities.append(_fetch(*inflight.popleft()))
         if self.verbose:
             seconds = time.perf_counter() - t_start
             logger.info("infer: %d patches in %.3f s", n_total, seconds)
-        output = {"probabilities": np.concatenate(probabilities, axis=0)}
+        if probabilities and isinstance(probabilities[0], tuple):  # one array per head
+            output = {
+                "probabilities": [
+                    np.concatenate([p[head] for p in probabilities], axis=0)
+                    for head in range(len(probabilities[0]))
+                ]
+            }
+        else:
+            output = {"probabilities": np.concatenate(probabilities, axis=0)}
         if coordinates:
             output["coordinates"] = np.concatenate(coordinates, axis=0)
         if labels:

@@ -1,9 +1,11 @@
 """Model I/O configuration (counterpart of ``tiatoolbox_tpu/models/engine/io_config.py``).
 
-``ModelIOConfigABC`` (:16), ``IOPatchPredictorConfig`` (:108) and
-``IOSegmentorConfig`` (:113-125), copied: resolution lists per input/output
+``ModelIOConfigABC`` (:16), ``IOPatchPredictorConfig`` (:108),
+``IOSegmentorConfig`` (:113-125) and ``IOInstanceSegmentorConfig``
+(:127-130), copied: resolution lists per input/output
 head, patch and stride shapes, the highest-input-resolution selection, and
-for segmentation the output patch shape, save resolution and tile shape.
+for segmentation the output patch shape, save resolution and tile shape, and
+for instance segmentation the tile margin.
 """
 
 from __future__ import annotations
@@ -77,3 +79,10 @@ class IOSegmentorConfig(ModelIOConfigABC):
         super().__post_init__()
         if self.patch_output_shape is None:
             self.patch_output_shape = self.patch_input_shape
+
+
+@dataclass
+class IOInstanceSegmentorConfig(IOSegmentorConfig):
+    """I/O config for instance segmentation; adds the tile margin geometry."""
+
+    margin: int = None

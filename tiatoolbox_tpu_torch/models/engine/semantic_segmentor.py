@@ -61,14 +61,14 @@ def free_ram_bytes() -> int:
     return 8 << 30
 
 
-def _to_host(dev: torch.Tensor) -> np.ndarray:
-    """One copy of a device tensor into pinned host memory, as float32 numpy."""
+def to_pinned_host(dev: torch.Tensor) -> np.ndarray:
+    """One copy of a device tensor into pinned host memory, as numpy of its dtype."""
     if dev.device.type == "cuda":
         host = torch.empty(dev.shape, dtype=dev.dtype, pin_memory=True)
         host.copy_(dev, non_blocking=True)
         torch.cuda.current_stream(dev.device).synchronize()
         dev = host
-    return dev.numpy().astype(np.float32, copy=False)
+    return dev.numpy()
 
 
 class SemanticSegmentor(EngineABC):
@@ -243,9 +243,9 @@ class SemanticSegmentor(EngineABC):
         (model, input patch shape): the geometry does not depend on the weights (:266)."""
         key = (id(self.model), tuple(np.asarray(dataset.patch_input_shape).tolist()))
         if key not in self._probe_cache:
-            self._probe_cache[key] = np.asarray(
-                self.model.infer_batch(self.model, dataset[0]["image"][None])
-            )
+            out = self.model.infer_batch(self.model, dataset[0]["image"][None])
+            # a multi-head model's outputs stay a tuple of per-head arrays
+            self._probe_cache[key] = out if isinstance(out, tuple) else np.asarray(out)
         return self._probe_cache[key]
 
     # device canvas and count must stay well under device memory
@@ -384,7 +384,8 @@ class SemanticSegmentor(EngineABC):
     def _fetch_canvas(self, canvas: DeviceCanvas, h: int, w: int) -> np.ndarray:
         """Normalise, crop and cast on the device (K3, :461-495), then one copy
         to pinned host memory (:566)."""
-        return _to_host(normalize_rows(canvas.canvas, canvas.count, 0, h, w, self._wire_dtype()))
+        normalized = normalize_rows(canvas.canvas, canvas.count, 0, h, w, self._wire_dtype())
+        return to_pinned_host(normalized).astype(np.float32, copy=False)
 
     def _infer_wsi_device_canvas(
         self, dataloader: BatchLoader, canvas_wh, n_channels: int, coord_scale, probe=None

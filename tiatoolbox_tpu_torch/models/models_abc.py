@@ -16,7 +16,11 @@ methods keep the JAX names:
 - ``place`` puts a built model on its device and, for a compute dtype
   other than float32, casts its floating parameters and buffers to that
   dtype, as ``optimize_for_inference`` (:171-190) casts the flax variables,
-  so the forward runs in that dtype.
+  so the forward runs in that dtype (weights loaded later are copied into
+  the cast parameters);
+- ``postproc_func`` (:330) is the host post-processing the engines apply
+  to the model's outputs: ``postproc`` (the identity) unless the caller
+  sets one.
 """
 
 from __future__ import annotations
@@ -42,6 +46,7 @@ class ModelABC(nn.Module):
         super().__init__()
         self.compute_dtype = compute_dtype or rcParam["compute_dtype"]
         self._preproc_func: Callable | None = None
+        self._postproc_func: Callable | None = None
         self._transfer_streams: dict[torch.device, torch.cuda.Stream] = {}
 
     def place(self, device: str | torch.device | None = None) -> None:
@@ -107,10 +112,24 @@ class ModelABC(nn.Module):
     def preproc_func(self, func: Callable | None) -> None:
         self._preproc_func = func
 
+    @property
+    def postproc_func(self) -> Callable:
+        """Host post-processing of the outputs (the model's ``postproc`` by default)."""
+        return self._postproc_func if self._postproc_func is not None else self.postproc
+
+    @postproc_func.setter
+    def postproc_func(self, func: Callable | None) -> None:
+        self._postproc_func = func
+
     @staticmethod
     def preproc(image: np.ndarray) -> np.ndarray:
         """Default per-patch preprocessing: identity."""
         return image
+
+    @staticmethod
+    def postproc(output):
+        """Default output post-processing: identity."""
+        return output
 
     @classmethod
     def infer_batch_device(cls, model: "ModelABC", batch_data, device=None):

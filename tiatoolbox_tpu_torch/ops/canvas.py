@@ -1,4 +1,4 @@
-"""Device canvas stitching: scatter-accumulate (K2) and normalise (K3).
+"""Device canvas stitching: scatter-accumulate (K2), normalise (K3) and pack (K6).
 
 Counterpart of ``tiatoolbox_tpu/ops/canvas.py:1-140``. Patch outputs are
 added into a ``[H, W, C]`` float32 canvas and a ``[H, W, 1]`` hit count on
@@ -13,6 +13,13 @@ the device, then divided by the count.
   cast of ``semantic_segmentor.py:461-495``: rows ``[y0, y0+block_h)``,
   columns ``[0, width)``, cast to float32 or float16; the kernel of
   ``csrc/canvas.cu`` on CUDA, ``normalize_rows_reference`` on the CPU.
+- ``pack_fg_tp`` is the multitask engine's pointwise fetch plane
+  (``semantic_segmentor.py:461-495`` with HoVerNet's
+  ``block_fetch_transform``, ``hovernet.py:662-672``): rows ``[0, h)`` and
+  columns ``[0, w)`` of the count-normalised canvas packed as
+  ``(np >= 0.5) | round(tp) << 1`` into uint8; the kernel of
+  ``csrc/canvas.cu`` (K6) on CUDA, ``pack_fg_tp_reference`` on the CPU,
+  equal bit for bit.
 - ``normalize_canvas``, ``canvas_argmax`` and ``DeviceCanvas`` (:88) keep
   the JAX API. ``DeviceCanvas.add`` marks patches that do not fit inside
   the canvas invalid, never clips them (:110-120).
@@ -49,6 +56,8 @@ def _library() -> ctypes.CDLL:
     lib.canvas_scatter_accumulate.restype = i32
     lib.canvas_normalize_rows.argtypes = [ptr, ptr, i64, i32, i32, i32, i32, ptr, i32, ptr]
     lib.canvas_normalize_rows.restype = i32
+    lib.canvas_pack_fg_tp.argtypes = [ptr, ptr, i64, i32, i32, i32, i32, ptr, ptr]
+    lib.canvas_pack_fg_tp.restype = i32
     lib.canvas_error_string.argtypes = [i32]
     lib.canvas_error_string.restype = ctypes.c_char_p
     return lib
@@ -234,6 +243,68 @@ def normalize_rows(canvas, count, y0: int, block_h: int, width: int, dtype=torch
 
 
 normalize_rows.launches = 0
+
+
+def _check_pack(canvas, count, height: int, width: int, tp_channel: int) -> None:
+    _check_canvas(canvas, count)
+    h, w, c = canvas.shape
+    if not (0 <= height <= h and 0 <= width <= w):
+        msg = f"A {height}x{width} crop does not fit a {h}x{w} canvas."
+        raise ValueError(msg)
+    if not -1 <= tp_channel < c:
+        msg = f"Type channel {tp_channel} outside a {c}-channel canvas."
+        raise ValueError(msg)
+
+
+def pack_fg_tp_reference(canvas, count, height: int, width: int, tp_channel: int = -1):
+    """Plain version: ``fg | round(tp) << 1`` of the count-normalised crop, uint8 ``[height, width, 1]``."""
+    _check_pack(canvas, count, height, width, tp_channel)
+    hits = count[:height, :width, 0].clamp_min(1.0)
+    packed = (canvas[:height, :width, 0] / hits >= 0.5).to(torch.uint8)
+    if tp_channel >= 0:
+        tp = torch.round(canvas[:height, :width, tp_channel] / hits).to(torch.uint8)
+        packed = packed | (tp << 1)
+    return packed[..., None]
+
+
+def pack_fg_tp(canvas, count, height: int, width: int, tp_channel: int = -1):
+    """Foreground bit and rounded type of the count-normalised crop, packed into uint8.
+
+    Args:
+        canvas: ``[H, W, C]`` float32 accumulator whose channel 0 is the
+            foreground probability (bit 0: ``>= 0.5``); count: ``[H, W, 1]``.
+        height, width: the crop ``[0, height) x [0, width)``.
+        tp_channel: channel of the type map (bits 1-7: ``round``), or -1.
+
+    Returns:
+        A new uint8 ``[height, width, 1]`` tensor on the canvas's device.
+        ``pack_fg_tp.launches`` counts kernel launches.
+    """
+    _check_pack(canvas, count, height, width, tp_channel)
+    if canvas.device.type == "cpu":
+        return pack_fg_tp_reference(canvas, count, height, width, tp_channel)
+    if canvas.device.type != "cuda":
+        msg = f"pack_fg_tp runs on cpu or cuda tensors, got {canvas.device}."
+        raise ValueError(msg)
+    if not (canvas.is_contiguous() and count.is_contiguous()):
+        msg = "canvas and count must be contiguous."
+        raise ValueError(msg)
+    out = torch.empty((height, width, 1), dtype=torch.uint8, device=canvas.device)
+    if out.numel() == 0:
+        return out
+    lib = _library()
+    with torch.cuda.device(canvas.device):
+        stream = torch.cuda.current_stream(canvas.device).cuda_stream
+        code = lib.canvas_pack_fg_tp(
+            canvas.data_ptr(), count.data_ptr(), canvas.shape[1], canvas.shape[2],
+            int(tp_channel), int(height), int(width), out.data_ptr(), stream,
+        )
+    _raise_on(code, "canvas_pack_fg_tp")
+    pack_fg_tp.launches += 1
+    return out
+
+
+pack_fg_tp.launches = 0
 
 
 def normalize_canvas(canvas: torch.Tensor, count: torch.Tensor) -> torch.Tensor:

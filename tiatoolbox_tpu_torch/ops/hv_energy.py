@@ -1,0 +1,181 @@
+"""HoVer-Net watershed energy on the device: kernel K5.
+
+Counterpart of ``tiatoolbox_tpu/ops/hv_energy.py:1-90``. The energy
+landscape of the watershed (reference ``hovernet.py:503-617``): min-max
+normalise the h and v direction maps, Sobel each (dx on h, dy on v, ksize
+``int(20 * scale_factor) + 1``, BORDER_REFLECT_101), min-max normalise the
+gradients and take ``max(1 - Sh, 1 - Sv)``.
+
+- ``sobel_kernels`` (:26) computes OpenCV's integer Sobel taps
+  (``getDerivKernels``) in Python, with OpenCV's own recurrence.
+- ``hv_energy`` launches the kernel of ``csrc/hv_energy.cu`` on a CUDA map
+  and runs ``hv_energy_reference`` on a CPU one: a reflected gather, two
+  ``F.conv2d`` (1 x ksize along x, then ksize x 1 along y, the JAX order),
+  ``amin``/``amax`` and the element-wise tail. The kernel sums the taps in
+  another order than cuDNN or XLA; on [0, 1] the two agree within 2e-6
+  (``chip_smoke.py`` and the ``cuda`` tests hold it to that).
+
+``hv`` may be a strided ``[H, W, 2]`` view, such as channels 1:3 of a
+``[H, W, C]`` canvas, as long as its channels are adjacent. A CUDA map
+never falls back to the plain version: the kernel launches or the call
+raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from tiatoolbox_tpu_torch import _build
+
+SOURCE = "hv_energy.cu"
+MAX_KSIZE = 31  # cv2's Sobel, which the JAX package calls for the taps, stops at 31
+_OUT_DTYPES = (torch.float32, torch.float16)
+
+
+@functools.cache
+def sobel_kernels(ksize: int) -> tuple[np.ndarray, np.ndarray]:
+    """OpenCV's separable Sobel taps for a first derivative: (derivative, smoothing), float32.
+
+    ``cv2.getDerivKernels(1, 0, ksize, normalize=False)``, by the same
+    integer recurrence as OpenCV's ``getSobelKernels``.
+    """
+    if ksize % 2 == 0 or ksize < 3:
+        msg = f"ksize must be odd and at least 3, got {ksize}."
+        raise ValueError(msg)
+
+    def taps(order: int) -> np.ndarray:
+        if ksize == 3:
+            return np.array([[1, 2, 1], [-1, 0, 1]][order], np.float32)
+        ker = [1] + [0] * ksize
+        for _ in range(ksize - order - 1):
+            old = ker[0]
+            for j in range(1, ksize + 1):
+                new = ker[j] + ker[j - 1]
+                ker[j - 1] = old
+                old = new
+        for _ in range(order):
+            old = -ker[0]
+            for j in range(1, ksize + 1):
+                new = ker[j - 1] - ker[j]
+                ker[j - 1] = old
+                old = new
+        return np.array(ker[:ksize], np.float32)
+
+    return taps(1), taps(0)
+
+
+def reflect101_index(n: int, radius: int) -> np.ndarray:
+    """Source indices of ``[-radius, n + radius)`` under BORDER_REFLECT_101,
+    reflected as often as needed (OpenCV's ``borderInterpolate``, numpy's
+    and ``jnp.pad``'s "reflect")."""
+    idx = np.arange(-radius, n + radius)
+    if n == 1:
+        return np.zeros_like(idx)
+    period = 2 * (n - 1)
+    idx = np.abs(idx) % period
+    return np.where(idx >= n, period - idx, idx)
+
+
+@functools.cache
+def _library() -> ctypes.CDLL:
+    """The built kernel library, its argument types set once per process."""
+    lib = _build.load(SOURCE)
+    ptr, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+    lib.hv_energy_scratch_floats.argtypes = [i32, i32]
+    lib.hv_energy_scratch_floats.restype = i64
+    lib.hv_energy_launch.argtypes = [ptr, i64, i32, i32, i32, ptr, ptr, i32, ptr, ptr, i32, ptr]
+    lib.hv_energy_launch.restype = i32
+    lib.hv_energy_error_string.argtypes = [i32]
+    lib.hv_energy_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _ksize(scale_factor: float) -> int:
+    ksize = int(20 * scale_factor) + 1
+    if ksize > MAX_KSIZE:
+        msg = f"scale_factor {scale_factor} gives ksize {ksize} > {MAX_KSIZE}."
+        raise ValueError(msg)
+    return ksize
+
+
+def _check(hv: torch.Tensor, dtype) -> None:
+    if hv.ndim != 3 or hv.shape[2] != 2:
+        msg = f"hv must be [H, W, 2], got {tuple(hv.shape)}."
+        raise ValueError(msg)
+    if hv.dtype != torch.float32:
+        msg = f"hv must be float32, got {hv.dtype}."
+        raise ValueError(msg)
+    if dtype not in _OUT_DTYPES:
+        msg = f"Output dtype must be float32 or float16, got {dtype}."
+        raise ValueError(msg)
+
+
+def _minmax(x: torch.Tensor) -> torch.Tensor:
+    mn, mx = x.amin(), x.amax()
+    return (x - mn) / torch.clamp_min(mx - mn, 1e-30)
+
+
+def _sep_conv(x: torch.Tensor, k_x: np.ndarray, k_y: np.ndarray) -> torch.Tensor:
+    """Correlate along x with ``k_x``, then along y with ``k_y``, reflect-101 edges."""
+    r = len(k_x) // 2
+    h, w = x.shape
+    iy = torch.from_numpy(reflect101_index(h, r)).to(x.device)
+    ix = torch.from_numpy(reflect101_index(w, r)).to(x.device)
+    padded = x.index_select(0, iy).index_select(1, ix)[None, None]
+    kx = torch.from_numpy(k_x).to(x.device).view(1, 1, 1, -1)
+    ky = torch.from_numpy(k_y).to(x.device).view(1, 1, -1, 1)
+    return F.conv2d(F.conv2d(padded, kx), ky)[0, 0]
+
+
+def hv_energy_reference(hv: torch.Tensor, scale_factor: float = 1.0, dtype=torch.float32) -> torch.Tensor:
+    """Plain version: ``max(1 - minmax(Sobel_x(minmax h)), 1 - minmax(Sobel_y(minmax v)))``."""
+    _check(hv, dtype)
+    deriv, smooth = sobel_kernels(_ksize(scale_factor))
+    h_dir = _minmax(hv[..., 0])
+    v_dir = _minmax(hv[..., 1])
+    sobel_h = _minmax(_sep_conv(h_dir, deriv, smooth))
+    sobel_v = _minmax(_sep_conv(v_dir, smooth, deriv))
+    return torch.maximum(1.0 - sobel_h, 1.0 - sobel_v).to(dtype)
+
+
+def hv_energy(hv: torch.Tensor, scale_factor: float = 1.0, dtype=torch.float32) -> torch.Tensor:
+    """Watershed energy ``[H, W]`` of the hv maps ``[H, W, 2]``, as ``dtype``.
+
+    ``hv_energy.launches`` counts kernel launches.
+    """
+    _check(hv, dtype)
+    if hv.device.type == "cpu":
+        return hv_energy_reference(hv, scale_factor, dtype)
+    if hv.device.type != "cuda":
+        msg = f"hv_energy runs on cpu or cuda tensors, got {hv.device}."
+        raise ValueError(msg)
+    if hv.stride(2) != 1:
+        msg = "hv's two channels must be adjacent in memory."
+        raise ValueError(msg)
+    h, w = int(hv.shape[0]), int(hv.shape[1])
+    out = torch.empty((h, w), dtype=dtype, device=hv.device)
+    if out.numel() == 0:
+        return out
+    deriv, smooth = sobel_kernels(_ksize(scale_factor))
+    lib = _library()
+    scratch = torch.empty(int(lib.hv_energy_scratch_floats(h, w)), dtype=torch.float32, device=hv.device)
+    with torch.cuda.device(hv.device):
+        stream = torch.cuda.current_stream(hv.device).cuda_stream
+        code = lib.hv_energy_launch(
+            hv.data_ptr(), hv.stride(0), hv.stride(1), h, w,
+            deriv.ctypes.data, smooth.ctypes.data, len(deriv),
+            scratch.data_ptr(), out.data_ptr(), int(dtype == torch.float16), stream,
+        )
+    if code != 0:
+        msg = f"hv_energy_launch failed: {lib.hv_energy_error_string(code).decode()}"
+        raise RuntimeError(msg)
+    hv_energy.launches += 1
+    return out
+
+
+hv_energy.launches = 0
