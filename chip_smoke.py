@@ -34,12 +34,15 @@ and misaligned inputs); the canvas and band kernels are held against theirs
 bit for bit in phases C and D (each phase's shapes, ragged cases, and every
 segment and instance run stitched again by the plain versions); the packed
 plane bit for bit and the energy within 2e-6, on the run's canvas and
-ragged sizes, and run 1's post-processing is repeated on the plain
+ragged sizes, through both of its entries (the normalised view, and the
+raw canvas with its count, which the region feed calls instead of the
+normalise kernel), and run 1's post-processing is repeated on the plain
 versions' planes; tile mode keeps 0.84 +- 0.03 of the whole canvas's
 instances (the reference's scheme on these maps, 2004 of 2386 in JAX and
 the port on the CPU); every kernel is timed beside its
 plain version, a library call where one computes the same function, and its
-bound. The classifier's, the U-Net's and HoVer-Net's first batch are held
+bound (the normalise kernel also beside a device copy of its bytes). The
+classifier's, the U-Net's and HoVer-Net's first batch are held
 against the same model on the CPU, and one bfloat16 batch of each
 segmentation model against float32. The script prints a "kernels" line,
 the card's name and power limit, and last the result line
@@ -732,9 +735,16 @@ def check_normalize(canvas_obj, h: int, w: int) -> dict:
         "library_ms": time_ms(lambda: torch.div(cv[:h, :w], cn[:h, :w].clamp_min(1.0)), 10),
     }
     n_bytes = h * w * (n_ch + 1) * 4 + h * w * n_ch * 4
+    f16_bytes = h * w * (n_ch + 1) * 4 + h * w * n_ch * 2
     times["bound_ms"] = _bound(n_bytes)
-    times["f16_bound_ms"] = _bound(h * w * (n_ch + 1) * 4 + h * w * n_ch * 2)
+    times["f16_bound_ms"] = _bound(f16_bytes)
     times["bytes"] = n_bytes
+    # ceiling: one device copy that reads half these bytes and writes the other half
+    for key, moved in (("copy_ms", n_bytes), ("f16_copy_ms", f16_bytes)):
+        src = torch.empty(moved // 2, dtype=torch.uint8, device=DEVICE)
+        dst = torch.empty_like(src)
+        times[key] = time_ms(lambda: dst.copy_(src), 20)
+        del src, dst
     return times
 
 
@@ -1055,23 +1065,43 @@ def run_instance_path(
     return line, recorder, post.calls, instances, counts
 
 
-def check_energy(hv_view: torch.Tensor, gen: torch.Generator) -> dict:
-    """K5 against its plain version (the run's canvas, ragged maps) and its times."""
+def check_energy(hv_view: torch.Tensor, canvas_obj, gen: torch.Generator) -> dict:
+    """K5 against its plain version (the run's canvas, ragged maps) and its times,
+    through both entries: the normalised ``[H, W, 2]`` view, and the raw
+    canvas with its count (the banded fetch's), whose plain version is plain
+    K3 followed by plain K5."""
+    h, w = hv_view.shape[:2]
     plain = energy_ops.hv_energy_reference(hv_view)
     errs = [float((energy_ops.hv_energy(hv_view) - plain).abs().max())]
     # float16 out: the kernel's error plus half a float16 step below 1
     f16_err = float((energy_ops.hv_energy(hv_view, dtype=torch.float16).float() - plain).abs().max())
     check(f16_err <= ENERGY_TOL + 2**-12, f"hv_energy float16 vs plain max abs diff {f16_err}")
-    del plain
-    for h, w in ((37, 53), (333, 4001), (33, 17), (5, 9), (1, 40), (2049, 31)):
-        hv = torch.randn((h, w, 2), generator=gen, device=DEVICE)
-        if h == 1:  # one row: dy is zero exactly only where v is constant
+    cv, cn = canvas_obj.canvas, canvas_obj.count
+    raw, raw_count = cv[:h, :w, 1:3], cn[:h, :w]
+    raw_plain = energy_ops.hv_energy_reference(canvas_ops.normalize_rows_reference(cv, cn, 0, h, w)[..., 1:3])
+    raw_errs = [float((energy_ops.hv_energy(raw, count=raw_count) - raw_plain).abs().max())]
+    raw_f16 = energy_ops.hv_energy(raw, dtype=torch.float16, count=raw_count).float()
+    raw_f16_err = float((raw_f16 - raw_plain).abs().max())
+    check(raw_f16_err <= ENERGY_TOL + 2**-12, f"hv_energy raw-canvas float16 vs plain max abs diff {raw_f16_err}")
+    del plain, raw_plain, raw_f16
+    # raw canvases wider than the crop, with pixels no patch covered
+    for (rh, rw), pad, n_ch in (((37, 53), 7, 4), ((333, 4001), 3, 4), ((1, 40), 0, 5), ((2049, 31), 9, 5)):
+        rc = torch.randn((rh, rw + pad, n_ch), generator=gen, device=DEVICE)
+        rn = torch.randint(0, 3, (rh, rw + pad, 1), generator=gen, device=DEVICE).float()
+        if rh == 1:  # one row: dy is zero exactly only where v is constant
+            rc[..., 2] = 0.25 * rn[..., 0].clamp_min(1.0)
+        want = energy_ops.hv_energy_reference(canvas_ops.normalize_rows_reference(rc, rn, 0, rh, rw)[..., 1:3])
+        raw_errs.append(float((energy_ops.hv_energy(rc[:, :rw, 1:3], count=rn[:, :rw]) - want).abs().max()))
+    for rh, rw in ((37, 53), (333, 4001), (33, 17), (5, 9), (1, 40), (2049, 31)):
+        hv = torch.randn((rh, rw, 2), generator=gen, device=DEVICE)
+        if rh == 1:  # one row: dy is zero exactly only where v is constant
             hv[..., 1] = 0.25
         errs.append(float((energy_ops.hv_energy(hv) - energy_ops.hv_energy_reference(hv)).abs().max()))
     torch.cuda.synchronize()
     max_err = max(errs)
     check(max_err <= ENERGY_TOL, f"hv_energy kernel vs plain max abs diff {max_err} > {ENERGY_TOL}")
-    h, w = hv_view.shape[:2]
+    raw_err = max(raw_errs)
+    check(raw_err <= ENERGY_TOL, f"hv_energy raw-canvas entry vs plain K3 and K5 max abs diff {raw_err} > {ENERGY_TOL}")
     deriv, smooth = energy_ops.sobel_kernels(21)
     kd = torch.from_numpy(deriv).to(DEVICE)
     ks = torch.from_numpy(smooth).to(DEVICE)
@@ -1094,11 +1124,17 @@ def check_energy(hv_view: torch.Tensor, gen: torch.Generator) -> dict:
     bytes_s = (ENERGY_BYTES_IN + 4) * n_pix / HBM_BYTES_PER_S
     ops_s = ENERGY_OPS_PER_PIX * n_pix / FP32_OPS_PER_S
     return {
-        "max_abs_err": max_err,
+        "max_abs_err": max(max_err, raw_err),
+        "view_max_abs_err": max_err,
         "f16_max_abs_err": f16_err,
+        "raw_max_abs_err": raw_err,
+        "raw_f16_max_abs_err": raw_f16_err,
         "ms": time_ms(lambda: energy_ops.hv_energy(hv_view), 20),
         "f16_ms": time_ms(lambda: energy_ops.hv_energy(hv_view, dtype=torch.float16), 20),
+        "raw_ms": time_ms(lambda: energy_ops.hv_energy(raw, count=raw_count), 20),
+        "raw_f16_ms": time_ms(lambda: energy_ops.hv_energy(raw, dtype=torch.float16, count=raw_count), 20),
         "plain_ms": time_ms(lambda: energy_ops.hv_energy_reference(hv_view), 10),
+        "raw_plain_ms": time_ms(lambda: energy_ops.hv_energy_reference(raw, count=raw_count), 10),
         "library_ms": time_ms(library, 10),
         "library_max_abs_diff_from_plain": lib_err,
         "bound_ms": max(bytes_s, ops_s) * 1e3,
@@ -1132,7 +1168,8 @@ def check_pack(canvas_obj, h: int, w: int) -> dict:
 
 
 def repeat_postproc_on_plain_planes(model: HoVerNet, canvas_obj, calls: list, h: int, w: int) -> dict:
-    """Run 1's post-processing again on the planes of the plain K6, K3 and K5;
+    """Run 1's post-processing again on the planes of the plain K6, and of plain
+    K3 followed by plain K5 (what the banded fetch's raw-canvas K5 computes);
     reports how far the watershed partition moves with the kernel's energy."""
     (maps, (task,)), = calls
     packed = canvas_ops.pack_fg_tp_reference(canvas_obj.canvas, canvas_obj.count, h, w, 3).cpu().numpy()
@@ -1222,12 +1259,16 @@ def phase_instance(tmp: Path, card: str) -> tuple[list[dict], dict]:
     # batches of any run: at most one partial batch per band
     n_slots = -(-len(dataset) // INST_BATCH) + len(plan.bands)
 
-    # run 1: region feed, post-processing on the whole canvas (K4, K2, K6, K3, K5)
+    # run 1: region feed, post-processing on the whole canvas (K4, K2, K6, and
+    # K5 from the raw canvas and count: no K3)
     region, rec1, calls1, inst1, counts1 = run_instance_path(
         model, slide, ioconfig, card, "multitask-device-canvas+region-feed+banded-u8+device-energy",
         n_slots, auto_get_mask=False,
     )
-    check(all(n > 0 for n in counts1.values()), f"region-feed launches {counts1}")
+    check(
+        counts1["normalize_rows"] == 0 and all(n > 0 for k, n in counts1.items() if k != "normalize_rows"),
+        f"region-feed launches {counts1}",
+    )
     region.update(forward_ms_per_batch=forward_ms, setup_seconds=setup_seconds, slide_seconds=slide_seconds)
     region["stages"]["forward_estimate"] = {
         "seconds": forward_ms / 1e3 * -(-len(dataset) // INST_BATCH)
@@ -1242,7 +1283,7 @@ def phase_instance(tmp: Path, card: str) -> tuple[list[dict], dict]:
     extract = check_extract(slide, dataset, plan, INST_BATCH)
     pack = check_pack(canvas1, h, w)
     normalized = canvas_ops.normalize_rows(canvas1.canvas, canvas1.count, 0, h, w)
-    energy = check_energy(normalized[..., 1:3], gen)
+    energy = check_energy(normalized[..., 1:3], canvas1, gen)
     del rec1, canvas1, normalized, calls1
     emit(region)
 

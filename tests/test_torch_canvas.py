@@ -297,6 +297,36 @@ def test_normalize_kernel_matches_plain_version_on_the_card(dtype) -> None:
         assert torch.equal(got, want)
 
 
+NORM_CROPS = [  # (y0, block_h, width): whole rows (one span), crops, one row, one column
+    (0, 24, 37), (0, 24, 34), (5, 11, 37), (5, 11, 17), (23, 1, 37), (7, 1, 5), (3, 20, 1),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float16])
+@pytest.mark.parametrize("channels", list(range(1, 9)))
+def test_normalize_kernel_at_any_channel_count_and_alignment_on_the_card(channels: int, dtype) -> None:
+    """Rows of 37 pixels: row starts fall off 16-byte boundaries unless 4
+    divides the channel count; a second canvas starts 4 bytes past one."""
+    _on_card()
+    rng = np.random.default_rng(channels)
+    n = 24 * 37
+    flat_c = torch.from_numpy(rng.random(n * channels + 1, dtype=np.float32)).cuda()
+    flat_n = torch.from_numpy(rng.integers(0, 4, n + 1).astype(np.float32)).cuda()
+    canvases = {
+        "aligned": (flat_c[:-1].view(24, 37, channels), flat_n[:-1].view(24, 37, 1)),
+        "4 bytes past": (flat_c[1:].view(24, 37, channels), flat_n[1:].view(24, 37, 1)),
+    }
+    for what, (c, cn) in canvases.items():
+        for y0, bh, w in NORM_CROPS:
+            before = canvas.normalize_rows.launches
+            got = canvas.normalize_rows(c, cn, y0, bh, w, dtype)
+            want = canvas.normalize_rows_reference(c, cn, y0, bh, w, dtype)
+            torch.cuda.synchronize()
+            assert canvas.normalize_rows.launches == before + 1
+            assert torch.equal(got, want), (what, y0, bh, w)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("pw", [16, 15])
 def test_extract_kernel_matches_plain_version_on_the_card(pw: int) -> None:

@@ -14,6 +14,15 @@ under the 21-tap kernel, a one-row map, a strided view of a 4-channel
 canvas and the float16 output. (On one row the dy gradient is zero in exact
 arithmetic and float32 rounding noise after any implementation's sums; the
 one-row case keeps v constant so the energy is defined, ``_one_row_hv``.)
+
+The raw-canvas entry (``hv_energy(canvas[..., 1:3], count=count)``) divides
+the pair by ``max(count, 1)`` on load. Its plain version is held against
+JAX's ``normalize_canvas`` followed by its ``hv_energy`` within the same
+2e-6 (zero counts, a canvas padded wider than the crop, 4 and 5 channels,
+ksize 3, 21 and 31), and equals the port's normalise-then-energy bit for
+bit. On the card both entries are held to their plain versions at every odd
+ksize from 3 to 31, on maps narrower than a 128-column strip, one row and
+2049x31.
 """
 
 from __future__ import annotations
@@ -22,7 +31,9 @@ import numpy as np
 import pytest
 import torch
 
+from tiatoolbox_tpu.ops.canvas import normalize_canvas as jax_normalize_canvas
 from tiatoolbox_tpu.ops.hv_energy import hv_energy as jax_hv_energy
+from tiatoolbox_tpu_torch.ops import canvas as canvas_ops
 from tiatoolbox_tpu_torch.ops import hv_energy as ops
 
 TOL = 2e-6
@@ -113,6 +124,64 @@ def test_hv_energy_rejects_bad_arguments() -> None:
         ops.sobel_kernels(20)
 
 
+def _scale_for(ksize: int) -> float:
+    """A scale factor whose ``int(20 * scale) + 1`` is ``ksize``."""
+    return (ksize - 0.5) / 20
+
+
+def _raw_canvas(h: int, w: int, pad_w: int, channels: int, seed: int) -> tuple[np.ndarray, np.ndarray]:
+    """An accumulated ``[h + 3, pad_w, channels]`` canvas and its ``[..., 1]``
+    hit count (0 to 3, so some pixels were never hit): channels 1-2 are
+    calibrated hv maps times the count, the rest noise."""
+    rng = np.random.default_rng(seed)
+    count = rng.integers(0, 4, (h + 3, pad_w, 1)).astype(np.float32)
+    canvas = rng.normal(0, 1, (h + 3, pad_w, channels)).astype(np.float32)
+    canvas[..., 1:3] = _calibrated_hv(h + 3, pad_w, seed) * np.maximum(count, 1)
+    canvas[count[..., 0] == 0] = 0.0
+    return canvas, count
+
+
+RAW_CASES = {
+    "4 channels, padded, ksize 21": (60, 70, 76, 4, 21),
+    "5 channels, padded, ksize 3": (41, 50, 57, 5, 3),
+    "5 channels, padded, ksize 31": (48, 66, 71, 5, 31),
+    "4 channels, full width, ksize 31": (35, 40, 40, 4, 31),
+    "4 channels, narrow, ksize 21": (30, 9, 12, 4, 21),
+}
+
+
+@pytest.mark.parametrize("name", list(RAW_CASES))
+def test_raw_canvas_entry_matches_jax_normalize_then_energy(name: str) -> None:
+    h, w, pad_w, channels, ksize = RAW_CASES[name]
+    canvas, count = _raw_canvas(h, w, pad_w, channels, seed=len(name))
+    normalized = np.asarray(jax_normalize_canvas(canvas, count))
+    want = np.asarray(jax_hv_energy(normalized[:h, :w, 1:3], scale_factor=_scale_for(ksize)))
+    got = ops.hv_energy(
+        torch.from_numpy(canvas)[:h, :w, 1:3], _scale_for(ksize), count=torch.from_numpy(count)[:h, :w]
+    ).numpy()
+    assert got.shape == want.shape == (h, w) and got.dtype == np.float32
+    np.testing.assert_allclose(got, want, rtol=0, atol=TOL)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float16])
+def test_raw_canvas_entry_equals_normalize_rows_then_energy(dtype) -> None:
+    canvas, count = (torch.from_numpy(a) for a in _raw_canvas(45, 52, 59, 4, seed=4))
+    normalized = canvas_ops.normalize_rows(canvas, count, 0, 45, 52)
+    want = ops.hv_energy(normalized[..., 1:3], dtype=dtype)
+    got = ops.hv_energy(canvas[:45, :52, 1:3], dtype=dtype, count=count[:45, :52])
+    assert torch.equal(got, want)
+    plain = ops.hv_energy_reference(canvas[:45, :52, 1:3], dtype=dtype, count=count[:45, :52])
+    assert torch.equal(plain, want)
+
+
+def test_raw_canvas_entry_rejects_a_count_of_another_shape() -> None:
+    canvas, count = (torch.from_numpy(a) for a in _raw_canvas(20, 20, 24, 4, seed=5))
+    with pytest.raises(ValueError, match="count must be float32"):
+        ops.hv_energy(canvas[:20, :20, 1:3], count=count)
+    with pytest.raises(ValueError, match="count must be float32"):
+        ops.hv_energy(canvas[:20, :20, 1:3], count=count[:20, :20].double())
+
+
 def _on_card() -> None:
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card; chip_smoke.py runs this check on the card")
@@ -142,3 +211,58 @@ def test_energy_kernel_on_a_canvas_view_and_float16_on_the_card() -> None:
     torch.cuda.synchronize()
     assert float((got - want).abs().max()) <= TOL
     assert float((half.float() - want).abs().max()) <= TOL + 2**-11
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ksize", list(range(3, 32, 2)))
+def test_energy_kernel_at_every_ksize_on_the_card(ksize: int) -> None:
+    """Each odd ksize has its own instance of the Sobel pass; a 150x300 map
+    has border and interior strips and several runs of rows."""
+    _on_card()
+    hv = torch.from_numpy(_calibrated_hv(150, 300, seed=ksize)).cuda()
+    got = ops.hv_energy(hv, _scale_for(ksize))
+    want = ops.hv_energy_reference(hv, _scale_for(ksize))
+    torch.cuda.synchronize()
+    assert float((got - want).abs().max()) <= TOL
+
+
+RAGGED_MAPS = {
+    "2049x31": (_random_hv, 2049, 31),
+    "narrower than a strip 70x100": (_calibrated_hv, 70, 100),
+    "one column 40x1": (_random_hv, 40, 1),
+    "one row 1x300": (_one_row_hv, 1, 300),
+    "strip and one column 64x129": (_random_hv, 64, 129),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(RAGGED_MAPS))
+def test_energy_kernel_on_ragged_maps_on_the_card(name: str) -> None:
+    _on_card()
+    make, h, w = RAGGED_MAPS[name]
+    hv = make(h, w, seed=len(name))
+    if w == 1:  # one column: dx is zero exactly only where h is constant
+        hv[..., 0] = -0.5
+    hv = torch.from_numpy(hv).cuda()
+    got = ops.hv_energy(hv)
+    want = ops.hv_energy_reference(hv)
+    torch.cuda.synchronize()
+    assert float((got - want).abs().max()) <= TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(RAW_CASES))
+def test_raw_canvas_entry_matches_plain_version_on_the_card(name: str) -> None:
+    """The raw-canvas entry against plain K3 followed by plain K5, float32 and float16."""
+    _on_card()
+    h, w, pad_w, channels, ksize = RAW_CASES[name]
+    canvas, count = (torch.from_numpy(a).cuda() for a in _raw_canvas(h, w, pad_w, channels, seed=len(name)))
+    normalized = canvas_ops.normalize_rows_reference(canvas, count, 0, h, w)
+    want = ops.hv_energy_reference(normalized[..., 1:3], _scale_for(ksize))
+    before = ops.hv_energy.launches
+    got = ops.hv_energy(canvas[:h, :w, 1:3], _scale_for(ksize), count=count[:h, :w])
+    half = ops.hv_energy(canvas[:h, :w, 1:3], _scale_for(ksize), torch.float16, count=count[:h, :w])
+    torch.cuda.synchronize()
+    assert ops.hv_energy.launches == before + 2
+    assert float((got - want).abs().max()) <= TOL
+    assert float((half.float() - want).abs().max()) <= TOL + 2**-12

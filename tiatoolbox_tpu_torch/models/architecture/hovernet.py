@@ -451,9 +451,13 @@ class HoVerNet(ModelABC):
         tp_channel = 3 if len(head_channels) == 3 else -1
         return pack_fg_tp(canvas, count, height, width, tp_channel=tp_channel)
 
-    def final_fetch_transform(self, normalized_canvas, head_channels, dtype=torch.float32):  # noqa: ARG002
-        """The watershed energy ``[H, W, 1]`` of the normalised canvas (K5, ``hovernet.py:674``)."""
-        return hv_energy(normalized_canvas[..., 1:3], dtype=dtype)[..., None]
+    def final_fetch_transform(self, canvas, count, height: int, width: int, head_channels, dtype=torch.float32):  # noqa: ARG002
+        """The watershed energy ``[height, width, 1]`` of the count-normalised
+        canvas (K5, ``hovernet.py:674``), read from the raw canvas: the kernel
+        divides the hv pair by the count as it loads it, so no normalised copy
+        of the canvas is made."""
+        crop = (slice(0, height), slice(0, width))
+        return hv_energy(canvas[crop][..., 1:3], count=count[crop], dtype=dtype)[..., None]
 
     def postproc(self, raw_maps: list, offset: tuple[int, int] = (0, 0)) -> tuple:
         """[np, hv | energy(, tp)] maps -> ({instance result},) (``hovernet.py:682``).

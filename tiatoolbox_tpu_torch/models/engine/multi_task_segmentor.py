@@ -9,9 +9,10 @@ needs:
 
 - **banded** (region feed, canvas at most ``full_postproc_limit``, :268-374):
   the model's ``block_fetch_transform`` packs ``fg | round(tp) << 1`` into a
-  uint8 plane (K6), the canvas is count-normalised (K3) and
-  ``final_fetch_transform`` computes the watershed energy (K5); each plane
-  leaves in one copy to pinned memory, the uint8 plane first.
+  uint8 plane (K6) and ``final_fetch_transform`` computes the watershed
+  energy (K5) from the raw canvas and count, dividing on load, so this path
+  makes no normalised copy of the canvas (no K3); each plane leaves in one
+  copy to pinned memory, the uint8 plane first.
 - **transformed** (per-patch feed, :376-427): the normalised canvas goes
   through ``transform_canvas_for_postproc`` (``[np, energy, tp]``, K5) and
   leaves in one copy.
@@ -241,9 +242,8 @@ class MultiTaskSegmentor(SemanticSegmentor):
                     canvas.canvas, canvas.count, h, w, head_channels
                 )
                 packed_host = to_pinned_host(packed)
-                normalized = normalize_rows(canvas.canvas, canvas.count, 0, h, w)
                 energy = self.model.final_fetch_transform(
-                    normalized, head_channels, dtype=self._wire_dtype()
+                    canvas.canvas, canvas.count, h, w, head_channels, dtype=self._wire_dtype()
                 )
                 energy_host = to_pinned_host(energy).astype(np.float32, copy=False)
             head_maps = [packed_host, energy_host]

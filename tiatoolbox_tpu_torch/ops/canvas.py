@@ -12,7 +12,12 @@ the device, then divided by the count.
 - ``normalize_rows`` is ``normalize_canvas`` (:77) fused with the crop and
   cast of ``semantic_segmentor.py:461-495``: rows ``[y0, y0+block_h)``,
   columns ``[0, width)``, cast to float32 or float16; the kernel of
-  ``csrc/canvas.cu`` on CUDA, ``normalize_rows_reference`` on the CPU.
+  ``csrc/canvas.cu`` (K3) on CUDA, ``normalize_rows_reference`` on the CPU,
+  equal bit for bit. K3 is bound by device memory; it moves 16-byte words
+  (scalar heads and tails where the padded canvas's rows are not aligned)
+  and loads each pixel's count once. The multitask engine's banded fetch
+  does not call it: its energy (K5, ``ops/hv_energy.py``) reads the raw
+  canvas and count and divides on load.
 - ``pack_fg_tp`` is the multitask engine's pointwise fetch plane
   (``semantic_segmentor.py:461-495`` with HoVerNet's
   ``block_fetch_transform``, ``hovernet.py:662-672``): rows ``[0, h)`` and

@@ -15,10 +15,21 @@ gradients and take ``max(1 - Sh, 1 - Sv)``.
   another order than cuDNN or XLA; on [0, 1] the two agree within 2e-6
   (``chip_smoke.py`` and the ``cuda`` tests hold it to that).
 
+The kernel makes three passes (min/max of the pair; a Sobel pass over tall
+strips of 128 columns with the column window in registers, writing Sh and
+Sv interleaved; the normalise-and-max tail), three launches. It is bound by
+device memory: it must read the pair (8 B a pixel) and write the energy
+(4 B), and moves about 54 B a pixel from a 4-channel canvas (the note in
+``csrc/hv_energy.cu`` counts them).
+
 ``hv`` may be a strided ``[H, W, 2]`` view, such as channels 1:3 of a
-``[H, W, C]`` canvas, as long as its channels are adjacent. A CUDA map
-never falls back to the plain version: the kernel launches or the call
-raises.
+``[H, W, C]`` canvas, as long as its channels are adjacent. With
+``count`` (the canvas's ``[H, W, 1]`` hit count, or a view of it) ``hv``
+is the raw accumulated canvas: the pair is divided by ``max(count, 1)`` as
+it is loaded, the same IEEE division as ``normalize_rows`` (K3), so the
+result equals ``normalize_rows`` followed by ``hv_energy`` and no
+normalised copy of the canvas is made. A CUDA map never falls back to the
+plain version: the kernel launches or the call raises.
 """
 
 from __future__ import annotations
@@ -86,9 +97,11 @@ def _library() -> ctypes.CDLL:
     """The built kernel library, its argument types set once per process."""
     lib = _build.load(SOURCE)
     ptr, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
-    lib.hv_energy_scratch_floats.argtypes = [i32, i32]
+    lib.hv_energy_scratch_floats.argtypes = [i32, i32, i32, i32]
     lib.hv_energy_scratch_floats.restype = i64
-    lib.hv_energy_launch.argtypes = [ptr, i64, i32, i32, i32, ptr, ptr, i32, ptr, ptr, i32, ptr]
+    lib.hv_energy_launch.argtypes = [
+        ptr, i64, i64, ptr, i64, i64, i32, i32, ptr, ptr, i32, ptr, ptr, i32, ptr
+    ]
     lib.hv_energy_launch.restype = i32
     lib.hv_energy_error_string.argtypes = [i32]
     lib.hv_energy_error_string.restype = ctypes.c_char_p
@@ -103,7 +116,7 @@ def _ksize(scale_factor: float) -> int:
     return ksize
 
 
-def _check(hv: torch.Tensor, dtype) -> None:
+def _check(hv: torch.Tensor, dtype, count: torch.Tensor | None) -> None:
     if hv.ndim != 3 or hv.shape[2] != 2:
         msg = f"hv must be [H, W, 2], got {tuple(hv.shape)}."
         raise ValueError(msg)
@@ -112,6 +125,14 @@ def _check(hv: torch.Tensor, dtype) -> None:
         raise ValueError(msg)
     if dtype not in _OUT_DTYPES:
         msg = f"Output dtype must be float32 or float16, got {dtype}."
+        raise ValueError(msg)
+    if count is not None and (
+        tuple(count.shape) != (*hv.shape[:2], 1) or count.dtype != torch.float32 or count.device != hv.device
+    ):
+        msg = (
+            f"count must be float32 [{hv.shape[0]}, {hv.shape[1]}, 1] on hv's device, "
+            f"got {count.dtype} {tuple(count.shape)} on {count.device}."
+        )
         raise ValueError(msg)
 
 
@@ -132,9 +153,14 @@ def _sep_conv(x: torch.Tensor, k_x: np.ndarray, k_y: np.ndarray) -> torch.Tensor
     return F.conv2d(F.conv2d(padded, kx), ky)[0, 0]
 
 
-def hv_energy_reference(hv: torch.Tensor, scale_factor: float = 1.0, dtype=torch.float32) -> torch.Tensor:
-    """Plain version: ``max(1 - minmax(Sobel_x(minmax h)), 1 - minmax(Sobel_y(minmax v)))``."""
-    _check(hv, dtype)
+def hv_energy_reference(
+    hv: torch.Tensor, scale_factor: float = 1.0, dtype=torch.float32, count: torch.Tensor | None = None
+) -> torch.Tensor:
+    """Plain version: ``max(1 - minmax(Sobel_x(minmax h)), 1 - minmax(Sobel_y(minmax v)))``,
+    of ``hv / max(count, 1)`` where ``count`` is given."""
+    _check(hv, dtype, count)
+    if count is not None:
+        hv = hv / count.clamp_min(1.0)
     deriv, smooth = sobel_kernels(_ksize(scale_factor))
     h_dir = _minmax(hv[..., 0])
     v_dir = _minmax(hv[..., 1])
@@ -143,14 +169,18 @@ def hv_energy_reference(hv: torch.Tensor, scale_factor: float = 1.0, dtype=torch
     return torch.maximum(1.0 - sobel_h, 1.0 - sobel_v).to(dtype)
 
 
-def hv_energy(hv: torch.Tensor, scale_factor: float = 1.0, dtype=torch.float32) -> torch.Tensor:
+def hv_energy(
+    hv: torch.Tensor, scale_factor: float = 1.0, dtype=torch.float32, count: torch.Tensor | None = None
+) -> torch.Tensor:
     """Watershed energy ``[H, W]`` of the hv maps ``[H, W, 2]``, as ``dtype``.
 
-    ``hv_energy.launches`` counts kernel launches.
+    With ``count`` (``[H, W, 1]``), ``hv`` is the raw accumulated canvas
+    and is divided by ``max(count, 1)`` first. ``hv_energy.launches``
+    counts kernel launches.
     """
-    _check(hv, dtype)
+    _check(hv, dtype, count)
     if hv.device.type == "cpu":
-        return hv_energy_reference(hv, scale_factor, dtype)
+        return hv_energy_reference(hv, scale_factor, dtype, count)
     if hv.device.type != "cuda":
         msg = f"hv_energy runs on cpu or cuda tensors, got {hv.device}."
         raise ValueError(msg)
@@ -163,11 +193,16 @@ def hv_energy(hv: torch.Tensor, scale_factor: float = 1.0, dtype=torch.float32) 
         return out
     deriv, smooth = sobel_kernels(_ksize(scale_factor))
     lib = _library()
-    scratch = torch.empty(int(lib.hv_energy_scratch_floats(h, w)), dtype=torch.float32, device=hv.device)
     with torch.cuda.device(hv.device):
+        n_scratch = int(lib.hv_energy_scratch_floats(h, w, len(deriv), int(count is not None)))
+        if n_scratch < 0:
+            msg = f"hv_energy_scratch_floats failed for a {h}x{w} map and ksize {len(deriv)}."
+            raise RuntimeError(msg)
+        scratch = torch.empty(n_scratch, dtype=torch.float32, device=hv.device)
         stream = torch.cuda.current_stream(hv.device).cuda_stream
+        cnt_ptr, cnt_rs, cnt_ps = (0, 0, 0) if count is None else (count.data_ptr(), *count.stride()[:2])
         code = lib.hv_energy_launch(
-            hv.data_ptr(), hv.stride(0), hv.stride(1), h, w,
+            hv.data_ptr(), hv.stride(0), hv.stride(1), cnt_ptr, cnt_rs, cnt_ps, h, w,
             deriv.ctypes.data, smooth.ctypes.data, len(deriv),
             scratch.data_ptr(), out.data_ptr(), int(dtype == torch.float16), stream,
         )
