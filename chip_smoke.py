@@ -624,12 +624,16 @@ def _bound(n_bytes: float) -> float:
     return n_bytes / HBM_BYTES_PER_S * 1e3
 
 
-def _covered_area(hw: tuple[int, int], pos: np.ndarray, ok: np.ndarray, patch_hw) -> int:
-    mask = torch.zeros(hw, dtype=torch.bool, device=DEVICE)
-    for (y, x), v in zip(pos.tolist(), ok.tolist()):
-        if v:
-            mask[y : y + patch_hw[0], x : x + patch_hw[1]] = True
-    return int(mask.sum())
+def cover(pos: np.ndarray, ok: np.ndarray, patch_hw) -> tuple[int, int]:
+    """(pixels covered, pixels of the union box) of the valid patches at ``pos``."""
+    pos = np.asarray(pos).reshape(-1, 2)[np.asarray(ok, bool)]
+    if len(pos) == 0:
+        return 0, 0
+    y0, x0 = pos.min(axis=0)
+    box = np.zeros(tuple(pos.max(axis=0) + patch_hw - (y0, x0)), bool)
+    for y, x in (pos - (y0, x0)).tolist():
+        box[y : y + patch_hw[0], x : x + patch_hw[1]] = True
+    return int(box.sum()), box.size
 
 
 def held_bitwise(got: torch.Tensor, want: torch.Tensor, what: str) -> float:
@@ -642,9 +646,22 @@ def held_bitwise(got: torch.Tensor, want: torch.Tensor, what: str) -> float:
     return err
 
 
-def check_scatter(recorder: CanvasRecorder, gen: torch.Generator) -> dict:
-    """K2 against its plain version (the run's first batch, ragged cases) and its times."""
-    probs, positions, valid = recorder.calls[0]
+def sparsest_batch(recorder: CanvasRecorder) -> int:
+    """The recorded batch whose patches cover the least of their union box:
+    on the per-patch feed, the one the mask leaves most gaps in."""
+    hw = recorder.canvas.canvas.shape[:2]
+    shares = []
+    for probs, positions, valid in recorder.calls:
+        patch_hw = tuple(probs.shape[1:3])
+        covered, box = cover(positions, canvas_ops.in_range_mask(positions, valid, hw, patch_hw), patch_hw)
+        shares.append(covered / max(box, 1))
+    return int(np.argmin(shares))
+
+
+def check_scatter(recorder: CanvasRecorder, gen: torch.Generator, ragged: bool = True, batch: int = 0) -> dict:
+    """K2 against its plain version (the run's batch ``batch`` and, with
+    ``ragged``, the ragged cases) and its times on that batch."""
+    probs, positions, valid = recorder.calls[batch]
     probs = probs.to(DEVICE)
     canvas_obj = recorder.canvas
     hw = tuple(canvas_obj.canvas.shape[:2])
@@ -662,23 +679,12 @@ def check_scatter(recorder: CanvasRecorder, gen: torch.Generator) -> dict:
         errs.append(held_bitwise(got[1], want[1], f"scatter {what} count"))
 
     both(probs, pos, ok, start, start_n, "main-path batch")
-    last = np.array([[hw[0] - ph, hw[1] - pw]], np.int32)
-    both(probs[:1].contiguous(), last, [True], start, start_n, "N=1 at the last row and column")
-    some = ok.copy()
-    some[1::3] = False
-    both(probs, pos, some, start, start_n, "invalid entries")
-    small = torch.rand((300, 257, n_ch), generator=gen, device=DEVICE)
-    small_n = torch.zeros((300, 257, 1), device=DEVICE)
-    rng = np.random.default_rng(12)
-    ragged_pos = np.concatenate(
-        [rng.integers(0, [300 - 37, 257 - 53], (12, 2)), [[300 - 37, 257 - 53]]]
-    ).astype(np.int32)
-    ragged_ok = rng.random(13) > 0.2
-    ragged = torch.rand((13, 37, 53, n_ch), generator=gen, device=DEVICE)
-    both(ragged, ragged_pos, ragged_ok, small, small_n, "N=13 patches 37x53, some invalid")
+    if ragged:
+        check_scatter_ragged(probs, hw, ok, pos, start, start_n, gen, both)
 
     c, n = start.clone(), start_n.clone()
     kernel_ms = time_ms(lambda: canvas_ops.scatter_accumulate(c, n, probs, pos, ok), 20)
+    kernel_cold_ms = cold_ms(lambda: canvas_ops.scatter_accumulate(c, n, probs, pos, ok))
     plain_ms = time_ms(lambda: canvas_ops.scatter_accumulate_reference(c, n, probs, pos, ok), 5)
     # yardstick: index_put_(accumulate=True) with precomputed flat indices,
     # one call for the canvas and one for the count
@@ -699,17 +705,62 @@ def check_scatter(recorder: CanvasRecorder, gen: torch.Generator) -> dict:
         5,
     )
     n_valid = int(ok.sum())
-    area = _covered_area(hw, pos, ok, (ph, pw))
+    area, box = cover(pos, ok, (ph, pw))
     n_bytes = n_valid * ph * pw * n_ch * 4 + area * (n_ch + 1) * 4 * 2 + len(pos) * 16
     return {
         "max_abs_err": max(errs),
         "ms": kernel_ms,
+        "cold_ms": kernel_cold_ms,
         "plain_ms": plain_ms,
         "library_ms": library_ms,
         "bound_ms": _bound(n_bytes),
         "bytes": n_bytes,
         "covered_pixels": area,
+        "box_pixels": box,
         "patches": n_valid,
+        "batch": batch,
+    }
+
+
+def check_scatter_ragged(probs, hw, ok, pos, start, start_n, gen, both) -> None:
+    """K2's ragged cases: the last pixel, invalid entries, no valid entry,
+    odd patch sizes, and a table longer than one launch takes."""
+    ph, pw, n_ch = probs.shape[1:4]
+    last = np.array([[hw[0] - ph, hw[1] - pw]], np.int32)
+    both(probs[:1].contiguous(), last, [True], start, start_n, "N=1 at the last row and column")
+    some = ok.copy()
+    some[1::3] = False
+    both(probs, pos, some, start, start_n, "invalid entries")
+    both(probs, pos, np.zeros_like(ok), start, start_n, "no valid entry")
+    small = torch.rand((300, 257, n_ch), generator=gen, device=DEVICE)
+    small_n = torch.zeros((300, 257, 1), device=DEVICE)
+    rng = np.random.default_rng(12)
+    ragged_pos = np.concatenate(
+        [rng.integers(0, [300 - 37, 257 - 53], (12, 2)), [[300 - 37, 257 - 53]]]
+    ).astype(np.int32)
+    ragged_ok = rng.random(13) > 0.2
+    ragged = torch.rand((13, 37, 53, n_ch), generator=gen, device=DEVICE)
+    both(ragged, ragged_pos, ragged_ok, small, small_n, "N=13 patches 37x53, some invalid")
+    n_long = 2 * canvas_ops.SCATTER_ENTRIES + 77
+    long_pos = rng.integers(0, [300 - 9, 257 - 11], (n_long, 2)).astype(np.int32)
+    tiny = torch.rand((n_long, 9, 11, n_ch), generator=gen, device=DEVICE)
+    both(tiny, long_pos, rng.random(n_long) > 0.1, small, small_n, f"N={n_long} 9x11, three launches")
+
+
+def cold_ms(fn, reps: int = 10) -> float:
+    """Device time of ``fn()`` with the 50 MB L2 cache cold: ``time_ms`` of a
+    256 MB zero fill then ``fn()``, less that of the fill alone. Back-to-back
+    calls on the same buffers find them in L2 when they are smaller than it."""
+    scrub = torch.empty(256 << 20, dtype=torch.uint8, device=DEVICE)
+    return time_ms(lambda: (scrub.zero_(), fn()), reps) - time_ms(scrub.zero_, reps)
+
+
+def launch_floor() -> dict:
+    """Device time of an empty kernel queued back to back as ``time_ms``
+    queues the kernels, with no parameters and with K4's 4 KB of them."""
+    return {
+        "launch_floor_ms": time_ms(lambda: region_ops.launch_empty(DEVICE), 20),
+        "launch_floor_args_ms": time_ms(lambda: region_ops.launch_empty(DEVICE, with_args=True), 20),
     }
 
 
@@ -781,11 +832,12 @@ def check_extract(slide: Path, dataset, plan, batch: int) -> dict:
     iy = st_dev[:, 0, None, None] + torch.arange(ph, device=DEVICE)[None, :, None]
     ix = st_dev[:, 1, None, None] + torch.arange(pw, device=DEVICE)[None, None, :]
     # each band pixel that a patch covers is read once, each output byte written once
-    area = _covered_area(tuple(dev.shape[:2]), np.asarray(starts), np.ones(len(starts), bool), (ph, pw))
+    area, _ = cover(starts, np.ones(len(starts), bool), (ph, pw))
     n_bytes = area * 3 + len(starts) * ph * pw * 3 + len(starts) * 8
     return {
         "max_abs_err": max(errs),
         "ms": time_ms(lambda: region_ops.extract_patches(dev, starts, (ph, pw)), 20),
+        "cold_ms": cold_ms(lambda: region_ops.extract_patches(dev, starts, (ph, pw))),
         "plain_ms": time_ms(lambda: region_ops.extract_patches_reference(dev, starts, (ph, pw)), 10),
         # yardstick: advanced indexing with precomputed row and column indices
         "library_ms": time_ms(lambda: dev[iy, ix], 10),
@@ -855,7 +907,7 @@ def phase_segment(tmp: Path, card: str) -> list[dict]:
     normalize = check_normalize(region_rec.canvas, h, w)
     card_probs = region_rec.calls[0][0].numpy().copy()
     del region_rec
-    masked, _, masked_counts = run_segment_path(
+    masked, masked_rec, masked_counts = run_segment_path(
         model, slide, ioconfig, card, "device-canvas", n_slots, min_mask_ratio=SEG_MIN_MASK_RATIO
     )
     check(
@@ -864,6 +916,9 @@ def phase_segment(tmp: Path, card: str) -> list[dict]:
         and masked_counts["extract_patches"] == 0,
         f"per-patch launches {masked_counts}",
     )
+    # K2 on the per-patch feed's batch with the most gaps between its patches
+    scatter_pp = check_scatter(masked_rec, gen, ragged=False, batch=sparsest_batch(masked_rec))
+    del masked_rec
     on_card = torch.from_numpy(first).to(DEVICE)
     forward_ms = time_ms(lambda: UNetModel.infer_batch_device(model, on_card), 5)
     region.update(forward_ms_per_batch=forward_ms, setup_seconds=setup_seconds)
@@ -874,6 +929,7 @@ def phase_segment(tmp: Path, card: str) -> list[dict]:
         measured["max_abs_err"] = max(
             measured["max_abs_err"], region["restitch"][key], masked["restitch"][key]
         )
+    scatter["max_abs_err"] = max(scatter["max_abs_err"], scatter_pp["max_abs_err"])
 
     # the first batch of the region-feed run against the same model on the CPU
     kwargs = PRETRAINED_MODELS[SEG_MODEL]["architecture"]["kwargs"]
@@ -937,8 +993,12 @@ def phase_segment(tmp: Path, card: str) -> list[dict]:
             "launches_region_feed": region_counts,
             "launches_per_patch": masked_counts,
             "scatter_accumulate": {**scatter, "share_of_bound": scatter["bound_ms"] / scatter["ms"]},
+            "scatter_accumulate_per_patch": {
+                **scatter_pp, "share_of_bound": scatter_pp["bound_ms"] / scatter_pp["ms"]
+            },
             "normalize_rows": {**normalize, "share_of_bound": normalize["bound_ms"] / normalize["ms"]},
             "extract_patches": {**extract, "share_of_bound": extract["bound_ms"] / extract["ms"]},
+            **launch_floor(),
             "card": card,
         }
     )
@@ -1308,6 +1368,8 @@ def phase_instance(tmp: Path, card: str) -> tuple[list[dict], dict]:
     # the energy's min and max are taken over each run's whole canvas, and the
     # masked canvas is zero where no patch went: the landscapes differ slightly
     check(abs(n1 - n2) <= 0.02 * n1, f"instances inside the covered region: {n1} vs {n2}")
+    # K2 on the per-patch feed's batch with the most gaps between its patches
+    scatter_pp = check_scatter(rec2, gen, ragged=False, batch=sparsest_batch(rec2))
     del rec2
     emit(masked)
 
@@ -1381,7 +1443,8 @@ def phase_instance(tmp: Path, card: str) -> tuple[list[dict], dict]:
     )
     # K2's error covers its own cases and the three runs' re-stitch
     scatter["max_abs_err"] = max(
-        scatter["max_abs_err"], *(run["restitch_scatter_max_abs_err"] for run in (region, masked, tiled))
+        scatter["max_abs_err"], scatter_pp["max_abs_err"],
+        *(run["restitch_scatter_max_abs_err"] for run in (region, masked, tiled)),
     )
     emit(
         {
@@ -1392,10 +1455,12 @@ def phase_instance(tmp: Path, card: str) -> tuple[list[dict], dict]:
             **{
                 name: {**m, "share_of_bound": m["bound_ms"] / m["ms"]}
                 for name, m in (
-                    ("scatter_accumulate", scatter), ("normalize_rows", normalize),
-                    ("extract_patches", extract), ("hv_energy", energy), ("pack_fg_tp", pack),
+                    ("scatter_accumulate", scatter), ("scatter_accumulate_per_patch", scatter_pp),
+                    ("normalize_rows", normalize), ("extract_patches", extract), ("hv_energy", energy),
+                    ("pack_fg_tp", pack),
                 )
             },
+            **launch_floor(),
             "card": card,
         }
     )

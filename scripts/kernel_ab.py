@@ -1,24 +1,38 @@
-"""Time the port's K3 and K5 kernels against an earlier tree's, in turns, on one card.
+"""Time the port's K2-K5 kernels against an earlier tree's, in turns, on one card.
 
-    python3 scripts/kernel_ab.py --old DIR
+    python3 scripts/kernel_ab.py --old DIR [--cases k2,k3,k4,k5]
 
 ``DIR`` holds an earlier checkout's ``tiatoolbox_tpu_torch/csrc``, for
 example from ``git archive <commit> tiatoolbox_tpu_torch/csrc | tar -x -C DIR``.
-The script builds that tree's ``canvas.cu`` and ``hv_energy.cu`` with the
-port's nvcc flags into ``DIR/build``, and calls their C entries through
-ctypes with buffers made once. The tree's kernels run through the port's
-wrappers. Shapes are ``chip_smoke.py``'s: K3 on phase C's canvas (4608 rows
-of 6362 pixels, 5 channels, the 4608x6144 crop) and phase D's (3072 x 4100,
-4 channels, the 3072x4096 crop), float32 and float16 out; K5 on phase D's
-4096x3072 map, from the normalised 4-channel canvas (channels 1:3) and, for
-the tree's kernel only, from the raw canvas with its count. The order of
-the runs is old, new, new, old; each is the mean of 20 back-to-back calls
-timed with CUDA events. The old and new outputs are compared bit for bit.
-Last, where the tree's K5 spends its time: its three passes, from a
-torch.profiler trace of 10 calls, as the spans between the ends of
-consecutive kernels (the Sobel and combine passes may start before the pass
-before them ends and wait for it, so their own spans overlap). Prints the
-card's name and power limit, then one JSON line per case.
+The script builds that tree's ``canvas.cu``, ``region.cu`` and
+``hv_energy.cu`` with the port's nvcc flags into ``DIR/build``, and calls
+their C entries through ctypes with buffers made once. The tree's kernels
+run through the port's wrappers. Shapes are ``chip_smoke.py``'s:
+
+- K2 on the first region-feed batch of phase C (16 patches of 512x512x5 at
+  stride 450 on the 4608x6362x5 canvas) and of phase D (32 patches of
+  164x164x4 at stride 164 on a 3072x4100x4 canvas). The earlier tree's
+  entry takes a device table (y, x, valid, 0); it is made once, and
+  ``old_with_upload_ms`` also times the earlier wrapper's pinned upload of
+  that table before each launch.
+- K3 on phase C's canvas (4608 rows of 6362 pixels, 5 channels, the
+  4608x6144 crop) and phase D's (3072 x 4100, 4 channels, the 3072x4096
+  crop), float32 and float16 out.
+- K4 on phase C's first band batch (16 patches of 1024x1024x3 from a
+  1474x6874x3 band) and phase D's (32 patches of 256x256x3 from a
+  748x4192x3 band); the earlier entry takes device starts (y, x), with the
+  same ``old_with_upload_ms``.
+- K5 on phase D's 4096x3072 map, from the normalised 4-channel canvas
+  (channels 1:3) and, for the tree's kernel only, from the raw canvas with
+  its count.
+
+The order of the runs is old, new, new, old; each is the mean of 20
+back-to-back calls timed with CUDA events. The old and new outputs are
+compared bit for bit. Last, where the tree's K5 spends its time: its three
+passes, from a torch.profiler trace of 10 calls, as the spans between the
+ends of consecutive kernels (the Sobel and combine passes may start before
+the pass before them ends and wait for it, so their own spans overlap).
+Prints the card's name and power limit, then one JSON line per case.
 """
 
 from __future__ import annotations
@@ -35,13 +49,20 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 
+import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 from tiatoolbox_tpu_torch import _build  # noqa: E402
 from tiatoolbox_tpu_torch.ops import canvas as canvas_ops  # noqa: E402
 from tiatoolbox_tpu_torch.ops import hv_energy as energy_ops  # noqa: E402
+from tiatoolbox_tpu_torch.ops import region as region_ops  # noqa: E402
 
 REPS = 20
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA's data sheet
+# (canvas h, width, channels, patch side, stride, batch) of the first region-feed batch
+K2_SHAPES = {"C": (4608, 6362, 5, 512, 450, 16), "D": (3072, 4100, 4, 164, 164, 32)}
+# (band h, band w, patch side, stride, batch)
+K4_SHAPES = {"C": (1474, 6874, 1024, 450, 16), "D": (748, 4192, 256, 164, 32)}
 
 
 def time_ms(fn, reps: int = REPS) -> float:
@@ -74,6 +95,104 @@ def in_turns(old, new) -> dict:
     """Times of ``old`` and ``new`` in the order old, new, new, old."""
     t = [time_ms(old), time_ms(new), time_ms(new), time_ms(old)]
     return {"old_ms": [t[0], t[3]], "new_ms": [t[1], t[2]]}
+
+
+def grid_batch(width: int, side: int, stride: int, batch: int) -> np.ndarray:
+    """The first ``batch`` (y, x) of an x-fastest grid at ``stride`` whose
+    ``side``-wide patches fit ``width``."""
+    cols = (width - side) // stride + 1
+    return np.array([[(i // cols) * stride, (i % cols) * stride] for i in range(batch)], np.int32)
+
+
+def covered(hw, pos: np.ndarray, side: int) -> int:
+    mask = np.zeros(hw, bool)
+    for y, x in pos.tolist():
+        mask[y : y + side, x : x + side] = True
+    return int(mask.sum())
+
+
+def upload(host: np.ndarray) -> torch.Tensor:
+    """The earlier wrappers' table upload: pinned, then copied on the stream."""
+    return torch.from_numpy(host).pin_memory().to("cuda", non_blocking=True)
+
+
+def k2_cases(lib: ctypes.CDLL, gen: torch.Generator) -> list[dict]:
+    ptr, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+    lib.canvas_scatter_accumulate.argtypes = [ptr, ptr, i64, i32, ptr, i32, i32, i32, ptr, i32, i32, i32, i32, ptr]
+    rows = []
+    for phase, (h, width, c, side, stride, batch) in K2_SHAPES.items():
+        pos = grid_batch(width, side, stride, batch)
+        ok = np.ones(batch, bool)
+        table = canvas_ops.patch_table(pos, ok, (h, width), (side, side))
+        table_dev = torch.from_numpy(table).cuda()
+        y0, x0 = pos.min(axis=0).tolist()
+        bh, bw = (pos.max(axis=0) + side - (y0, x0)).tolist()
+        patches = torch.rand((batch, side, side, c), generator=gen, device="cuda")
+        start = torch.rand((h, width, c), generator=gen, device="cuda")
+        start_n = torch.randint(0, 3, (h, width, 1), generator=gen, device="cuda").float()
+        old_c, old_n, new_c, new_n = start.clone(), start_n.clone(), start.clone(), start_n.clone()
+
+        def old(table_dev=table_dev, c=old_c, n=old_n, patches=patches, y0=y0, x0=x0, bh=bh, bw=bw):
+            stream = torch.cuda.current_stream().cuda_stream
+            code = lib.canvas_scatter_accumulate(c.data_ptr(), n.data_ptr(), c.shape[1], c.shape[2],
+                                                 patches.data_ptr(), len(table), patches.shape[1], patches.shape[2],
+                                                 table_dev.data_ptr(), y0, x0, bh, bw, stream)
+            assert code == 0, code
+
+        def old_with_upload(table=table, old=old):
+            old(table_dev=upload(table))
+
+        def new(c=new_c, n=new_n, patches=patches, pos=pos, ok=ok):
+            canvas_ops.scatter_accumulate(c, n, patches, pos, ok)
+
+        old()
+        new()
+        torch.cuda.synchronize()
+        same = bool(torch.equal(old_c, new_c) and torch.equal(old_n, new_n))
+        area = covered((h, width), pos, side)
+        n_bytes = batch * side * side * c * 4 + area * (c + 1) * 4 * 2 + batch * 16
+        row = {"kernel": "K2 scatter_accumulate", "phase": phase, "patches": [batch, side, side, c],
+               "canvas": [h, width, c], "covered_pixels": area, "bytes": n_bytes,
+               "bound_ms": n_bytes / HBM_BYTES_PER_S * 1e3, "identical": same, **in_turns(old, new)}
+        row["old_with_upload_ms"] = [time_ms(old_with_upload), time_ms(old_with_upload)]
+        rows.append(row)
+        del patches, start, start_n, old_c, old_n, new_c, new_n
+    return rows
+
+
+def k4_cases(lib: ctypes.CDLL, gen: torch.Generator) -> list[dict]:
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.region_extract_patches.argtypes = [ptr, ctypes.c_int64, i32, ptr, i32, i32, i32, ptr, ptr]
+    rows = []
+    for phase, (bh, bw, side, stride, batch) in K4_SHAPES.items():
+        band = torch.randint(0, 256, (bh, bw, 3), generator=gen, device="cuda", dtype=torch.uint8)
+        starts = grid_batch(bw, side, stride, batch)
+        starts_dev = torch.from_numpy(starts).cuda()
+        out = torch.empty((batch, side, side, 3), dtype=torch.uint8, device="cuda")
+
+        def old(starts_dev=starts_dev, band=band, out=out, side=side):
+            stream = torch.cuda.current_stream().cuda_stream
+            code = lib.region_extract_patches(band.data_ptr(), band.shape[1], 3, starts_dev.data_ptr(),
+                                              len(starts_dev), side, side, out.data_ptr(), stream)
+            assert code == 0, code
+
+        def old_with_upload(starts=starts, old=old):
+            old(starts_dev=upload(starts))
+
+        def new(band=band, starts=starts, side=side):
+            return region_ops.extract_patches(band, starts, (side, side))
+
+        old()
+        same = bool(torch.equal(out, new()))
+        area = covered((bh, bw), starts, side)
+        n_bytes = area * 3 + batch * side * side * 3 + batch * 8
+        row = {"kernel": "K4 extract_patches", "phase": phase, "patches": [batch, side, side, 3],
+               "band": [bh, bw, 3], "covered_band_pixels": area, "bytes": n_bytes,
+               "bound_ms": n_bytes / HBM_BYTES_PER_S * 1e3, "identical": same, **in_turns(old, new)}
+        row["old_with_upload_ms"] = [time_ms(old_with_upload), time_ms(old_with_upload)]
+        rows.append(row)
+        del band, out
+    return rows
 
 
 def k3_cases(lib: ctypes.CDLL, gen: torch.Generator) -> list[dict]:
@@ -175,7 +294,11 @@ def energy_passes(fn) -> dict:
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--old", type=Path, required=True, help="directory holding an older tiatoolbox_tpu_torch/csrc")
+    parser.add_argument("--cases", default="k2,k3,k4,k5", help="comma-separated kernels to time (k2, k3, k4, k5)")
     args = parser.parse_args()
+    cases = set(args.cases.split(","))
+    if not cases <= {"k2", "k3", "k4", "k5"}:
+        parser.error(f"unknown cases {sorted(cases - {'k2', 'k3', 'k4', 'k5'})}")
     if not torch.cuda.is_available():
         print("kernel_ab: CUDA is not available.", file=sys.stderr)
         return 1
@@ -183,8 +306,12 @@ def main() -> int:
                           capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     print(card, flush=True)
     gen = torch.Generator(device="cuda").manual_seed(8)
-    for row in [*k3_cases(build_old(args.old, "canvas.cu"), gen), *k5_cases(build_old(args.old, "hv_energy.cu"), gen)]:
-        print(json.dumps({**row, "card": card}), flush=True)
+    sources = {"k2": "canvas.cu", "k3": "canvas.cu", "k4": "region.cu", "k5": "hv_energy.cu"}
+    runs = {"k2": k2_cases, "k3": k3_cases, "k4": k4_cases, "k5": k5_cases}
+    libs = {src: build_old(args.old, src) for src in sorted({sources[k] for k in cases})}
+    for kernel in sorted(cases):
+        for row in runs[kernel](libs[sources[kernel]], gen):
+            print(json.dumps({**row, "card": card}), flush=True)
     return 0
 
 

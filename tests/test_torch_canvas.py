@@ -124,6 +124,54 @@ def test_scatter_accumulate_rejects_bad_arguments() -> None:
         canvas.scatter_accumulate(c, torch.zeros((8, 8, 2)), torch.zeros((1, 4, 4, 2)), [[0, 0]], [True])
 
 
+@pytest.mark.parametrize("n_valid", [7, 6, 8, 17, 0])
+def test_scatter_launches_split_the_valid_entries_in_order(n_valid: int) -> None:
+    """Chunks of 7 (the kernel takes SCATTER_ENTRIES): a chunk, one less,
+    one more, about 2.5 chunks, none. Stitching chunk by chunk with the plain
+    version, in order, equals JAX's scan over the whole batch."""
+    rng = np.random.default_rng(n_valid)
+    n = n_valid + 5
+    pos = rng.integers(-4, max(H, W), (n, 2)).astype(np.int32)
+    valid = np.zeros(n, bool)
+    valid[rng.permutation(n)[:n_valid]] = True
+    patches = rng.random((n, 9, 11, C), dtype=np.float32)
+    table = canvas.patch_table(pos, valid, (H, W), (9, 11))
+    launches = canvas.scatter_launches(table, (9, 11), chunk=7)
+    assert [len(e) for e, _ in launches] == [min(7, n_valid - i) for i in range(0, n_valid, 7)]
+    got_index = np.concatenate([e[:, 2] for e, _ in launches]) if launches else np.zeros(0, int)
+    np.testing.assert_array_equal(got_index, np.flatnonzero(valid))
+    c0, n0 = _start_canvas(n_valid)
+    c, cn = torch.from_numpy(c0.copy()), torch.from_numpy(n0.copy())
+    for entries, (y0, x0, bh, bw) in launches:
+        assert entries.dtype == np.int32 and entries.flags.c_contiguous
+        np.testing.assert_array_equal(entries[:, :2], table[entries[:, 2], :2])
+        assert (y0, x0) == tuple(entries[:, :2].min(axis=0))
+        assert (y0 + bh, x0 + bw) == tuple(entries[:, :2].max(axis=0) + (9, 11))
+        assert 0 <= y0 and y0 + bh <= H and 0 <= x0 and x0 + bw <= W
+        one = np.zeros(n, bool)
+        one[entries[:, 2]] = True
+        canvas.scatter_accumulate_reference(c, cn, torch.from_numpy(patches), pos, one)
+    want_c, want_n = jax_canvas.scatter_accumulate(
+        jnp.asarray(c0), jnp.asarray(n0), jnp.asarray(patches), jnp.asarray(pos), jnp.asarray(valid)
+    )
+    np.testing.assert_array_equal(c.numpy(), np.asarray(want_c))
+    np.testing.assert_array_equal(cn.numpy(), np.asarray(want_n))
+
+
+def test_launch_sizes_match_the_kernel_sources() -> None:
+    """The wrappers' chunk sizes are the kernels' parameter-table sizes,
+    which fit CUDA's portable 4,096 bytes of kernel parameters."""
+    from tiatoolbox_tpu_torch._build import CSRC_DIR
+
+    def constant(source: str, name: str) -> int:
+        text = (CSRC_DIR / source).read_text()
+        return int(text.split(f"constexpr int {name} = ")[1].split(";")[0])
+
+    assert constant("canvas.cu", "kScatterEntries") == canvas.SCATTER_ENTRIES
+    assert constant("region.cu", "kExtractPatches") == region.EXTRACT_PATCHES
+    assert 60 + 12 * canvas.SCATTER_ENTRIES <= 4096 and 48 + 8 * region.EXTRACT_PATCHES <= 4096
+
+
 def _band(seed: int = 4) -> np.ndarray:
     return np.random.default_rng(seed).integers(0, 256, (37, 45, 3), dtype=np.uint8)
 
@@ -140,6 +188,17 @@ def test_extract_patches_equals_jax_exactly(starts) -> None:
     got = region.extract_patches(torch.from_numpy(band), starts, (16, 16))
     assert got.dtype == torch.uint8
     np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("channels", [1, 3, 4])
+def test_band_offsets_are_the_first_byte_of_each_patch(channels: int) -> None:
+    band = np.random.default_rng(channels).integers(0, 256, (13, 29, channels), dtype=np.uint8)
+    starts = np.array([[0, 0], [3, 7], [12, 28], [5, 0]], np.int32)
+    offsets = region.band_offsets(band.shape, starts)
+    assert offsets.dtype == np.int64
+    flat = band.ravel()
+    for (y, x), o in zip(starts.tolist(), offsets.tolist()):
+        np.testing.assert_array_equal(flat[o : o + channels], band[y, x])
 
 
 def _mesh(xs, ys, patch=(64, 64)) -> np.ndarray:
@@ -269,9 +328,10 @@ def test_scatter_kernel_matches_plain_version_on_the_card(name: str) -> None:
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("channels", [1, 8, 11])
+@pytest.mark.parametrize("channels", [1, 4, 5, 8, 11])
 def test_scatter_kernel_matches_plain_version_at_any_channel_count(channels: int) -> None:
-    """A thread carries up to 8 channels; more take a second group of threads."""
+    """4 and 8 channels move as 16-byte words, 1-8 are fixed at compile time,
+    and a thread carries up to 8 channels; more take a second group of threads."""
     _on_card()
     rng = np.random.default_rng(channels)
     patches = torch.from_numpy(rng.random((6, 16, 16, channels), dtype=np.float32)).cuda()
@@ -283,6 +343,76 @@ def test_scatter_kernel_matches_plain_version_at_any_channel_count(channels: int
     want = canvas.scatter_accumulate_reference(c0.clone(), n0.clone(), patches, pos, valid)
     torch.cuda.synchronize()
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def _held_on_card(c0, n0, patches, pos, valid) -> int:
+    """Scatter with the kernel and the plain version on the card; both must
+    agree bit for bit. Returns the kernel's launches."""
+    before = canvas.scatter_accumulate.launches
+    got = canvas.scatter_accumulate(c0.clone(), n0.clone(), patches, pos, valid)
+    want = canvas.scatter_accumulate_reference(c0.clone(), n0.clone(), patches, pos, valid)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    return canvas.scatter_accumulate.launches - before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_valid", [320, 319, 321, 800])
+def test_scatter_kernel_across_parameter_table_chunks(n_valid: int) -> None:
+    """A launch takes SCATTER_ENTRIES (320) entries: a chunk, one less, one
+    more and 2.5 chunks of heavily overlapping 6x7 patches, so later chunks
+    add to what earlier ones wrote; invalid entries sit between them."""
+    _on_card()
+    assert canvas.SCATTER_ENTRIES == 320
+    rng = np.random.default_rng(n_valid)
+    n = n_valid + 40
+    valid = np.zeros(n, bool)
+    valid[rng.permutation(n)[:n_valid]] = True
+    pos = rng.integers(0, [H - 6, W - 7], (n, 2)).astype(np.int32)
+    patches = torch.from_numpy(rng.random((n, 6, 7, 4), dtype=np.float32)).cuda()
+    c0 = torch.from_numpy(rng.random((H, W, 4), dtype=np.float32)).cuda()
+    n0 = torch.zeros((H, W, 1), device="cuda")
+    assert _held_on_card(c0, n0, patches, pos, valid) == -(-n_valid // 320)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("channels", [4, 5])
+def test_scatter_kernel_on_a_mostly_uncovered_box(channels: int) -> None:
+    """Patches at the corners of a 300x400 canvas: most tiles of the union
+    box meet no patch and must leave the canvas untouched."""
+    _on_card()
+    rng = np.random.default_rng(channels)
+    pos = np.array([[0, 0], [300 - 16, 400 - 16], [0, 400 - 16], [300 - 16, 0], [150, 190]], np.int32)
+    patches = torch.from_numpy(rng.random((5, 16, 16, channels), dtype=np.float32)).cuda()
+    c0 = torch.from_numpy(rng.random((300, 400, channels), dtype=np.float32)).cuda()
+    n0 = torch.from_numpy(rng.integers(0, 3, (300, 400, 1)).astype(np.float32)).cuda()
+    assert _held_on_card(c0, n0, patches, pos, np.ones(5, bool)) == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("channels", [4, 8])
+def test_scatter_kernel_off_16_byte_boundaries(channels: int) -> None:
+    """A canvas and patches 4 bytes past a 16-byte boundary take the scalar path."""
+    _on_card()
+    rng = np.random.default_rng(channels)
+    flat_c = torch.from_numpy(rng.random(H * W * channels + 1, dtype=np.float32)).cuda()
+    flat_p = torch.from_numpy(rng.random(6 * 16 * 16 * channels + 1, dtype=np.float32)).cuda()
+    c0 = flat_c[1:].view(H, W, channels)
+    patches = flat_p[1:].view(6, 16, 16, channels)
+    pos = np.array([[0, 0], [4, 6], [8, 12], [H - 16, W - 16], [4, 6], [2, 9]], np.int32)
+    assert _held_on_card(c0, torch.zeros((H, W, 1), device="cuda"), patches, pos, np.ones(6, bool)) == 1
+
+
+@pytest.mark.cuda
+def test_scatter_kernel_with_no_valid_entry_and_one_at_the_last_pixel() -> None:
+    _on_card()
+    rng = np.random.default_rng(9)
+    patches = torch.from_numpy(rng.random((3, 16, 16, C), dtype=np.float32)).cuda()
+    c0 = torch.from_numpy(rng.random((H, W, C), dtype=np.float32)).cuda()
+    n0 = torch.ones((H, W, 1), device="cuda")
+    pos = np.array([[0, 0], [4, 6], [H - 16, W - 16]], np.int32)
+    assert _held_on_card(c0, n0, patches, pos, np.zeros(3, bool)) == 0
+    assert _held_on_card(c0, n0, patches[2:].contiguous(), pos[2:], [True]) == 1
 
 
 @pytest.mark.cuda
@@ -337,6 +467,57 @@ def test_extract_kernel_matches_plain_version_on_the_card(pw: int) -> None:
     want = region.extract_patches_reference(band, starts, (16, pw))
     torch.cuda.synchronize()
     assert torch.equal(got, want)
+
+
+def _extract_held_on_card(band, starts, patch_hw) -> int:
+    """K4 and its plain version on the card, byte for byte; returns the launches."""
+    before = region.extract_patches.launches
+    got = region.extract_patches(band, starts, patch_hw)
+    want = region.extract_patches_reference(band, starts, patch_hw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    return region.extract_patches.launches - before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("byte_offset", list(range(16)))
+def test_extract_kernel_at_every_start_byte_offset(byte_offset: int) -> None:
+    """A band 45 pixels wide (135-byte rows, odd): patches whose first byte
+    lies ``byte_offset`` bytes past a 16-byte boundary, 16x16 (48-byte rows)
+    and 16x15 (45-byte rows)."""
+    _on_card()
+    band = torch.from_numpy(_band(byte_offset)).cuda()
+    h, w, c = band.shape
+    base = band.data_ptr()
+    starts = [
+        [y, x] for y in range(h - 16) for x in range(w - 16) if (base + (y * w + x) * c) % 16 == byte_offset
+    ][:8]
+    assert len(starts) == 8
+    for pw in (16, 15):
+        assert _extract_held_on_card(band, np.array(starts, np.int32), (16, pw)) == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(("channels", "pw"), [(3, 15), (3, 7), (1, 13), (4, 4), (3, 45)])
+def test_extract_kernel_with_rows_off_16_byte_words_to_the_bands_last_byte(channels: int, pw: int) -> None:
+    """Patch rows of pw x C bytes, not a multiple of 16 (except 4x4), and a
+    patch whose last byte is the band's last byte."""
+    _on_card()
+    band = torch.from_numpy(
+        np.random.default_rng(pw).integers(0, 256, (37, 45, channels), dtype=np.uint8)
+    ).cuda()
+    starts = np.array([[0, 0], [3, 11], [37 - 9, 45 - pw], [20, 1]], np.int32)
+    assert _extract_held_on_card(band, starts, (9, pw)) == 1
+
+
+@pytest.mark.cuda
+def test_extract_kernel_across_parameter_table_chunks() -> None:
+    """A launch takes EXTRACT_PATCHES (500) patches: 1,101 take three."""
+    _on_card()
+    assert region.EXTRACT_PATCHES == 500
+    band = torch.from_numpy(_band(7)).cuda()
+    starts = np.random.default_rng(7).integers(0, [37 - 5, 45 - 6], (1101, 2)).astype(np.int32)
+    assert _extract_held_on_card(band, starts, (5, 6)) == 3
 
 
 @pytest.mark.cuda

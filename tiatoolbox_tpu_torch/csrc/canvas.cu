@@ -9,16 +9,31 @@
 //
 // Neighbouring patches of a batch overlap (output 512, stride 450), so one
 // thread per (patch, pixel) would need atomics, whose order of additions
-// changes from run to run. This kernel gathers instead: one thread per
-// canvas pixel of the union bounding box of the batch's valid patches (and
-// per group of up to 8 channels) walks the N patches in index order and adds
-// each one that covers its pixel, keeping the sums in registers, then writes
-// once. Each channel's float additions happen in the scan's order, so the
-// result equals the sequential version bit for bit. The first channel group
-// adds the number of covering patches to the count (small integers, exact in
-// float32). Pixels no patch covers are neither read nor written. The batch's
-// (y, x, valid) table is one 16-byte read-only load per patch, the same for
-// every thread of a block.
+// changes from run to run. This kernel gathers instead: a thread owns canvas
+// pixels and adds, in index order, each patch that covers them, keeping the
+// sums in registers, then writes once. Each channel's float additions happen
+// in the scan's order, so the result equals the sequential version bit for
+// bit; the count gains the number of covering patches (small integers, exact
+// in float32). Pixels no patch covers are neither read nor written.
+//
+// The design for Hopper:
+// - The batch's valid entries (y, x, patch index) travel by value in the
+//   kernel's parameter struct (__grid_constant__): a launch uploads nothing.
+//   A struct holds kScatterEntries; a longer batch is launched in chunks, in
+//   index order, on one stream (the wrapper does so), so a later chunk adds
+//   to what the earlier ones wrote, as the scan does.
+// - Blocks take 32 x 32 tiles of the entries' union box. At its start one
+//   warp tests the entries against the tile, 32 a __ballot_sync, and keeps
+//   those that meet it in shared memory, in index order. A tile that no
+//   patch meets returns at once (a batch that crosses patch rows leaves much
+//   of its box uncovered, and the per-patch feed leaves gaps), and a pixel
+//   walks only the tile's short list (1-4 patches on the engines' grids)
+//   instead of all N entries.
+// - Lanes take neighbouring columns and each thread 4 rows. Where C is a
+//   multiple of 4 and the canvas and patches are 16-byte aligned (C = 4 on
+//   phase D), a pixel's channels move as 16-byte float4 words; otherwise as
+//   scalars, C fixed at compile time for 1-8 channels and read at run time
+//   beyond (groups of 8 channels across blockIdx.z).
 //
 // K3 replaces `normalize_canvas` (ops/canvas.py:77) fused with the crop and
 // cast of semantic_segmentor.py:461-495: for rows [y0, y0+bh) and columns
@@ -52,8 +67,8 @@
 // All three are bound by device memory: K2 reads the patches once and reads
 // and writes the covered canvas and count once; K3 and K6 read the canvas
 // rows and their counts and write their output once. None does more than a
-// few arithmetic operations per byte. K2 is one thread per pixel (its stores
-// land on lines it has just read), K6 one thread per output pixel.
+// few arithmetic operations per byte. A K2 thread owns its pixels (its stores
+// land on lines it has just read), K6 is one thread per output pixel.
 
 #include <atomic>
 #include <cstdint>
@@ -63,57 +78,195 @@
 #include "common.cuh"
 
 constexpr int kThreads = 256;
-constexpr int kMaxGridY = 65535;
-constexpr int kGroup = 8;  // channels one scatter thread carries
 
-// One thread per canvas pixel of the box and group of up to kGroup
-// channels (blockIdx.z), so the patch tests are paid once per pixel, not
-// once per channel.
-__global__ void scatter_accumulate_kernel(float* __restrict__ canvas, float* __restrict__ count,
-                                          int64_t width, int channels,
-                                          const float* __restrict__ patches, int n, int ph,
-                                          int pw, const int4* __restrict__ table, int y0, int x0,
-                                          int bh, int bw) {
-    const int col = blockIdx.x * blockDim.x + threadIdx.x;
-    if (col >= bw) {
+// -- K2: scatter-accumulate ---------------------------------------------------
+
+// Entries one launch takes. They travel in the parameter struct, whose
+// portable limit is 4,096 bytes: 60 bytes of pointers and sizes plus 12
+// bytes an entry.
+constexpr int kScatterEntries = 320;
+constexpr int kScatterWarps = 8;
+constexpr int kScatterRows = 4;                         // canvas rows a thread carries
+constexpr int kTileW = 32;                              // a lane a column
+constexpr int kTileH = kScatterWarps * kScatterRows;    // rows of a block's tile
+constexpr int kGroup = 8;  // channels a thread carries when C is read at run time
+
+struct ScatterEntry {
+    int y, x;   // top-left corner, inside the canvas
+    int index;  // the patch's index in the batch
+};
+
+struct ScatterArgs {
+    float* canvas;         // [H, width, channels]
+    float* count;          // [H, width]
+    const float* patches;  // [N, ph, pw, channels]
+    int64_t width;
+    int channels, ph, pw;
+    int n;        // entries: the valid ones, in index order
+    int y0, x0;   // the top-left corner of their union box
+    int tiles_x;  // tiles across the box
+    ScatterEntry entry[kScatterEntries];
+};
+static_assert(sizeof(ScatterArgs) <= 4096, "K2's parameters exceed the portable 4,096 bytes");
+
+// G channels of one pixel at p (the first nc of them when C is read at run
+// time), as 16-byte words when kVec.
+template <int G, bool kVec>
+__device__ __forceinline__ void load_px(float (&v)[G], const float* p, int nc) {
+    if constexpr (kVec) {
+#pragma unroll
+        for (int c = 0; c < G; c += 4) {
+            const float4 t = *reinterpret_cast<const float4*>(p + c);
+            v[c] = t.x;
+            v[c + 1] = t.y;
+            v[c + 2] = t.z;
+            v[c + 3] = t.w;
+        }
+    } else {
+#pragma unroll
+        for (int c = 0; c < G; ++c) {
+            if (c < nc) {
+                v[c] = p[c];
+            }
+        }
+    }
+}
+
+template <int G, bool kVec>
+__device__ __forceinline__ void add_px(float (&v)[G], const float* p, int nc) {
+    if constexpr (kVec) {
+#pragma unroll
+        for (int c = 0; c < G; c += 4) {
+            const float4 t = __ldg(reinterpret_cast<const float4*>(p + c));
+            v[c] += t.x;
+            v[c + 1] += t.y;
+            v[c + 2] += t.z;
+            v[c + 3] += t.w;
+        }
+    } else {
+#pragma unroll
+        for (int c = 0; c < G; ++c) {
+            if (c < nc) {
+                v[c] += __ldg(p + c);
+            }
+        }
+    }
+}
+
+template <int G, bool kVec>
+__device__ __forceinline__ void store_px(const float (&v)[G], float* p, int nc) {
+    if constexpr (kVec) {
+#pragma unroll
+        for (int c = 0; c < G; c += 4) {
+            *reinterpret_cast<float4*>(p + c) = make_float4(v[c], v[c + 1], v[c + 2], v[c + 3]);
+        }
+    } else {
+#pragma unroll
+        for (int c = 0; c < G; ++c) {
+            if (c < nc) {
+                p[c] = v[c];
+            }
+        }
+    }
+}
+
+// One block a tile (blockIdx.x) and group of channels (blockIdx.z; one group
+// unless C is read at run time). C: the channel count fixed at compile time,
+// or 0.
+template <int C, bool kVec>
+__global__ void __launch_bounds__(kScatterWarps * 32)
+    scatter_tiles_kernel(const __grid_constant__ ScatterArgs a) {
+    constexpr int G = C > 0 ? C : kGroup;
+    __shared__ ScatterEntry meets[kScatterEntries];
+    __shared__ int n_meets;
+    const int lane = threadIdx.x & 31;
+    const int warp = threadIdx.x >> 5;
+    const int tile_row = blockIdx.x / a.tiles_x;
+    const int tx0 = a.x0 + (blockIdx.x - tile_row * a.tiles_x) * kTileW;
+    const int ty0 = a.y0 + tile_row * kTileH;
+    if (warp == 0) {
+        int found = 0;
+        for (int base = 0; base < a.n; base += 32) {
+            const int i = base + lane;
+            ScatterEntry e{};
+            bool hit = false;
+            if (i < a.n) {
+                e = a.entry[i];
+                hit = e.y < ty0 + kTileH && e.y + a.ph > ty0 && e.x < tx0 + kTileW && e.x + a.pw > tx0;
+            }
+            const unsigned mask = __ballot_sync(0xffffffffu, hit);
+            if (hit) {
+                meets[found + __popc(mask & ((1u << lane) - 1u))] = e;
+            }
+            found += __popc(mask);
+        }
+        if (lane == 0) {
+            n_meets = found;
+        }
+    }
+    __syncthreads();
+    const int m = n_meets;
+    if (m == 0) {
         return;
     }
-    const int x = x0 + col;
-    const int c0 = blockIdx.z * kGroup;
-    const int nc = channels - c0 < kGroup ? channels - c0 : kGroup;
-    for (int r = blockIdx.y; r < bh; r += gridDim.y) {
-        const int y = y0 + r;
-        const int64_t pixel = static_cast<int64_t>(y) * width + x;
-        float* at = canvas + pixel * channels + c0;
-        float v[kGroup];
-        int hits = 0;
-        for (int i = 0; i < n; ++i) {
-            const int4 t = __ldg(table + i);  // (y, x, valid, unused)
-            if (!t.z || y < t.x || y >= t.x + ph || x < t.y || x >= t.y + pw) {
-                continue;
-            }
-            const float* p =
-                patches + ((static_cast<int64_t>(i) * ph + (y - t.x)) * pw + (x - t.y)) * channels + c0;
+    const int ch = C > 0 ? C : a.channels;
+    const int c0 = C > 0 ? 0 : static_cast<int>(blockIdx.z) * kGroup;
+    const int nc = C > 0 ? C : min(kGroup, ch - c0);
+    const int x = tx0 + lane;
+    const int y = ty0 + warp * kScatterRows;
+    int hits[kScatterRows] = {};
+    for (int j = 0; j < m; ++j) {
+        const ScatterEntry e = meets[j];
+        if (static_cast<unsigned>(x - e.x) < static_cast<unsigned>(a.pw)) {
 #pragma unroll
-            for (int c = 0; c < kGroup; ++c) {
-                if (c < nc) {
-                    v[c] = (hits == 0 ? at[c] : v[c]) + p[c];
-                }
-            }
-            ++hits;
-        }
-        if (hits > 0) {
-#pragma unroll
-            for (int c = 0; c < kGroup; ++c) {
-                if (c < nc) {
-                    at[c] = v[c];
-                }
-            }
-            if (blockIdx.z == 0) {
-                count[pixel] += static_cast<float>(hits);
+            for (int r = 0; r < kScatterRows; ++r) {
+                hits[r] += static_cast<unsigned>(y + r - e.y) < static_cast<unsigned>(a.ph);
             }
         }
     }
+    float v[kScatterRows][G];
+    float n0[kScatterRows];
+#pragma unroll
+    for (int r = 0; r < kScatterRows; ++r) {
+        if (hits[r] > 0) {
+            const int64_t pixel = static_cast<int64_t>(y + r) * a.width + x;
+            load_px<G, kVec>(v[r], a.canvas + pixel * ch + c0, nc);
+            if (c0 == 0) {
+                n0[r] = a.count[pixel];
+            }
+        }
+    }
+    for (int j = 0; j < m; ++j) {
+        const ScatterEntry e = meets[j];
+        const int dx = x - e.x;
+        if (static_cast<unsigned>(dx) >= static_cast<unsigned>(a.pw)) {
+            continue;
+        }
+        const float* p = a.patches + (static_cast<int64_t>(e.index) * a.ph * a.pw + dx) * ch + c0;
+#pragma unroll
+        for (int r = 0; r < kScatterRows; ++r) {
+            const int dy = y + r - e.y;
+            if (static_cast<unsigned>(dy) < static_cast<unsigned>(a.ph)) {
+                add_px<G, kVec>(v[r], p + static_cast<int64_t>(dy) * a.pw * ch, nc);
+            }
+        }
+    }
+#pragma unroll
+    for (int r = 0; r < kScatterRows; ++r) {
+        if (hits[r] > 0) {
+            const int64_t pixel = static_cast<int64_t>(y + r) * a.width + x;
+            store_px<G, kVec>(v[r], a.canvas + pixel * ch + c0, nc);
+            if (c0 == 0) {
+                a.count[pixel] = n0[r] + static_cast<float>(hits[r]);
+            }
+        }
+    }
+}
+
+template <int C, bool kVec = false>
+cudaError_t launch_scatter(const ScatterArgs& a, int tiles, cudaStream_t s, int groups = 1) {
+    scatter_tiles_kernel<C, kVec><<<dim3(tiles, 1, groups), kScatterWarps * 32, 0, s>>>(a);
+    return cudaGetLastError();
 }
 
 // -- K3: normalise-crop-cast ---------------------------------------------------
@@ -272,28 +425,59 @@ cudaError_t launch_normalize_any(const NormRows& a, cudaStream_t s) {
     }
 }
 
-// Items of a row across blockIdx.x, rows across blockIdx.y (striding past
-// the grid's limit), channel groups across blockIdx.z.
-static dim3 grid_for(int64_t row_items, int rows, int groups) {
-    return dim3(static_cast<unsigned>((row_items + kThreads - 1) / kThreads),
-                rows < kMaxGridY ? rows : kMaxGridY, groups);
-}
-
-// table: device int32 [n, 4] of (y, x, valid, unused), positions already
-// inside the canvas; (y0, x0, bh, bw) the union box of the valid patches.
+// entries: host int32 [n, 3] of (y, x, patch index), the batch's valid
+// entries in index order, positions inside the canvas; n <= kScatterEntries
+// (the wrapper launches a longer batch in chunks, in order). (y0, x0, bh,
+// bw): the entries' union box.
 extern "C" int canvas_scatter_accumulate(float* canvas, float* count, int64_t width,
-                                         int channels, const float* patches, int n, int ph,
-                                         int pw, const int* table, int y0, int x0, int bh,
+                                         int channels, const float* patches, int ph, int pw,
+                                         const int* entries, int n, int y0, int x0, int bh,
                                          int bw, cudaStream_t s) {
     if (n <= 0 || bh <= 0 || bw <= 0) {
         return static_cast<int>(cudaSuccess);
     }
-    const int groups = (channels + kGroup - 1) / kGroup;
-    scatter_accumulate_kernel<<<grid_for(bw, bh, groups), kThreads, 0, s>>>(
-        canvas, count, width, channels, patches, n, ph, pw,
-        reinterpret_cast<const int4*>(table), y0, x0, bh, bw);
-    return static_cast<int>(cudaGetLastError());
+    const int64_t tiles_x = (bw + kTileW - 1) / kTileW;
+    const int64_t tiles = tiles_x * ((bh + kTileH - 1) / kTileH);
+    if (n > kScatterEntries || channels <= 0 || tiles > INT32_MAX) {
+        return static_cast<int>(cudaErrorInvalidValue);
+    }
+    ScatterArgs a{};
+    a.canvas = canvas;
+    a.count = count;
+    a.patches = patches;
+    a.width = width;
+    a.channels = channels;
+    a.ph = ph;
+    a.pw = pw;
+    a.n = n;
+    a.y0 = y0;
+    a.x0 = x0;
+    a.tiles_x = static_cast<int>(tiles_x);
+    for (int i = 0; i < n; ++i) {
+        a.entry[i] = ScatterEntry{entries[3 * i], entries[3 * i + 1], entries[3 * i + 2]};
+    }
+    const int t = static_cast<int>(tiles);
+    const bool aligned = ((reinterpret_cast<uintptr_t>(canvas) | reinterpret_cast<uintptr_t>(patches)) & 15u) == 0;
+    if (aligned && channels == 4) {
+        return static_cast<int>(launch_scatter<4, true>(a, t, s));
+    }
+    if (aligned && channels == 8) {
+        return static_cast<int>(launch_scatter<8, true>(a, t, s));
+    }
+    switch (channels) {
+        case 1: return static_cast<int>(launch_scatter<1>(a, t, s));
+        case 2: return static_cast<int>(launch_scatter<2>(a, t, s));
+        case 3: return static_cast<int>(launch_scatter<3>(a, t, s));
+        case 4: return static_cast<int>(launch_scatter<4>(a, t, s));
+        case 5: return static_cast<int>(launch_scatter<5>(a, t, s));
+        case 6: return static_cast<int>(launch_scatter<6>(a, t, s));
+        case 7: return static_cast<int>(launch_scatter<7>(a, t, s));
+        case 8: return static_cast<int>(launch_scatter<8>(a, t, s));
+        default: return static_cast<int>(launch_scatter<0>(a, t, s, (channels + kGroup - 1) / kGroup));
+    }
 }
+
+extern "C" int canvas_scatter_max_entries() { return kScatterEntries; }
 
 // out: [bh, w, channels], float32 (half_out == 0) or float16 (half_out != 0).
 // Rows are one contiguous span when w == width (cut every 2^30 elements, so

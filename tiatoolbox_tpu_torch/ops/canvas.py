@@ -32,7 +32,9 @@ the device, then divided by the count.
 Positions and validity flags are host data (numpy arrays or CPU tensors):
 the wrapper places each position as ``dynamic_update_slice`` does (a
 negative one counts from the end, then it is clamped into the canvas) and
-sends an int32 (y, x, valid, 0) table to the device with the launch.
+passes the valid entries (y, x, patch index) to the kernel by value, in its
+parameters: nothing is uploaded. A launch takes ``SCATTER_ENTRIES`` of them;
+a longer batch is launched in chunks, in index order (``scatter_launches``).
 A CUDA tensor never falls back to the plain version: the kernel
 launches or the call raises.
 """
@@ -48,6 +50,8 @@ import torch
 from tiatoolbox_tpu_torch import _build, resolve_device
 
 SOURCE = "canvas.cu"
+# entries one K2 launch takes in its parameters (kScatterEntries in csrc/canvas.cu)
+SCATTER_ENTRIES = 320
 
 
 @functools.cache
@@ -56,9 +60,13 @@ def _library() -> ctypes.CDLL:
     lib = _build.load(SOURCE)
     ptr, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
     lib.canvas_scatter_accumulate.argtypes = [
-        ptr, ptr, i64, i32, ptr, i32, i32, i32, ptr, i32, i32, i32, i32, ptr
+        ptr, ptr, i64, i32, ptr, i32, i32, ptr, i32, i32, i32, i32, i32, ptr
     ]
     lib.canvas_scatter_accumulate.restype = i32
+    lib.canvas_scatter_max_entries.restype = i32
+    if lib.canvas_scatter_max_entries() != SCATTER_ENTRIES:
+        msg = f"{SOURCE} takes {lib.canvas_scatter_max_entries()} entries a launch, not {SCATTER_ENTRIES}."
+        raise RuntimeError(msg)
     lib.canvas_normalize_rows.argtypes = [ptr, ptr, i64, i32, i32, i32, i32, ptr, i32, ptr]
     lib.canvas_normalize_rows.restype = i32
     lib.canvas_pack_fg_tp.argtypes = [ptr, ptr, i64, i32, i32, i32, i32, ptr, ptr]
@@ -112,6 +120,22 @@ def patch_table(positions, valid, canvas_hw, patch_hw) -> np.ndarray:
     return np.column_stack([clamp_starts(pos, canvas_hw, patch_hw), ok, zero]).astype(np.int32)
 
 
+def scatter_launches(table: np.ndarray, patch_hw, chunk: int = SCATTER_ENTRIES) -> list:
+    """K2's launches for a ``patch_table``: the valid entries as int32
+    ``[k, 3]`` (y, x, patch index), in index order and at most ``chunk`` a
+    launch, each with its union box ``(y0, x0, bh, bw)``."""
+    ph, pw = patch_hw
+    valid = np.flatnonzero(table[:, 2])
+    launches = []
+    for i in range(0, len(valid), chunk):
+        sel = valid[i : i + chunk]
+        ys, xs = table[sel, 0].astype(np.int64), table[sel, 1].astype(np.int64)
+        entries = np.ascontiguousarray(np.column_stack([ys, xs, sel]), dtype=np.int32)
+        y0, x0 = int(ys.min()), int(xs.min())
+        launches.append((entries, (y0, x0, int(ys.max()) + ph - y0, int(xs.max()) + pw - x0)))
+    return launches
+
+
 def _check_canvas(canvas: torch.Tensor, count: torch.Tensor) -> None:
     if canvas.ndim != 3 or tuple(count.shape) != (*canvas.shape[:2], 1):
         msg = (
@@ -162,7 +186,7 @@ def scatter_accumulate(canvas, count, patches, positions, valid):
 
     Returns:
         ``(canvas, count)``, the same tensors. ``scatter_accumulate.launches``
-        counts kernel launches.
+        counts kernel launches (one per ``SCATTER_ENTRIES`` valid entries).
     """
     _check_patches(canvas, count, patches)
     if canvas.device.type == "cpu":
@@ -175,22 +199,16 @@ def scatter_accumulate(canvas, count, patches, positions, valid):
         raise ValueError(msg)
     ph, pw = patches.shape[1:3]
     table = patch_table(positions, valid, canvas.shape[:2], (ph, pw))
-    used = table[table[:, 2] == 1]
-    if len(used) == 0:
-        return canvas, count
-    y0, x0 = used[:, 0].min(), used[:, 1].min()
-    bh, bw = used[:, 0].max() + ph - y0, used[:, 1].max() + pw - x0
-    table_dev = torch.from_numpy(table).pin_memory().to(canvas.device, non_blocking=True)
     lib = _library()
     with torch.cuda.device(canvas.device):
         stream = torch.cuda.current_stream(canvas.device).cuda_stream
-        code = lib.canvas_scatter_accumulate(
-            canvas.data_ptr(), count.data_ptr(), canvas.shape[1], canvas.shape[2],
-            patches.data_ptr(), len(table), ph, pw, table_dev.data_ptr(),
-            int(y0), int(x0), int(bh), int(bw), stream,
-        )
-    _raise_on(code, "canvas_scatter_accumulate")
-    scatter_accumulate.launches += 1
+        for entries, (y0, x0, bh, bw) in scatter_launches(table, (ph, pw)):
+            code = lib.canvas_scatter_accumulate(
+                canvas.data_ptr(), count.data_ptr(), canvas.shape[1], canvas.shape[2],
+                patches.data_ptr(), ph, pw, entries.ctypes.data, len(entries), y0, x0, bh, bw, stream,
+            )
+            _raise_on(code, "canvas_scatter_accumulate")
+            scatter_accumulate.launches += 1
     return canvas, count
 
 

@@ -12,8 +12,11 @@ device.
   ``[Hb, Wb, C]`` band: on a CUDA uint8 band the kernel of
   ``csrc/region.cu`` (K4), on a CPU band ``extract_patches_reference``.
   Start offsets are host data, placed as ``lax.dynamic_slice`` places them
-  (``ops.canvas.clamp_starts``). A CUDA band never falls back to the
-  plain version: the kernel launches or the call raises.
+  (``ops.canvas.clamp_starts``), and reach the kernel by value, as byte
+  offsets in its parameters (``band_offsets``): nothing is uploaded. A
+  launch takes ``EXTRACT_PATCHES`` patches; a longer batch is launched in
+  chunks. A CUDA band never falls back to the plain version: the kernel
+  launches or the call raises.
 """
 
 from __future__ import annotations
@@ -29,6 +32,8 @@ from tiatoolbox_tpu_torch import _build
 from tiatoolbox_tpu_torch.ops.canvas import clamp_starts
 
 SOURCE = "region.cu"
+# patches one K4 launch takes in its parameters (kExtractPatches in csrc/region.cu)
+EXTRACT_PATCHES = 500
 
 
 @functools.cache
@@ -38,9 +43,21 @@ def _library() -> ctypes.CDLL:
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     lib.region_extract_patches.argtypes = [ptr, ctypes.c_int64, i32, ptr, i32, i32, i32, ptr, ptr]
     lib.region_extract_patches.restype = i32
+    lib.region_extract_max_patches.restype = i32
+    lib.region_empty_launch.argtypes = [i32, ptr]
+    lib.region_empty_launch.restype = i32
     lib.region_error_string.argtypes = [i32]
     lib.region_error_string.restype = ctypes.c_char_p
+    if lib.region_extract_max_patches() != EXTRACT_PATCHES:
+        msg = f"{SOURCE} takes {lib.region_extract_max_patches()} patches a launch, not {EXTRACT_PATCHES}."
+        raise RuntimeError(msg)
     return lib
+
+
+def _raise_on(code: int, what: str) -> None:
+    if code != 0:
+        msg = f"{what} failed: {_library().region_error_string(code).decode()}"
+        raise RuntimeError(msg)
 
 
 def _starts(band: torch.Tensor, starts_yx, patch_hw) -> np.ndarray:
@@ -51,6 +68,14 @@ def _starts(band: torch.Tensor, starts_yx, patch_hw) -> np.ndarray:
     if isinstance(starts_yx, torch.Tensor):
         starts_yx = starts_yx.detach().cpu().numpy()
     return clamp_starts(starts_yx, band.shape, patch_hw).astype(np.int32)
+
+
+def band_offsets(band_shape, starts: np.ndarray) -> np.ndarray:
+    """int64 byte offset of each patch's first byte in a contiguous
+    ``[H, W, C]`` band, for starts ``[B, 2]`` (y, x): K4's table."""
+    _, w, c = band_shape
+    starts = np.asarray(starts, np.int64).reshape(-1, 2)
+    return (starts[:, 0] * int(w) + starts[:, 1]) * int(c)
 
 
 def extract_patches_reference(band: torch.Tensor, starts_yx, patch_hw: tuple[int, int]) -> torch.Tensor:
@@ -74,7 +99,7 @@ def extract_patches(band: torch.Tensor, starts_yx, patch_hw: tuple[int, int]) ->
 
     Returns:
         A new tensor on the band's device. ``extract_patches.launches``
-        counts kernel launches.
+        counts kernel launches (one per ``EXTRACT_PATCHES`` patches).
     """
     if band.device.type == "cpu":
         return extract_patches_reference(band, starts_yx, patch_hw)
@@ -89,22 +114,32 @@ def extract_patches(band: torch.Tensor, starts_yx, patch_hw: tuple[int, int]) ->
     out = torch.empty((len(starts), ph, pw, band.shape[2]), dtype=torch.uint8, device=band.device)
     if out.numel() == 0:
         return out
-    starts_dev = torch.from_numpy(starts).pin_memory().to(band.device, non_blocking=True)
+    offsets = band_offsets(band.shape, starts)
     lib = _library()
     with torch.cuda.device(band.device):
         stream = torch.cuda.current_stream(band.device).cuda_stream
-        code = lib.region_extract_patches(
-            band.data_ptr(), band.shape[1], band.shape[2], starts_dev.data_ptr(),
-            len(starts), ph, pw, out.data_ptr(), stream,
-        )
-    if code != 0:
-        msg = f"region_extract_patches failed: {lib.region_error_string(code).decode()}"
-        raise RuntimeError(msg)
-    extract_patches.launches += 1
+        for i in range(0, len(offsets), EXTRACT_PATCHES):
+            part = np.ascontiguousarray(offsets[i : i + EXTRACT_PATCHES])
+            code = lib.region_extract_patches(
+                band.data_ptr(), band.shape[1], band.shape[2], part.ctypes.data,
+                len(part), ph, pw, out[i].data_ptr(), stream,
+            )
+            _raise_on(code, "region_extract_patches")
+            extract_patches.launches += 1
     return out
 
 
 extract_patches.launches = 0
+
+
+def launch_empty(device, with_args: bool = False) -> None:
+    """Queue an empty kernel on ``device``'s current stream, with no
+    parameters or with K4's 4 KB parameter struct: the floor under a launch,
+    for timing beside the kernels."""
+    device = torch.device(device)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        _raise_on(_library().region_empty_launch(int(with_args), stream), "region_empty_launch")
 
 
 @dataclass
