@@ -33,11 +33,12 @@ PyTorch version on the card (main-path batch, all 2^24 RGB colours, ragged
 and misaligned inputs); the canvas and band kernels are held against theirs
 bit for bit in phases C and D (each phase's shapes, ragged cases, and every
 segment and instance run stitched again by the plain versions); the packed
-plane bit for bit and the energy within 2e-6, on the run's canvas and
-ragged sizes, through both of its entries (the normalised view, and the
-raw canvas with its count, which the region feed calls instead of the
-normalise kernel), and run 1's post-processing is repeated on the plain
-versions' planes; tile mode keeps 0.84 +- 0.03 of the whole canvas's
+plane and its hv min/max bit for bit and the energy within 2e-6, on the
+run's canvas and ragged sizes, through both of its entries (the
+normalised view, and the raw canvas with its count, which the region feed
+calls instead of the normalise kernel, with the packing kernel's min/max
+in place of its own first pass: bit for bit with the energy without it),
+and run 1's post-processing is repeated on the plain versions' planes; tile mode keeps 0.84 +- 0.03 of the whole canvas's
 instances (the reference's scheme on these maps, 2004 of 2386 in JAX and
 the port on the CPU); every kernel is timed beside its
 plain version, a library call where one computes the same function, and its
@@ -1033,9 +1034,14 @@ ENERGY_TOL = 2e-6  # K5 against its plain version, on [0, 1]
 # and about 10 more operations (normalisations, the max).
 ENERGY_BYTES_IN = 8
 ENERGY_OPS_PER_PIX = 2 * 2 * (21 + 21) + 10
-# K6 reads np, tp and the count (12 B) and writes 1 B; about 6 operations.
-PACK_BYTES_PER_PIX = 13
-PACK_OPS_PER_PIX = 6
+# K6 with the hv min/max reads the whole 4-channel pixel and the count (20 B)
+# and writes 1 B; about 20 operations (the count's reciprocal, four divisions
+# of 3, the compare, rint, clamp, shift and four min/max). The plane alone
+# would need np, tp and the count (13 B): its bound before the fusion, kept
+# beside the new one.
+PACK_BYTES_PER_PIX = 21
+PACK_PLANE_BYTES_PER_PIX = 13
+PACK_OPS_PER_PIX = 20
 INST_KERNELS = {
     "scatter_accumulate": canvas_ops.scatter_accumulate,
     "normalize_rows": canvas_ops.normalize_rows,
@@ -1128,8 +1134,9 @@ def run_instance_path(
 def check_energy(hv_view: torch.Tensor, canvas_obj, gen: torch.Generator) -> dict:
     """K5 against its plain version (the run's canvas, ragged maps) and its times,
     through both entries: the normalised ``[H, W, 2]`` view, and the raw
-    canvas with its count (the banded fetch's), whose plain version is plain
-    K3 followed by plain K5."""
+    canvas with its count, whose plain version is plain K3 followed by plain
+    K5; and the raw entry with K6's hv min/max (the banded fetch's call)
+    against the raw entry without it, bit for bit."""
     h, w = hv_view.shape[:2]
     plain = energy_ops.hv_energy_reference(hv_view)
     errs = [float((energy_ops.hv_energy(hv_view) - plain).abs().max())]
@@ -1143,6 +1150,14 @@ def check_energy(hv_view: torch.Tensor, canvas_obj, gen: torch.Generator) -> dic
     raw_f16 = energy_ops.hv_energy(raw, dtype=torch.float16, count=raw_count).float()
     raw_f16_err = float((raw_f16 - raw_plain).abs().max())
     check(raw_f16_err <= ENERGY_TOL + 2**-12, f"hv_energy raw-canvas float16 vs plain max abs diff {raw_f16_err}")
+    _, minmax = canvas_ops.pack_fg_tp(cv, cn, h, w, 3)
+    for dtype in (torch.float32, torch.float16):
+        held_bitwise(
+            energy_ops.hv_energy(raw, dtype=dtype, count=raw_count, minmax=minmax),
+            energy_ops.hv_energy(raw, dtype=dtype, count=raw_count),
+            f"hv_energy {dtype} with K6's minmax vs without",
+        )
+    minmax_err = float((energy_ops.hv_energy(raw, count=raw_count, minmax=minmax) - raw_plain).abs().max())
     del plain, raw_plain, raw_f16
     # raw canvases wider than the crop, with pixels no patch covered
     for (rh, rw), pad, n_ch in (((37, 53), 7, 4), ((333, 4001), 3, 4), ((1, 40), 0, 5), ((2049, 31), 9, 5)):
@@ -1193,6 +1208,8 @@ def check_energy(hv_view: torch.Tensor, canvas_obj, gen: torch.Generator) -> dic
         "f16_ms": time_ms(lambda: energy_ops.hv_energy(hv_view, dtype=torch.float16), 20),
         "raw_ms": time_ms(lambda: energy_ops.hv_energy(raw, count=raw_count), 20),
         "raw_f16_ms": time_ms(lambda: energy_ops.hv_energy(raw, dtype=torch.float16, count=raw_count), 20),
+        "with_minmax_ms": time_ms(lambda: energy_ops.hv_energy(raw, count=raw_count, minmax=minmax), 20),
+        "with_minmax_max_abs_err": minmax_err,
         "plain_ms": time_ms(lambda: energy_ops.hv_energy_reference(hv_view), 10),
         "raw_plain_ms": time_ms(lambda: energy_ops.hv_energy_reference(raw, count=raw_count), 10),
         "library_ms": time_ms(library, 10),
@@ -1204,36 +1221,53 @@ def check_energy(hv_view: torch.Tensor, canvas_obj, gen: torch.Generator) -> dic
 
 
 def check_pack(canvas_obj, h: int, w: int) -> dict:
-    """K6 against its plain version (the run's canvas, crops, no type channel) and its times."""
+    """K6 against its plain version, the plane and the hv min/max bit for bit
+    (the run's canvas; crops; no type channel; a 3-channel copy), and its
+    times: the main path's call, and L2 cold."""
     cv, cn = canvas_obj.canvas, canvas_obj.count
-    errs = [
-        held_bitwise(
-            canvas_ops.pack_fg_tp(cv, cn, ch, cw, tp),
-            canvas_ops.pack_fg_tp_reference(cv, cn, ch, cw, tp),
-            f"pack {ch}x{cw} tp={tp}",
-        )
-        for ch, cw, tp in ((h, w, 3), (h - 7, w - 13, 3), (h, w, -1), (1, 1, 3), (333, 17, 3))
-    ]
+    three = cv[: h // 2, :, :3].contiguous()
+    cases = [(cv, cn, ch, cw, tp) for ch, cw, tp in ((h, w, 3), (h - 7, w - 13, 3), (h, w, -1), (1, 1, 3), (333, 17, 3))]
+    cases.append((three, cn[: h // 2], h // 2 - 3, w - 1, -1))
+    errs = []
+    for c, n, ch, cw, tp in cases:
+        what = f"pack {ch}x{cw}x{c.shape[-1]} tp={tp}"
+        plane, minmax = canvas_ops.pack_fg_tp(c, n, ch, cw, tp)
+        want_plane, want_minmax = canvas_ops.pack_fg_tp_reference(c, n, ch, cw, tp)
+        errs.append(held_bitwise(plane, want_plane, what))
+        held_bitwise(minmax.view(torch.int32), want_minmax.view(torch.int32), what + " hv min/max bits")
+        errs.append(float((minmax - want_minmax).abs().max()))
+    del three
     n_pix = h * w
     bytes_s = PACK_BYTES_PER_PIX * n_pix / HBM_BYTES_PER_S
     ops_s = PACK_OPS_PER_PIX * n_pix / FP32_OPS_PER_S
+
+    def fused():
+        return canvas_ops.pack_fg_tp(cv, cn, h, w, 3)
+
     return {
         "max_abs_err": max(errs),
-        "ms": time_ms(lambda: canvas_ops.pack_fg_tp(cv, cn, h, w, 3), 20),
+        "ms": time_ms(fused, 20),
+        "cold_ms": cold_ms(fused),
         "plain_ms": time_ms(lambda: canvas_ops.pack_fg_tp_reference(cv, cn, h, w, 3), 10),
         "library_ms": None,
         "bound_ms": max(bytes_s, ops_s) * 1e3,
         "bound_by": "bytes" if bytes_s >= ops_s else "operations",
+        "plane_bound_13b_ms": PACK_PLANE_BYTES_PER_PIX * n_pix / HBM_BYTES_PER_S * 1e3,
     }
 
 
 def repeat_postproc_on_plain_planes(model: HoVerNet, canvas_obj, calls: list, h: int, w: int) -> dict:
     """Run 1's post-processing again on the planes of the plain K6, and of plain
     K3 followed by plain K5 (what the banded fetch's raw-canvas K5 computes);
-    reports how far the watershed partition moves with the kernel's energy."""
+    reports how far the watershed partition moves with the kernel's energy.
+    The run's energy (K5 from K6's hv min/max) also equals K5's raw-canvas
+    entry with its own min/max pass, bit for bit."""
     (maps, (task,)), = calls
-    packed = canvas_ops.pack_fg_tp_reference(canvas_obj.canvas, canvas_obj.count, h, w, 3).cpu().numpy()
+    cv, cn = canvas_obj.canvas, canvas_obj.count
+    packed = canvas_ops.pack_fg_tp_reference(cv, cn, h, w, 3)[0].cpu().numpy()
     check(np.array_equal(packed, maps[0]), "plain packed plane == the run's")
+    unfused = energy_ops.hv_energy(cv[:h, :w, 1:3], count=cn[:h, :w])[..., None].cpu().numpy()
+    check(np.array_equal(unfused, maps[1]), "the run's energy == K5's raw entry without K6's min/max")
     normalized = canvas_ops.normalize_rows_reference(canvas_obj.canvas, canvas_obj.count, 0, h, w)
     energy = energy_ops.hv_energy_reference(normalized[..., 1:3])[..., None].cpu().numpy()
     energy_diff = float(np.abs(energy - maps[1]).max())
@@ -1460,6 +1494,7 @@ def phase_instance(tmp: Path, card: str) -> tuple[list[dict], dict]:
                     ("pack_fg_tp", pack),
                 )
             },
+            "fetch_kernels_ms": pack["ms"] + energy["with_minmax_ms"],
             **launch_floor(),
             "card": card,
         }

@@ -1,6 +1,6 @@
-"""Time the port's K2-K5 kernels against an earlier tree's, in turns, on one card.
+"""Time the port's K2-K6 kernels against an earlier tree's, in turns, on one card.
 
-    python3 scripts/kernel_ab.py --old DIR [--cases k2,k3,k4,k5]
+    python3 scripts/kernel_ab.py --old DIR [--cases k2,k3,k4,k5,k6]
 
 ``DIR`` holds an earlier checkout's ``tiatoolbox_tpu_torch/csrc``, for
 example from ``git archive <commit> tiatoolbox_tpu_torch/csrc | tar -x -C DIR``.
@@ -24,7 +24,14 @@ run through the port's wrappers. Shapes are ``chip_smoke.py``'s:
   same ``old_with_upload_ms``.
 - K5 on phase D's 4096x3072 map, from the normalised 4-channel canvas
   (channels 1:3) and, for the tree's kernel only, from the raw canvas with
-  its count.
+  its count. The earlier entry is that of trees up to 4bb417d (no count).
+- K6 on phase D's canvas (3072 x 4100, 4 channels, the 3072x4096 crop):
+  the earlier tree's plane-only K6 against the tree's K6, which also
+  gives the hv min/max; then the banded fetch's two kernels, the earlier
+  K6 and K5's raw-canvas entry against the tree's K6 and K5 taking its
+  min/max, compared bit for bit, and the spans of the tree's pair from a
+  profiler trace. The earlier entries are those of ce2badd (K6 without
+  the min/max, K5 without ``minmax``).
 
 The order of the runs is old, new, new, old; each is the mean of 20
 back-to-back calls timed with CUDA events. The old and new outputs are
@@ -266,8 +273,10 @@ def k5_cases(lib: ctypes.CDLL, gen: torch.Generator) -> list[dict]:
     return rows
 
 
-def energy_passes(fn) -> dict:
-    """Median spans (ms) of K5's min/max, Sobel and combine passes over 10 calls of ``fn``."""
+def energy_passes(fn, first: str = "hv_minmax") -> dict:
+    """Median spans (ms) of the kernel named ``first`` (K5's min/max pass, or
+    K6 where it gives the min/max) and K5's Sobel and combine passes after
+    it, over 10 calls of ``fn``."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -283,7 +292,7 @@ def energy_passes(fn) -> dict:
     kernels = sorted((e for e in events if e.get("cat") == "kernel"), key=lambda e: e["ts"])
     spans = {"minmax": [], "sobel": [], "combine": []}
     for i, e in enumerate(kernels):
-        if "hv_minmax" in e["name"] and i + 2 < len(kernels):
+        if first in e["name"] and i + 2 < len(kernels):
             ends = [k["ts"] + k["dur"] for k in kernels[i : i + 3]]
             spans["minmax"].append(ends[0] - e["ts"])
             spans["sobel"].append(ends[1] - ends[0])
@@ -291,14 +300,70 @@ def energy_passes(fn) -> dict:
     return {name: statistics.median(v) / 1e3 for name, v in spans.items() if v}
 
 
+def k6_cases(libs: dict, gen: torch.Generator) -> list[dict]:
+    ptr, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+    old_canvas, old_energy = libs["canvas.cu"], libs["hv_energy.cu"]
+    old_canvas.canvas_pack_fg_tp.argtypes = [ptr, ptr, i64, i32, i32, i32, i32, ptr, ptr]
+    old_energy.hv_energy_scratch_floats.argtypes = [i32, i32, i32, i32]
+    old_energy.hv_energy_scratch_floats.restype = i64
+    old_energy.hv_energy_launch.argtypes = [ptr, i64, i64, ptr, i64, i64, i32, i32, ptr, ptr, i32, ptr, ptr, i32, ptr]
+    h, width, w = 3072, 4100, 4096
+    count = torch.randint(0, 3, (h, width, 1), generator=gen, device="cuda").float()
+    canvas = torch.rand((h, width, 4), generator=gen, device="cuda")
+    canvas[..., 1:3] = canvas[..., 1:3] * 2 - 1
+    canvas[..., 3] = torch.randint(0, 6, (h, width), generator=gen, device="cuda").float()
+    canvas *= count.clamp_min(1)
+    plane_old = torch.empty((h, w, 1), dtype=torch.uint8, device="cuda")
+    energy_old = torch.empty((h, w), device="cuda")
+    deriv, smooth = energy_ops.sobel_kernels(21)
+    scratch = torch.empty(int(old_energy.hv_energy_scratch_floats(h, w, 21, 1)), device="cuda")
+    raw, raw_count = canvas[:h, :w, 1:3], count[:h, :w]
+
+    def old_k6():
+        stream = torch.cuda.current_stream().cuda_stream
+        code = old_canvas.canvas_pack_fg_tp(canvas.data_ptr(), count.data_ptr(), width, 4, 3, h, w,
+                                            plane_old.data_ptr(), stream)
+        assert code == 0, code
+
+    def old_pair():
+        old_k6()
+        stream = torch.cuda.current_stream().cuda_stream
+        code = old_energy.hv_energy_launch(raw.data_ptr(), raw.stride(0), raw.stride(1), raw_count.data_ptr(),
+                                           raw_count.stride(0), raw_count.stride(1), h, w, deriv.ctypes.data,
+                                           smooth.ctypes.data, 21, scratch.data_ptr(), energy_old.data_ptr(), 0,
+                                           stream)
+        assert code == 0, code
+
+    def new_k6():
+        return canvas_ops.pack_fg_tp(canvas, count, h, w, 3)
+
+    def new_pair():
+        plane, minmax = new_k6()
+        return plane, energy_ops.hv_energy(raw, count=raw_count, minmax=minmax)
+
+    old_pair()
+    plane, energy = new_pair()
+    torch.cuda.synchronize()
+    n_pix = h * w
+    row = {"kernel": "K6 pack_fg_tp", "phase": "D", "shape": [h, w, 4], "canvas_width": width,
+           "bytes": 21 * n_pix, "bound_ms": 21 * n_pix / HBM_BYTES_PER_S * 1e3,
+           "plane_bound_13b_ms": 13 * n_pix / HBM_BYTES_PER_S * 1e3,
+           "identical": bool(torch.equal(plane, plane_old)), **in_turns(old_k6, new_k6)}
+    pair = {"kernel": "K6 + K5 banded fetch", "phase": "D", "shape": [h, w],
+            "identical": bool(torch.equal(energy, energy_old)), **in_turns(old_pair, new_pair),
+            "new_spans_ms": energy_passes(new_pair, first="pack_kernel")}
+    return [row, pair]
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--old", type=Path, required=True, help="directory holding an older tiatoolbox_tpu_torch/csrc")
-    parser.add_argument("--cases", default="k2,k3,k4,k5", help="comma-separated kernels to time (k2, k3, k4, k5)")
+    parser.add_argument("--cases", default="k2,k3,k4,k5,k6", help="comma-separated kernels to time (k2 to k6)")
     args = parser.parse_args()
     cases = set(args.cases.split(","))
-    if not cases <= {"k2", "k3", "k4", "k5"}:
-        parser.error(f"unknown cases {sorted(cases - {'k2', 'k3', 'k4', 'k5'})}")
+    known = {"k2", "k3", "k4", "k5", "k6"}
+    if not cases <= known:
+        parser.error(f"unknown cases {sorted(cases - known)}")
     if not torch.cuda.is_available():
         print("kernel_ab: CUDA is not available.", file=sys.stderr)
         return 1
@@ -306,11 +371,18 @@ def main() -> int:
                           capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     print(card, flush=True)
     gen = torch.Generator(device="cuda").manual_seed(8)
-    sources = {"k2": "canvas.cu", "k3": "canvas.cu", "k4": "region.cu", "k5": "hv_energy.cu"}
-    runs = {"k2": k2_cases, "k3": k3_cases, "k4": k4_cases, "k5": k5_cases}
-    libs = {src: build_old(args.old, src) for src in sorted({sources[k] for k in cases})}
+    sources = {"k2": ["canvas.cu"], "k3": ["canvas.cu"], "k4": ["region.cu"], "k5": ["hv_energy.cu"],
+               "k6": ["canvas.cu", "hv_energy.cu"]}
+    runs = {
+        "k2": lambda libs, gen: k2_cases(libs["canvas.cu"], gen),
+        "k3": lambda libs, gen: k3_cases(libs["canvas.cu"], gen),
+        "k4": lambda libs, gen: k4_cases(libs["region.cu"], gen),
+        "k5": lambda libs, gen: k5_cases(libs["hv_energy.cu"], gen),
+        "k6": k6_cases,
+    }
+    libs = {src: build_old(args.old, src) for src in sorted({src for k in cases for src in sources[k]})}
     for kernel in sorted(cases):
-        for row in runs[kernel](libs[sources[kernel]], gen):
+        for row in runs[kernel](libs, gen):
             print(json.dumps({**row, "card": card}), flush=True)
     return 0
 

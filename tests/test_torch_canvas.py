@@ -5,9 +5,14 @@ both sides add float32 patches in the same order one element at a time, or
 copy bytes. Normalisation is one IEEE division and a round-to-nearest cast,
 also exact, and so is the packed plane of the multitask engine
 (``pack_fg_tp``: the same division, ``>= 0.5``, half-to-even rounding and
-shift as JAX's normalised block with HoVerNet's ``block_fetch_transform``). ``BandPlan.build`` must equal the JAX plan field by field. The
-card tests (marker ``cuda``) hold each CUDA kernel against its plain
-version bit for bit; they skip where there is no card.
+shift as JAX's normalised block with HoVerNet's ``block_fetch_transform``),
+and so is the min/max of the normalised hv pair that ``pack_fg_tp`` also
+gives (the same division, then ``amin``/``amax`` against
+``jnp.min``/``jnp.max``, which any order gives exactly). A rounded type
+outside ``[0, 255]`` saturates, as JAX's ``astype(jnp.uint8)`` does.
+``BandPlan.build`` must equal the JAX plan field by field. The card tests
+(marker ``cuda``) hold each CUDA kernel against its plain version bit for
+bit; they skip where there is no card.
 """
 
 from __future__ import annotations
@@ -289,7 +294,7 @@ def test_pack_fg_tp_equals_jax_block_fetch(with_tp: bool, crop) -> None:
         transform=lambda rows: JaxHoVerNet.block_fetch_transform(None, rows, head_channels),
     )
     want = np.asarray(block_fn(0, h))
-    got = canvas.pack_fg_tp(
+    got, _ = canvas.pack_fg_tp(
         torch.from_numpy(c), torch.from_numpy(n), h, w, tp_channel=3 if with_tp else -1
     )
     assert got.dtype == torch.uint8 and tuple(got.shape) == (h, w, 1)
@@ -302,6 +307,99 @@ def test_pack_fg_tp_rejects_bad_arguments() -> None:
         canvas.pack_fg_tp(c, n, H + 1, W)
     with pytest.raises(ValueError, match="outside"):
         canvas.pack_fg_tp(c, n, H, W, tp_channel=4)
+    with pytest.raises(ValueError, match="no hv pair"):
+        canvas.pack_fg_tp(c[..., :2].contiguous(), n, H, W)
+
+
+def _type_canvas(tp_channel: int):
+    """A 4-channel canvas whose normalised type channel runs from -3.6 to
+    1000: rounded types below 0 and above 255, halves on both sides."""
+    types = np.array([-3.6, -1.0, -0.6, -0.5, -0.4, 0.5, 2.5, 127.5, 254.6, 255.4, 255.5, 256.0, 300.0, 1000.0])
+    rng = np.random.default_rng(5)
+    count = rng.integers(0, 4, (H, W, 1)).astype(np.float32)
+    c = rng.random((H, W, 4), dtype=np.float32) * np.maximum(count, 1)
+    c[..., tp_channel] = rng.choice(types, (H, W)).astype(np.float32) * np.maximum(count[..., 0], 1)
+    return c, count
+
+
+def test_pack_fg_tp_saturates_types_outside_a_byte_as_jax() -> None:
+    """A rounded type below 0 packs as 0 and one above 255 as 255 (then
+    shifted: 254), as ``jnp.round(...).astype(jnp.uint8)`` in JAX's
+    ``block_fetch_transform`` gives on the normalised block."""
+    from types import SimpleNamespace
+
+    from tiatoolbox_tpu.models.architecture.hovernet import HoVerNet as JaxHoVerNet
+    from tiatoolbox_tpu.models.engine.semantic_segmentor import SemanticSegmentor as JaxSegmentor
+
+    c, n = _type_canvas(3)
+    block_fn = JaxSegmentor._make_normalized_block_fn(
+        None,
+        SimpleNamespace(canvas=jnp.asarray(c), count=jnp.asarray(n)),
+        W,
+        transform=lambda rows: JaxHoVerNet.block_fetch_transform(None, rows, [1, 2, 1]),
+    )
+    want = np.asarray(block_fn(0, H))
+    assert {0, 254} <= set(np.unique(want >> 1 << 1).tolist())
+    got, _ = canvas.pack_fg_tp_reference(torch.from_numpy(c), torch.from_numpy(n), H, W, tp_channel=3)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def _hv_canvas(h: int, width: int, channels: int, seed: int, zero_counts: bool = False):
+    """An accumulated ``[h, width, channels]`` canvas ([np, h, v(, tp, ...)])
+    and its count (0 to 3, or all 0): hv of either sign times the count, so
+    the normalised pair spans about [-1, 1]; no patch left 0 where the
+    count is 0."""
+    rng = np.random.default_rng(seed)
+    count = np.zeros((h, width, 1), np.float32) if zero_counts else rng.integers(0, 4, (h, width, 1)).astype(np.float32)
+    c = rng.random((h, width, channels), dtype=np.float32) * np.maximum(count, 1)
+    c[..., 1:3] = rng.uniform(-1, 1, (h, width, 2)).astype(np.float32) * np.maximum(count, 1)
+    if channels > 3:
+        c[..., 3] = rng.integers(0, 6, (h, width)).astype(np.float32) * np.maximum(count[..., 0], 1)
+    return c, count
+
+
+# (canvas height, canvas width, channels, crop, zero counts): rows padded
+# wider than the crop, ragged crops, one row, one pixel
+HV_CASES = {
+    "C=4 padded, ragged crop": (40, 52, 4, (37, 45), False),
+    "C=3 padded, ragged crop": (40, 53, 3, (33, 50), False),
+    "C=4 whole canvas": (24, 36, 4, (24, 36), False),
+    "C=3 one row": (9, 47, 3, (1, 47), False),
+    "C=4 one pixel": (5, 7, 4, (1, 1), False),
+    "C=5 padded": (21, 30, 5, (20, 27), False),
+    "C=4 zero counts": (16, 21, 4, (15, 21), True),
+}
+
+
+@pytest.mark.parametrize("name", list(HV_CASES))
+def test_pack_hv_minmax_equals_jax_min_max_of_the_normalised_pair(name: str) -> None:
+    """The min/max of ``pack_fg_tp_reference`` is ``jnp.min``/``jnp.max``
+    of JAX's normalised hv (``normalize_canvas``, as HoVerNet's
+    ``final_fetch_transform`` feeds ``hv_energy``), bit for bit; the plane
+    is JAX's ``block_fetch_transform`` of the same normalised crop."""
+    from tiatoolbox_tpu.models.architecture.hovernet import HoVerNet as JaxHoVerNet
+
+    ch, cw, channels, (h, w), zero = HV_CASES[name]
+    c, n = _hv_canvas(ch, cw, channels, seed=len(name), zero_counts=zero)
+    normalized = jax_canvas.normalize_canvas(jnp.asarray(c), jnp.asarray(n))[:h, :w]
+    want = np.array(
+        [jnp.min(normalized[..., 1]), jnp.max(normalized[..., 1]), jnp.min(normalized[..., 2]), jnp.max(normalized[..., 2])],
+        np.float32,
+    )
+    tp = 3 if channels > 3 else -1
+    want_plane = np.asarray(JaxHoVerNet.block_fetch_transform(None, normalized, [1, 2, 1] if tp == 3 else [1, 2]))
+    for fn in (canvas.pack_fg_tp_reference, canvas.pack_fg_tp):
+        plane, minmax = fn(torch.from_numpy(c), torch.from_numpy(n), h, w, tp)
+        assert minmax.dtype == torch.float32 and tuple(minmax.shape) == (4,)
+        np.testing.assert_array_equal(minmax.numpy().view(np.uint32), want.view(np.uint32))
+        np.testing.assert_array_equal(plane.numpy(), want_plane)
+
+
+def test_pack_hv_minmax_of_an_empty_crop() -> None:
+    c, n = (torch.from_numpy(a) for a in _hv_canvas(8, 8, 4, seed=2))
+    plane, minmax = canvas.pack_fg_tp(c, n, 0, 8, 3)
+    assert tuple(plane.shape) == (0, 8, 1)
+    assert minmax.tolist() == [float("inf"), float("-inf"), float("inf"), float("-inf")]
 
 
 def _on_card() -> None:
@@ -520,6 +618,53 @@ def test_extract_kernel_across_parameter_table_chunks() -> None:
     assert _extract_held_on_card(band, starts, (5, 6)) == 3
 
 
+def _held_fused_pack(c, n, crop, tp_channel: int, what: str) -> None:
+    """K6 against its plain version on the card, bit for bit (the plane and
+    the 4 floats of the hv min/max)."""
+    before = canvas.pack_fg_tp.launches
+    plane, minmax = canvas.pack_fg_tp(c, n, *crop, tp_channel)
+    want_plane, want_minmax = canvas.pack_fg_tp_reference(c, n, *crop, tp_channel)
+    torch.cuda.synchronize()
+    assert canvas.pack_fg_tp.launches == before + 1, what
+    assert torch.equal(plane, want_plane), what
+    assert torch.equal(minmax.view(torch.int32), want_minmax.view(torch.int32)), (what, minmax, want_minmax)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(("channels", "tp_channel"), [(4, 3), (4, -1), (3, -1), (3, 0)])
+def test_fused_pack_kernel_at_every_row_start_on_the_card(channels: int, tp_channel: int) -> None:
+    """Canvas widths of every residue mod 4 (a row's first pixel at each
+    place in a 16-byte word of the count, so the groups of 4 start after 0-3
+    pixels), the canvas and count shifted together by 0-3 pixels (the
+    vectorised path) and the canvas alone by one float (the scalar one),
+    full, ragged, 1x1 and 1xw crops, and all-zero counts."""
+    _on_card()
+    h = 23
+    for width in (40, 41, 42, 43):
+        for zero in (False, True):
+            c_np, n_np = _hv_canvas(h, width, channels, seed=width, zero_counts=zero)
+            flat_c = torch.from_numpy(np.concatenate([c_np.ravel(), np.zeros(4 * channels, np.float32)])).cuda()
+            flat_n = torch.from_numpy(np.concatenate([n_np.ravel(), np.zeros(4, np.float32)])).cuda()
+            m = h * width
+            shifts = {f"{s} pixels": (s * channels, s) for s in range(4)}
+            shifts["canvas 1 float"] = (1, 0)
+            for what, (oc, on) in shifts.items():
+                c = flat_c[oc : oc + m * channels].view(h, width, channels)
+                n = flat_n[on : on + m].view(h, width, 1)
+                for crop in ((h, width), (h - 2, width - 5), (1, 1), (1, width), (h, 3)):
+                    _held_fused_pack(c, n, crop, tp_channel, f"width {width} zero {zero} {what} crop {crop}")
+
+
+@pytest.mark.cuda
+def test_fused_pack_kernel_across_warp_items_on_the_card() -> None:
+    """Rows of 1,000 to 2,051 pixels: several 128-pixel items a row, and
+    more items than the persistent grid's warps at 300 rows."""
+    _on_card()
+    for width, crop in ((1003, (300, 1000)), (2051, (37, 2051))):
+        c, n = (torch.from_numpy(a).cuda() for a in _hv_canvas(crop[0] + 2, width, 4, seed=width))
+        _held_fused_pack(c, n, crop, 3, f"width {width}")
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize(
     ("tp_channel", "crop"), [(3, (H, W)), (3, (H - 3, W - 5)), (-1, (H, W)), (3, (1, 1))]
@@ -527,7 +672,20 @@ def test_extract_kernel_across_parameter_table_chunks() -> None:
 def test_pack_kernel_matches_plain_version_on_the_card(tp_channel: int, crop) -> None:
     _on_card()
     c, n = (torch.from_numpy(a).cuda() for a in _pack_canvas(3))
-    got = canvas.pack_fg_tp(c, n, *crop, tp_channel=tp_channel)
-    want = canvas.pack_fg_tp_reference(c, n, *crop, tp_channel=tp_channel)
+    got, got_minmax = canvas.pack_fg_tp(c, n, *crop, tp_channel=tp_channel)
+    want, want_minmax = canvas.pack_fg_tp_reference(c, n, *crop, tp_channel=tp_channel)
     torch.cuda.synchronize()
     assert torch.equal(got, want)
+    assert torch.equal(got_minmax.view(torch.int32), want_minmax.view(torch.int32))
+
+
+@pytest.mark.cuda
+def test_pack_kernel_saturates_types_outside_a_byte_on_the_card() -> None:
+    """Rounded types from -4 to 1000: in channel 3 of an aligned canvas (the
+    vectorised path) and of the same canvas one float off (the scalar one),
+    and in channel 0 where the canvas starts one float early (vectorised)."""
+    _on_card()
+    c, n = _type_canvas(3)
+    flat = torch.from_numpy(np.concatenate([np.zeros(1, np.float32), c.ravel()])).cuda()
+    for cv, tp_channel in ((torch.from_numpy(c).cuda(), 3), (flat[1:].view(H, W, 4), 3), (flat[: H * W * 4].view(H, W, 4), 0)):
+        _held_fused_pack(cv, torch.from_numpy(n).cuda(), (H, W), tp_channel, f"tp {tp_channel}")

@@ -23,6 +23,13 @@ ksize 3, 21 and 31), and equals the port's normalise-then-energy bit for
 bit. On the card both entries are held to their plain versions at every odd
 ksize from 3 to 31, on maps narrower than a 128-column strip, one row and
 2049x31.
+
+With ``minmax=`` (the normalised pair's min and max, which the multitask
+fetch takes from ``pack_fg_tp``) the energy skips
+its min/max pass: it is held against JAX's energy of the normalised view
+within the same 2e-6 and, on the CPU and the card, against the entry
+without ``minmax`` bit for bit. So is HoVerNet's banded fetch (the packed
+plane, then the energy from its min/max): the same planes as before.
 """
 
 from __future__ import annotations
@@ -33,6 +40,7 @@ import torch
 
 from tiatoolbox_tpu.ops.canvas import normalize_canvas as jax_normalize_canvas
 from tiatoolbox_tpu.ops.hv_energy import hv_energy as jax_hv_energy
+from tiatoolbox_tpu_torch.models.architecture.hovernet import HoVerNet
 from tiatoolbox_tpu_torch.ops import canvas as canvas_ops
 from tiatoolbox_tpu_torch.ops import hv_energy as ops
 
@@ -174,6 +182,53 @@ def test_raw_canvas_entry_equals_normalize_rows_then_energy(dtype) -> None:
     assert torch.equal(plain, want)
 
 
+@pytest.mark.parametrize("name", list(RAW_CASES))
+def test_raw_canvas_entry_with_minmax_matches_jax_and_the_entry_without(name: str) -> None:
+    h, w, pad_w, channels, ksize = RAW_CASES[name]
+    canvas, count = _raw_canvas(h, w, pad_w, channels, seed=len(name))
+    normalized = np.asarray(jax_normalize_canvas(canvas, count))
+    want = np.asarray(jax_hv_energy(normalized[:h, :w, 1:3], scale_factor=_scale_for(ksize)))
+    tc, tn = torch.from_numpy(canvas), torch.from_numpy(count)
+    _, minmax = canvas_ops.pack_fg_tp(tc, tn, h, w)
+    got = ops.hv_energy(tc[:h, :w, 1:3], _scale_for(ksize), count=tn[:h, :w], minmax=minmax)
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=TOL)
+    assert torch.equal(got, ops.hv_energy(tc[:h, :w, 1:3], _scale_for(ksize), count=tn[:h, :w]))
+
+
+@pytest.mark.parametrize("head_channels", [[1, 2, 1], [1, 2]])
+def test_banded_fetch_hooks_give_the_planes_of_jax_and_of_the_entries_before(head_channels) -> None:
+    """HoVerNet's banded fetch on the CPU: the packed plane and the energy
+    from the plane's hv min/max equal ``pack_fg_tp`` and the raw-canvas
+    energy without ``minmax`` bit for bit, and JAX's hooks on its normalised
+    canvas (the plane exactly, the energy within 2e-6)."""
+    from tiatoolbox_tpu.models.architecture.hovernet import HoVerNet as JaxHoVerNet
+
+    h, w = 45, 52
+    canvas, count = _raw_canvas(h, w, 59, 1 + sum(head_channels), seed=11)
+    canvas[..., 0] = np.abs(canvas[..., 0])
+    if len(head_channels) == 3:
+        canvas[..., 3] = np.random.default_rng(12).integers(0, 6, (h + 3, 59)) * np.maximum(count[..., 0], 1)
+    canvas = canvas[..., : sum(head_channels)].copy()
+    tc, tn = torch.from_numpy(canvas), torch.from_numpy(count)
+    plane, minmax = HoVerNet.block_fetch_transform(None, tc, tn, h, w, head_channels)
+    energy = HoVerNet.final_fetch_transform(None, tc, tn, h, w, head_channels, minmax)
+    tp_channel = 3 if len(head_channels) == 3 else -1
+    assert torch.equal(plane, canvas_ops.pack_fg_tp(tc, tn, h, w, tp_channel)[0])
+    assert torch.equal(energy, ops.hv_energy(tc[:h, :w, 1:3], count=tn[:h, :w])[..., None])
+    normalized = jax_normalize_canvas(canvas, count)[:h, :w]
+    np.testing.assert_array_equal(plane.numpy(), np.asarray(JaxHoVerNet.block_fetch_transform(None, normalized, head_channels)))
+    want = np.asarray(JaxHoVerNet.final_fetch_transform(None, normalized, head_channels))
+    np.testing.assert_allclose(energy.numpy(), want, rtol=0, atol=TOL)
+
+
+def test_minmax_of_another_shape_is_refused() -> None:
+    canvas, count = (torch.from_numpy(a) for a in _raw_canvas(20, 20, 24, 4, seed=5))
+    with pytest.raises(ValueError, match="minmax must be float32"):
+        ops.hv_energy(canvas[:20, :20, 1:3], count=count[:20, :20], minmax=torch.zeros(2))
+    with pytest.raises(ValueError, match="minmax must be float32"):
+        ops.hv_energy(canvas[:20, :20, 1:3], minmax=torch.zeros(4, dtype=torch.float64))
+
+
 def test_raw_canvas_entry_rejects_a_count_of_another_shape() -> None:
     canvas, count = (torch.from_numpy(a) for a in _raw_canvas(20, 20, 24, 4, seed=5))
     with pytest.raises(ValueError, match="count must be float32"):
@@ -266,3 +321,24 @@ def test_raw_canvas_entry_matches_plain_version_on_the_card(name: str) -> None:
     assert ops.hv_energy.launches == before + 2
     assert float((got - want).abs().max()) <= TOL
     assert float((half.float() - want).abs().max()) <= TOL + 2**-12
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(RAW_CASES))
+def test_energy_with_minmax_equals_energy_without_on_the_card(name: str) -> None:
+    """K5 from K6's min/max (one launch each) against K5's own three passes,
+    bit for bit, float32 and float16, on the raw canvas and its normalised view."""
+    _on_card()
+    h, w, pad_w, channels, ksize = RAW_CASES[name]
+    canvas, count = (torch.from_numpy(a).cuda() for a in _raw_canvas(h, w, pad_w, channels, seed=len(name)))
+    scale = _scale_for(ksize)
+    _, minmax = canvas_ops.pack_fg_tp(canvas, count, h, w)
+    view = canvas_ops.normalize_rows(canvas, count, 0, h, w)[..., 1:3]
+    for dtype in (torch.float32, torch.float16):
+        before = ops.hv_energy.launches
+        got = ops.hv_energy(canvas[:h, :w, 1:3], scale, dtype, count=count[:h, :w], minmax=minmax)
+        got_view = ops.hv_energy(view, scale, dtype, minmax=minmax)
+        want = ops.hv_energy(canvas[:h, :w, 1:3], scale, dtype, count=count[:h, :w])
+        torch.cuda.synchronize()
+        assert ops.hv_energy.launches == before + 3
+        assert torch.equal(got, want) and torch.equal(got_view, want), dtype

@@ -145,7 +145,7 @@ def test_whole_canvas_matches_jax_at_the_smoke_geometry(maps, port_model) -> Non
     canvas = torch.from_numpy(np.concatenate(maps, axis=-1))
     count = torch.ones((*canvas.shape[:2], 1))
     h, w = canvas.shape[:2]
-    packed = pack_fg_tp(canvas, count, h, w, tp_channel=3).numpy()
+    packed = pack_fg_tp(canvas, count, h, w, tp_channel=3)[0].numpy()
     energy = hv_energy(canvas[..., 1:3])[..., None].numpy()
     (got,) = port_model.postproc([packed, energy])
     assert _assert_instances_match(_as_instances(got), _as_instances(want)) == 2386

@@ -57,27 +57,49 @@
 //
 // K6 replaces the pointwise fetch plane of the multitask engine:
 // `_make_normalized_block_fn` (semantic_segmentor.py:461-495) with HoVerNet's
-// `block_fetch_transform` (hovernet.py:662-672). For rows [0, h) and columns
-// [0, w) it packs (canvas[np] / max(count, 1) >= 0.5) in bit 0 and
-// round(canvas[tp] / max(count, 1)) (half to even, as jnp.round) shifted left
-// by one into one uint8. It reads the two channels and the count (12 bytes a
-// pixel) and writes 1 byte; the same IEEE divide, compare, rint and shift as
-// the plain version, so the two agree bit for bit.
+// `block_fetch_transform` (hovernet.py:662-672), and the global min/max of
+// the normalised hv pair that its `final_fetch_transform` (hovernet.py:674,
+// the energy's first step, ops/hv_energy.py:76-77) needs. For rows [0, h)
+// and columns [0, w) it packs (canvas[np] / max(count, 1) >= 0.5) in bit 0
+// and round(canvas[tp] / max(count, 1)) (half to even, as jnp.round;
+// saturated to [0, 255], as astype(jnp.uint8)) shifted left by one into one
+// uint8, and reduces (min h, max h, min v, max v) of channels 1 and 2 divided
+// by max(count, 1) into a float4, the input of K5's Sobel pass
+// (hv_energy.cu), which then skips its own first pass. The division is K5's
+// (div_rcp by the count's reciprocal, the bits of IEEE division), then the
+// same compare, rint, clamp and shift as the plain version, so the two agree
+// bit for bit, and K5 gets the min/max its pass 1 would give.
 //
 // All three are bound by device memory: K2 reads the patches once and reads
 // and writes the covered canvas and count once; K3 and K6 read the canvas
 // rows and their counts and write their output once. None does more than a
 // few arithmetic operations per byte. A K2 thread owns its pixels (its stores
-// land on lines it has just read), K6 is one thread per output pixel.
+// land on lines it has just read).
+//
+// K6 on a 4-channel canvas cannot read less than whole pixels: a 32-byte
+// sector holds two, so np and tp bring the hv pair with them, and the bytes
+// that must move are 16 + 4 (count) + 1 = 21 a pixel. The design reads them
+// once and uses all of them: a lane takes a group of 4 adjacent pixels, C
+// 16-byte words of canvas (4 at C = 4, 3 at C = 3) and one of counts, with
+// the group's loads issued before any arithmetic, and writes the group's 4
+// bytes as one 32-bit word (two groups a lane in flight, or 512 threads a
+// block, measured slower on the card; 128 threads slower still). Warps take
+// (row, chunk of 32 groups) items of a persistent grid, so a pixel's place
+// is a row and a column, with no 64-bit division. A row's groups start where
+// the count (and so the canvas) is 16-byte aligned; the up to 3 pixels
+// before that and the up to 3 after the last whole group go one a lane.
+// Other channel counts, or a canvas not aligned where its count is, take one
+// pixel a lane, with scalar loads. The min/max is merged in registers, then
+// by block and grid as K5's pass 1 does (common.cuh), with a ticket that the
+// entry zeroes on the stream before the launch, as K5's entry does.
 
+#include <algorithm>
 #include <atomic>
 #include <cstdint>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
 
 #include "common.cuh"
-
-constexpr int kThreads = 256;
 
 // -- K2: scatter-accumulate ---------------------------------------------------
 
@@ -512,40 +534,214 @@ extern "C" int canvas_normalize_rows(const float* canvas, const float* count, in
     return static_cast<int>(err);
 }
 
-// One thread per output pixel, grid-striding over the h x w crop.
-__global__ void pack_fg_tp_kernel(const float* __restrict__ canvas, const float* __restrict__ count,
-                                  int64_t width, int channels, int tp_channel, int h, int w,
-                                  uint8_t* __restrict__ out) {
-    const int64_t n = static_cast<int64_t>(h) * w;
-    for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x; i < n;
-         i += static_cast<int64_t>(gridDim.x) * blockDim.x) {
-        const int64_t y = i / w;
-        const int64_t pixel = y * width + (i - y * w);
-        const float hits = fmaxf(count[pixel], 1.0f);
-        const float* at = canvas + pixel * channels;
-        unsigned v = at[0] / hits >= 0.5f ? 1u : 0u;
-        if (tp_channel >= 0) {
-            const unsigned tp = static_cast<unsigned>(rintf(at[tp_channel] / hits));
-            v |= (tp << 1) & 0xffu;
+// -- K6: pack the foreground and type, reduce the hv pair ----------------------
+
+constexpr int kPackThreads = 256;
+constexpr int kPackWarps = kPackThreads / 32;
+constexpr int kPackItemPixels = 4 * 32;  // a warp item: a group of 4 pixels a lane
+constexpr int kMaxPackBlocks = 4096;     // partials the scratch holds
+
+struct PackArgs {
+    const float* canvas;  // [H, width, channels], channels >= 3: [np, h, v, ...]
+    const float* count;   // [H, width]
+    uint8_t* out;         // [h, w]
+    int64_t width;
+    int channels;
+    int tp;  // type channel, or -1
+    int h, w;
+    int row_items;     // warp items a row
+    int n_items;       // h x row_items
+    float4* partials;  // a float4 a block
+    unsigned* ticket;  // zero when the kernel starts
+    float4* minmax;    // (min h, max h, min v, max v)
+};
+
+// The byte of one pixel from its raw channels and count; its normalised hv
+// pair goes into acc.
+__device__ __forceinline__ unsigned pack_pixel(const PackArgs& a, float fg, float tp, float hh,
+                                               float vv, float cnt, float4& acc) {
+    const float n = fmaxf(cnt, 1.0f);
+    const float r = __frcp_rn(n);
+    unsigned v = div_rcp(fg, n, r) >= 0.5f ? 1u : 0u;
+    if (a.tp >= 0) {  // saturated to [0, 255], as JAX casts a float to uint8
+        v |= (static_cast<unsigned>(fminf(fmaxf(rintf(div_rcp(tp, n, r)), 0.0f), 255.0f)) << 1) & 0xffu;
+    }
+    acc = merge(acc, div_rcp(hh, n, r), div_rcp(vv, n, r));
+    return v;
+}
+
+// Pixel x of a row, one lane, scalar loads (C read at run time).
+__device__ __forceinline__ unsigned pack_scalar(const PackArgs& a, const float* row,
+                                                const float* cnt, int x, float4& acc) {
+    const float* px = row + static_cast<int64_t>(x) * a.channels;
+    const float tp = a.tp >= 0 ? __ldcs(px + a.tp) : 0.0f;
+    return pack_pixel(a, __ldcs(px), tp, __ldcs(px + 1), __ldcs(px + 2), __ldcs(cnt + x), acc);
+}
+
+// Element i (fixed at compile time) of C 16-byte words.
+template <int C>
+__device__ __forceinline__ float element(const float4 (&f)[C], int i) {
+    const float4 t = f[i >> 2];
+    return (i & 3) == 0 ? t.x : (i & 3) == 1 ? t.y : (i & 3) == 2 ? t.z : t.w;
+}
+
+// Channel c (read at run time) of pixel q (fixed) of a group: selects over
+// the C channels, not an index into registers, which would go to local memory.
+template <int C>
+__device__ __forceinline__ float channel(const float4 (&f)[C], int q, int c) {
+    float r = 0.0f;
+#pragma unroll
+    for (int k = 0; k < C; ++k) {
+        r = k == c ? element<C>(f, q * C + k) : r;
+    }
+    return r;
+}
+
+// One warp item: chunk `chunk` of row y. kVec: C (3 or 4) fixed, a group of
+// 4 pixels a lane from the row's aligned start `head`; else one pixel a lane.
+template <int C, bool kVec>
+__device__ __forceinline__ void pack_item(const PackArgs& a, int y, int chunk, float4& acc) {
+    const int lane = threadIdx.x & 31;
+    const int64_t p0 = static_cast<int64_t>(y) * a.width;  // the row's first pixel
+    const float* row = a.canvas + p0 * (C > 0 ? C : a.channels);
+    const float* cnt = a.count + p0;
+    uint8_t* out = a.out + static_cast<int64_t>(y) * a.w;
+    if constexpr (!kVec) {
+#pragma unroll
+        for (int j = 0; j < kPackItemPixels / 32; ++j) {
+            const int x = chunk * kPackItemPixels + j * 32 + lane;
+            if (x < a.w) {
+                out[x] = static_cast<uint8_t>(pack_scalar(a, row, cnt, x, acc));
+            }
         }
-        out[i] = static_cast<uint8_t>(v);
+    } else {
+        // pixels before `head` (where the count is 16-byte aligned, and so the
+        // canvas: the entry checks) and after the last whole group, one a lane
+        const unsigned cnt_word = static_cast<unsigned>(reinterpret_cast<uintptr_t>(cnt) >> 2);
+        const int head = min(static_cast<int>((0u - cnt_word) & 3u), a.w);
+        const int n_groups = (a.w - head) >> 2;
+        if (chunk == 0 && lane < 8) {
+            const int x = lane < 4 ? lane : head + 4 * n_groups + lane - 4;
+            if (lane < 4 ? x < head : x < a.w) {
+                out[x] = static_cast<uint8_t>(pack_scalar(a, row, cnt, x, acc));
+            }
+        }
+        const int g = chunk * 32 + lane;
+        if (g >= n_groups) {
+            return;
+        }
+        // the group's loads, all issued before any arithmetic
+        const int x = head + 4 * g;
+        const float4* src = reinterpret_cast<const float4*>(row + x * C);
+        float4 f[C];
+#pragma unroll
+        for (int k = 0; k < C; ++k) {
+            f[k] = __ldcs(src + k);
+        }
+        const float4 n = __ldcs(reinterpret_cast<const float4*>(cnt + x));
+        const float counts[4] = {n.x, n.y, n.z, n.w};
+        unsigned word = 0;
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+            const unsigned b = pack_pixel(a, element<C>(f, q * C), channel<C>(f, q, a.tp),
+                                          element<C>(f, q * C + 1), element<C>(f, q * C + 2),
+                                          counts[q], acc);
+            word |= b << (8 * q);
+        }
+        uint8_t* o = out + x;
+        if ((reinterpret_cast<uintptr_t>(out + head) & 3u) == 0) {
+            __stcs(reinterpret_cast<unsigned*>(o), word);
+        } else {
+#pragma unroll
+            for (int q = 0; q < 4; ++q) {
+                o[q] = static_cast<uint8_t>(word >> (8 * q));
+            }
+        }
     }
 }
 
-// out: uint8 [h, w]; channel 0 is the foreground probability; tp_channel < 0
-// packs the foreground bit only.
+template <int C, bool kVec>
+__global__ void __launch_bounds__(kPackThreads) pack_kernel(PackArgs a) {
+    const int warp = threadIdx.x >> 5;
+    float4 acc = empty_minmax();
+    for (int item = blockIdx.x * kPackWarps + warp; item < a.n_items; item += gridDim.x * kPackWarps) {
+        const int y = item / a.row_items;
+        pack_item<C, kVec>(a, y, item - y * a.row_items, acc);
+    }
+    grid_minmax(acc, a.partials, a.ticket, a.minmax);
+}
+
+template <int C, bool kVec>
+cudaError_t launch_pack(PackArgs a, cudaStream_t s) {
+    static std::atomic<int> cache[occupancy::kMaxDevices];
+    int cap = 0;
+    const cudaError_t err = occupancy::resident_blocks(pack_kernel<C, kVec>, kPackThreads, 0, cache, &cap);
+    if (err != cudaSuccess) {
+        return err;
+    }
+    const int wanted = (a.n_items + kPackWarps - 1) / kPackWarps;
+    const int blocks = std::min({wanted, cap, kMaxPackBlocks});
+    pack_kernel<C, kVec><<<blocks, kPackThreads, 0, s>>>(a);
+    return cudaGetLastError();
+}
+
+// Floats of K6's scratch: the blocks' partials and the ticket.
+extern "C" int canvas_pack_scratch_floats() { return 4 * (kMaxPackBlocks + 1); }
+
+// out: uint8 [h, w]; channel 0 is the foreground probability, channels 1 and
+// 2 the hv pair; tp_channel < 0 packs the foreground bit only. minmax (4
+// device floats, 16-byte aligned) gets (min h, max h, min v, max v) of the
+// pair divided by max(count, 1), through scratch (canvas_pack_scratch_floats()
+// floats, 16-byte aligned), whose ticket the entry zeroes on the stream.
 extern "C" int canvas_pack_fg_tp(const float* canvas, const float* count, int64_t width,
                                  int channels, int tp_channel, int h, int w, uint8_t* out,
-                                 cudaStream_t s) {
+                                 float* scratch, float* minmax, cudaStream_t s) {
     if (h <= 0 || w <= 0) {
         return static_cast<int>(cudaSuccess);
     }
-    const int64_t n = static_cast<int64_t>(h) * w;
-    const int64_t want = (n + kThreads - 1) / kThreads;
-    const int blocks = static_cast<int>(want < 132 * 32 ? want : 132 * 32);
-    pack_fg_tp_kernel<<<blocks, kThreads, 0, s>>>(canvas, count, width, channels, tp_channel, h,
-                                                  w, out);
-    return static_cast<int>(cudaGetLastError());
+    if (channels < 3 || tp_channel >= channels || scratch == nullptr || minmax == nullptr ||
+        ((reinterpret_cast<uintptr_t>(scratch) | reinterpret_cast<uintptr_t>(minmax)) & 15u) != 0) {
+        return static_cast<int>(cudaErrorInvalidValue);
+    }
+    PackArgs a{};
+    a.canvas = canvas;
+    a.count = count;
+    a.out = out;
+    a.width = width;
+    a.channels = channels;
+    a.tp = tp_channel < 0 ? -1 : tp_channel;
+    a.h = h;
+    a.w = w;
+    a.partials = reinterpret_cast<float4*>(scratch);
+    a.ticket = reinterpret_cast<unsigned*>(scratch + 4 * kMaxPackBlocks);
+    a.minmax = reinterpret_cast<float4*>(minmax);
+    // Groups of 4 pixels start where the count is 16-byte aligned; the
+    // canvas must be aligned at the same pixels: at C = 4 wherever its base
+    // is, at C = 3 where its base's and the count's float offsets from a
+    // 16-byte boundary add up to a multiple of 4 (as for any whole-pixel
+    // shift of an aligned pair).
+    const uintptr_t kc = reinterpret_cast<uintptr_t>(canvas) >> 2;
+    const uintptr_t kn = reinterpret_cast<uintptr_t>(count) >> 2;
+    const bool vec = (channels == 4 && (kc & 3u) == 0) || (channels == 3 && ((kc + kn) & 3u) == 0);
+    // a warp item is 32 groups (vectorised) or kPackItemPixels pixels
+    a.row_items = vec ? std::max(1, (w / 4 + 31) / 32) : (w + kPackItemPixels - 1) / kPackItemPixels;
+    const int64_t items = static_cast<int64_t>(h) * a.row_items;
+    if (items > INT32_MAX) {
+        return static_cast<int>(cudaErrorInvalidValue);
+    }
+    a.n_items = static_cast<int>(items);
+    cudaError_t err = cudaMemsetAsync(a.ticket, 0, sizeof(unsigned), s);
+    if (err != cudaSuccess) {
+        return static_cast<int>(err);
+    }
+    if (vec && channels == 4) {
+        err = launch_pack<4, true>(a, s);
+    } else if (vec) {
+        err = launch_pack<3, true>(a, s);
+    } else {
+        err = launch_pack<0, false>(a, s);
+    }
+    return static_cast<int>(err);
 }
 
 extern "C" const char* canvas_error_string(int code) {

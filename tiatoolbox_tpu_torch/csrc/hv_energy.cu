@@ -18,6 +18,13 @@
 // (canvas.cu), so it equals K3 followed by this kernel bit for bit and the
 // caller needs no normalised copy of the canvas.
 //
+// A caller that already has the normalised pair's (min h, max h, min v,
+// max v) on the card passes it (`minmax`): the entry then skips pass 1 and
+// its ticket. K6 (canvas.cu) reduces that float4 while it packs the fetch
+// plane from the same canvas sectors, with the same division and merge
+// (common.cuh), so the energy keeps its bits and the canvas is read once
+// less.
+//
 // What bounds it: device memory. The function must read the hv pair (8 B a
 // pixel) and write the energy (4 B); its 2 x 2 x 21 multiply-adds a pixel
 // take under a third of that time at the float32 rate. Two global min/max
@@ -108,16 +115,6 @@ __device__ __forceinline__ RawPair load_raw(HvMap m, int y, int x) {
     return {__ldg(p), __ldg(p + 1), m.cnt != nullptr ? __ldg(m.cnt + y * m.crs + x * m.cps) : 1.0f};
 }
 
-// a / d rounded to nearest, given r = RN(1 / d): q = RN(a r) lies within an
-// ulp of a / d, the residual a - q d is exact with fmaf, and RN(q + (a - q d) r)
-// is the correctly rounded quotient (Markstein's theorem), the bits of
-// a / d wherever nothing underflows. Three instructions and no branch, where
-// the division's slow-path check costs about ten and splits the code.
-__device__ __forceinline__ float div_rcp(float a, float d, float r) {
-    const float q = a * r;
-    return fmaf(fmaf(-q, d, a), r, q);
-}
-
 // The pair divided by max(count, 1) (K3's division), where there is a count.
 __device__ __forceinline__ float2 divide(HvMap m, RawPair r) {
     if (m.cnt == nullptr) {
@@ -144,71 +141,6 @@ __device__ __forceinline__ int reflect101(int i, int n) {
     const int period = 2 * (n - 1);
     i = abs(i) % period;
     return i >= n ? period - i : i;
-}
-
-__device__ __forceinline__ float4 empty_minmax() {
-    return make_float4(CUDART_INF_F, -CUDART_INF_F, CUDART_INF_F, -CUDART_INF_F);
-}
-
-__device__ __forceinline__ float4 merge(float4 m, float a, float b) {
-    return make_float4(fminf(m.x, a), fmaxf(m.y, a), fminf(m.z, b), fmaxf(m.w, b));
-}
-
-__device__ __forceinline__ float4 merge(float4 m, float4 p) {
-    return make_float4(fminf(m.x, p.x), fmaxf(m.y, p.y), fminf(m.z, p.z), fmaxf(m.w, p.w));
-}
-
-// (min a, max a, min b, max b) of a block, written by thread 0 to *out.
-__device__ void block_minmax(float4 m, float4* out) {
-    __shared__ float4 warp_part[32];
-    for (int off = 16; off > 0; off >>= 1) {
-        m = merge(m, make_float4(__shfl_down_sync(0xffffffffu, m.x, off),
-                                 __shfl_down_sync(0xffffffffu, m.y, off),
-                                 __shfl_down_sync(0xffffffffu, m.z, off),
-                                 __shfl_down_sync(0xffffffffu, m.w, off)));
-    }
-    const int tid = threadIdx.x;
-    const int n_warps = (blockDim.x + 31) / 32;
-    if ((tid & 31) == 0) {
-        warp_part[tid >> 5] = m;
-    }
-    __syncthreads();
-    if (tid < 32) {
-        m = tid < n_warps ? warp_part[tid] : empty_minmax();
-        for (int off = 16; off > 0; off >>= 1) {
-            m = merge(m, make_float4(__shfl_down_sync(0xffffffffu, m.x, off),
-                                     __shfl_down_sync(0xffffffffu, m.y, off),
-                                     __shfl_down_sync(0xffffffffu, m.z, off),
-                                     __shfl_down_sync(0xffffffffu, m.w, off)));
-        }
-        if (tid == 0) {
-            *out = m;
-        }
-    }
-}
-
-// The block's min/max goes to partials[block]; the last block of the grid to
-// get there (its ticket is the grid's size less one) reduces all partials
-// into *result. *ticket is zero when the kernel starts.
-__device__ void grid_minmax(float4 m, float4* partials, unsigned* ticket, float4* result) {
-    __shared__ bool last;
-    const unsigned n_blocks = gridDim.x * gridDim.y;
-    const unsigned block = blockIdx.y * gridDim.x + blockIdx.x;
-    block_minmax(m, partials + block);
-    if (threadIdx.x == 0) {
-        __threadfence();
-        last = atomicAdd(ticket, 1u) == n_blocks - 1;
-    }
-    __syncthreads();
-    if (!last) {
-        return;
-    }
-    __threadfence();
-    float4 r = empty_minmax();
-    for (unsigned i = threadIdx.x; i < n_blocks; i += blockDim.x) {
-        r = merge(r, __ldcg(partials + i));
-    }
-    block_minmax(r, result);
 }
 
 // Pass 1: rows across blocks (grid-striding), columns across threads, four
@@ -536,8 +468,10 @@ cudaError_t launch_after(void (*kernel)(Params...), dim3 grid, dim3 block, size_
     return cudaLaunchKernelEx(&cfg, kernel, args...);
 }
 
+// hv_mm: the min/max of h and v, pass 1's (sc.hv_mm) or the caller's.
 template <int K>
-cudaError_t launch_sobel(const HvMap& m, const Taps& taps, const Scratch& sc, cudaStream_t s) {
+cudaError_t launch_sobel(const HvMap& m, const Taps& taps, const float4* hv_mm, const Scratch& sc,
+                         cudaStream_t s) {
     StripGrid g;
     const bool with_count = m.cnt != nullptr;
     const cudaError_t err = strip_grid<K>(m.h, m.w, with_count, &g);
@@ -545,8 +479,7 @@ cudaError_t launch_sobel(const HvMap& m, const Taps& taps, const Scratch& sc, cu
         return err;
     }
     return launch_after(sobel_strip<K>, dim3(g.strips, g.runs), dim3(kStripThreads),
-                        StripShape<K>::smem(with_count), s, m,
-                        static_cast<const float4*>(sc.hv_mm), taps, g.run_rows, sc.s,
+                        StripShape<K>::smem(with_count), s, m, hv_mm, taps, g.run_rows, sc.s,
                         sc.partials, sc.tickets + 1, sc.s_mm);
 }
 
@@ -582,8 +515,9 @@ struct GridOf {
 
 template <int K>
 struct SobelOf {
-    static cudaError_t run(const HvMap& m, const Taps& taps, const Scratch& sc, cudaStream_t s) {
-        return launch_sobel<K>(m, taps, sc, s);
+    static cudaError_t run(const HvMap& m, const Taps& taps, const float4* hv_mm, const Scratch& sc,
+                           cudaStream_t s) {
+        return launch_sobel<K>(m, taps, hv_mm, sc, s);
     }
 };
 
@@ -613,19 +547,21 @@ extern "C" int64_t hv_energy_scratch_floats(int h, int w, int ksize, int with_co
 // hv: float32, pixel (y, x) channel c at hv[y * row_stride + x * pix_stride + c],
 // c in {0, 1}. count: nullptr, or float32 with pixel (y, x) at
 // count[y * count_row_stride + x * count_pix_stride], which divides the pair
-// (max(count, 1)) on load. deriv, smooth: ksize host taps. out: [h, w]
-// float32 (half_out == 0) or float16. scratch: hv_energy_scratch_floats(h,
-// w, ksize) floats, 16-byte aligned.
+// (max(count, 1)) on load. deriv, smooth: ksize host taps. minmax: nullptr,
+// or 4 device floats, 16-byte aligned, (min h, max h, min v, max v) of the
+// (divided) pair, which replace pass 1. out: [h, w] float32 (half_out == 0)
+// or float16. scratch: hv_energy_scratch_floats(h, w, ksize) floats, 16-byte
+// aligned.
 extern "C" int hv_energy_launch(const float* hv, int64_t row_stride, int64_t pix_stride,
                                 const float* count, int64_t count_row_stride,
                                 int64_t count_pix_stride, int h, int w, const float* deriv,
-                                const float* smooth, int ksize, float* scratch, void* out,
-                                int half_out, cudaStream_t s) {
+                                const float* smooth, int ksize, const float* minmax,
+                                float* scratch, void* out, int half_out, cudaStream_t s) {
     if (h <= 0 || w <= 0) {
         return static_cast<int>(cudaSuccess);
     }
     if (ksize < 3 || ksize > kMaxTaps || ksize % 2 == 0 ||
-        (reinterpret_cast<uintptr_t>(scratch) & 15u) != 0) {
+        ((reinterpret_cast<uintptr_t>(scratch) | reinterpret_cast<uintptr_t>(minmax)) & 15u) != 0) {
         return static_cast<int>(cudaErrorInvalidValue);
     }
     Taps taps{};
@@ -640,14 +576,19 @@ extern "C" int hv_energy_launch(const float* hv, int64_t row_stride, int64_t pix
     }
     const HvMap m{hv, row_stride, pix_stride, count, count_row_stride, count_pix_stride, h, w};
     const Scratch sc = carve(scratch, h, w, g.strips * g.runs);
-    err = cudaMemsetAsync(sc.tickets, 0, 2 * sizeof(unsigned), s);
-    if (err != cudaSuccess) {
-        return static_cast<int>(err);
+    const float4* hv_mm = reinterpret_cast<const float4*>(minmax);
+    if (hv_mm != nullptr) {  // only pass 2's ticket
+        err = cudaMemsetAsync(sc.tickets + 1, 0, sizeof(unsigned), s);
+    } else {
+        err = cudaMemsetAsync(sc.tickets, 0, 2 * sizeof(unsigned), s);
+        if (err == cudaSuccess) {
+            hv_minmax<<<minmax_blocks(h), kThreads, 0, s>>>(m, sc.partials, sc.tickets, sc.hv_mm);
+            err = cudaGetLastError();
+        }
+        hv_mm = sc.hv_mm;
     }
-    hv_minmax<<<minmax_blocks(h), kThreads, 0, s>>>(m, sc.partials, sc.tickets, sc.hv_mm);
-    err = cudaGetLastError();
     if (err == cudaSuccess) {
-        err = by_ksize<SobelOf>(ksize, m, taps, sc, s);
+        err = by_ksize<SobelOf>(ksize, m, taps, hv_mm, sc, s);
     }
     if (err != cudaSuccess) {
         return static_cast<int>(err);

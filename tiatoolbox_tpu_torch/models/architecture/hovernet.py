@@ -25,7 +25,8 @@ watershed and the contour follower in the port's own host C++
 (``csrc/watershed.cpp`` through ``tiatoolbox_tpu_torch.native``).
 ``transform_canvas_for_postproc``, ``banded_fetch_spec``,
 ``block_fetch_transform`` and ``final_fetch_transform`` (:610-680) are the
-engine's hooks: they run kernels K6 (pack) and K5 (energy) on the card.
+engine's hooks: they run kernels K6 (pack, and the hv pair's min/max) and
+K5 (energy, from that min/max) on the card.
 
 Not ported (TPU-only): the block-diagonal dense-unit rewrite of
 ``optimize_for_inference`` (:127-158, :289-318; a bfloat16
@@ -427,7 +428,9 @@ class HoVerNet(ModelABC):
     # The watershed reads the stitched canvas through three inputs: the
     # foreground (np >= 0.5) and the rounded type map are pointwise and pack
     # into one uint8 plane (K6); the energy needs the whole canvas's min and
-    # max and leaves in a plane of its own (K5).
+    # max and leaves in a plane of its own (K5). K6 reads whole pixels, so it
+    # also reduces the hv pair's min and max, which K5 then takes instead of
+    # reading the canvas once more for them.
 
     def transform_canvas_for_postproc(self, normalized_canvas: torch.Tensor, head_channels):
         """``[np, hv0, hv1(, rest)]`` -> ``([np, energy(, rest)], channels)`` on the
@@ -441,23 +444,34 @@ class HoVerNet(ModelABC):
     def banded_fetch_spec(self, head_channels) -> bool:
         """Whether these heads leave the card as the packed uint8 plane and the
         energy, one plane each (``hovernet.py:652``): ``[np, hv]`` with or
-        without the type head."""
+        without the type head.
+
+        The engine then calls ``block_fetch_transform``, which returns
+        ``(plane, state)``, and passes ``state`` unread to
+        ``final_fetch_transform``. HoVerNet's state is the normalised hv
+        pair's ``(min h, max h, min v, max v)``, which K6 reduces while it
+        packs the plane and K5 takes in place of its own min/max pass."""
         return list(head_channels) in ([1, 2, 1], [1, 2])
 
     def block_fetch_transform(self, canvas, count, height: int, width: int, head_channels):
         """``fg | round(tp) << 1`` as a uint8 ``[height, width, 1]`` plane of the
         count-normalised canvas (K6; ``hovernet.py:662`` with
-        ``semantic_segmentor.py:461-495``)."""
+        ``semantic_segmentor.py:461-495``), and the fetch state: the
+        normalised hv pair's ``(min h, max h, min v, max v)`` from the same
+        pass, a float32 ``[4]`` tensor for ``final_fetch_transform``."""
         tp_channel = 3 if len(head_channels) == 3 else -1
         return pack_fg_tp(canvas, count, height, width, tp_channel=tp_channel)
 
-    def final_fetch_transform(self, canvas, count, height: int, width: int, head_channels, dtype=torch.float32):  # noqa: ARG002
+    def final_fetch_transform(
+        self, canvas, count, height: int, width: int, head_channels, state, dtype=torch.float32  # noqa: ARG002
+    ):
         """The watershed energy ``[height, width, 1]`` of the count-normalised
         canvas (K5, ``hovernet.py:674``), read from the raw canvas: the kernel
         divides the hv pair by the count as it loads it, so no normalised copy
-        of the canvas is made."""
+        of the canvas is made. ``state`` is ``block_fetch_transform``'s
+        min/max of the pair, so K5 skips its own min/max pass."""
         crop = (slice(0, height), slice(0, width))
-        return hv_energy(canvas[crop][..., 1:3], count=count[crop], dtype=dtype)[..., None]
+        return hv_energy(canvas[crop][..., 1:3], count=count[crop], dtype=dtype, minmax=state)[..., None]
 
     def postproc(self, raw_maps: list, offset: tuple[int, int] = (0, 0)) -> tuple:
         """[np, hv | energy(, tp)] maps -> ({instance result},) (``hovernet.py:682``).

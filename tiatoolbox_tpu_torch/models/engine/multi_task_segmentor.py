@@ -9,9 +9,12 @@ needs:
 
 - **banded** (region feed, canvas at most ``full_postproc_limit``, :268-374):
   the model's ``block_fetch_transform`` packs ``fg | round(tp) << 1`` into a
-  uint8 plane (K6) and ``final_fetch_transform`` computes the watershed
+  uint8 plane and returns it with a fetch state of its own (HoVerNet's: the
+  normalised hv pair's min and max, reduced in the same pass, K6), and
+  ``final_fetch_transform`` takes that state and computes the watershed
   energy (K5) from the raw canvas and count, dividing on load, so this path
-  makes no normalised copy of the canvas (no K3); each plane leaves in one
+  makes no normalised copy of the canvas (no K3) and K5 no min/max pass; the
+  engine passes the state on and never reads it; each plane leaves in one
   copy to pinned memory, the uint8 plane first.
 - **transformed** (per-patch feed, :376-427): the normalised canvas goes
   through ``transform_canvas_for_postproc`` (``[np, energy, tp]``, K5) and
@@ -238,12 +241,14 @@ class MultiTaskSegmentor(SemanticSegmentor):
             # the uint8 plane first: the host labels the foreground before it
             # touches the energy (``_proc_np_energy``)
             with timer.stage("fetch", items=h * w * 2):
-                packed = self.model.block_fetch_transform(
+                # ``state``: whatever the model's first hook hands its second
+                # (``banded_fetch_spec``); the engine only passes it on
+                packed, state = self.model.block_fetch_transform(
                     canvas.canvas, canvas.count, h, w, head_channels
                 )
                 packed_host = to_pinned_host(packed)
                 energy = self.model.final_fetch_transform(
-                    canvas.canvas, canvas.count, h, w, head_channels, dtype=self._wire_dtype()
+                    canvas.canvas, canvas.count, h, w, head_channels, state, dtype=self._wire_dtype()
                 )
                 energy_host = to_pinned_host(energy).astype(np.float32, copy=False)
             head_maps = [packed_host, energy_host]

@@ -22,9 +22,17 @@ the device, then divided by the count.
   (``semantic_segmentor.py:461-495`` with HoVerNet's
   ``block_fetch_transform``, ``hovernet.py:662-672``): rows ``[0, h)`` and
   columns ``[0, w)`` of the count-normalised canvas packed as
-  ``(np >= 0.5) | round(tp) << 1`` into uint8; the kernel of
-  ``csrc/canvas.cu`` (K6) on CUDA, ``pack_fg_tp_reference`` on the CPU,
-  equal bit for bit.
+  ``(np >= 0.5) | round(tp) << 1`` into uint8, the rounded type saturated
+  to ``[0, 255]`` as JAX's ``astype(jnp.uint8)`` does. The same pass also
+  gives the min and max of the normalised hv pair, channels 1 and 2 of
+  HoVerNet's ``[np, h, v(, tp)]`` canvas (the first step of the watershed
+  energy, ``ops/hv_energy.py:76-77``), as a float32 ``[4]`` tensor in K5's
+  layout ``(min h, max h, min v, max v)``, which ``hv_energy(..., minmax=)``
+  takes in place of its own first pass. The kernel of ``csrc/canvas.cu``
+  (K6) on CUDA, ``pack_fg_tp_reference`` on the CPU, equal bit for bit
+  (plane and min/max). K6 reads whole pixels (21 bytes a pixel of a
+  4-channel canvas with the count) once; its min/max scratch is allocated
+  per call and its ticket zeroed on the stream, as K5's.
 - ``normalize_canvas``, ``canvas_argmax`` and ``DeviceCanvas`` (:88) keep
   the JAX API. ``DeviceCanvas.add`` marks patches that do not fit inside
   the canvas invalid, never clips them (:110-120).
@@ -69,8 +77,9 @@ def _library() -> ctypes.CDLL:
         raise RuntimeError(msg)
     lib.canvas_normalize_rows.argtypes = [ptr, ptr, i64, i32, i32, i32, i32, ptr, i32, ptr]
     lib.canvas_normalize_rows.restype = i32
-    lib.canvas_pack_fg_tp.argtypes = [ptr, ptr, i64, i32, i32, i32, i32, ptr, ptr]
+    lib.canvas_pack_fg_tp.argtypes = [ptr, ptr, i64, i32, i32, i32, i32, ptr, ptr, ptr, ptr]
     lib.canvas_pack_fg_tp.restype = i32
+    lib.canvas_pack_scratch_floats.restype = i32
     lib.canvas_error_string.argtypes = [i32]
     lib.canvas_error_string.restype = ctypes.c_char_p
     return lib
@@ -274,33 +283,52 @@ def _check_pack(canvas, count, height: int, width: int, tp_channel: int) -> None
     if not (0 <= height <= h and 0 <= width <= w):
         msg = f"A {height}x{width} crop does not fit a {h}x{w} canvas."
         raise ValueError(msg)
+    if c < 3:
+        msg = f"A {c}-channel canvas has no hv pair in channels 1 and 2."
+        raise ValueError(msg)
     if not -1 <= tp_channel < c:
         msg = f"Type channel {tp_channel} outside a {c}-channel canvas."
         raise ValueError(msg)
 
 
+def _empty_minmax(device) -> torch.Tensor:
+    """The min/max of no pixels: ``(inf, -inf, inf, -inf)``."""
+    inf = float("inf")
+    return torch.tensor([inf, -inf, inf, -inf], dtype=torch.float32, device=device)
+
+
 def pack_fg_tp_reference(canvas, count, height: int, width: int, tp_channel: int = -1):
-    """Plain version: ``fg | round(tp) << 1`` of the count-normalised crop, uint8 ``[height, width, 1]``."""
+    """Plain version: ``fg | round(tp) << 1`` of the count-normalised crop, uint8
+    ``[height, width, 1]``, and the ``amin``/``amax`` of the normalised
+    channels 1 and 2, ``(min h, max h, min v, max v)``."""
     _check_pack(canvas, count, height, width, tp_channel)
     hits = count[:height, :width, 0].clamp_min(1.0)
     packed = (canvas[:height, :width, 0] / hits >= 0.5).to(torch.uint8)
     if tp_channel >= 0:
-        tp = torch.round(canvas[:height, :width, tp_channel] / hits).to(torch.uint8)
+        tp = torch.round(canvas[:height, :width, tp_channel] / hits).clamp(0, 255).to(torch.uint8)
         packed = packed | (tp << 1)
-    return packed[..., None]
+    if packed.numel() == 0:
+        return packed[..., None], _empty_minmax(canvas.device)
+    h_dir, v_dir = (canvas[:height, :width, ch] / hits for ch in (1, 2))
+    return packed[..., None], torch.stack([h_dir.amin(), h_dir.amax(), v_dir.amin(), v_dir.amax()])
 
 
 def pack_fg_tp(canvas, count, height: int, width: int, tp_channel: int = -1):
-    """Foreground bit and rounded type of the count-normalised crop, packed into uint8.
+    """Foreground bit and rounded type of the count-normalised crop, packed
+    into uint8, and the min/max of the normalised hv pair.
 
     Args:
-        canvas: ``[H, W, C]`` float32 accumulator whose channel 0 is the
-            foreground probability (bit 0: ``>= 0.5``); count: ``[H, W, 1]``.
+        canvas: ``[H, W, C]`` float32 accumulator, ``C >= 3``: channel 0 is
+            the foreground probability (bit 0: ``>= 0.5``), channels 1 and 2
+            the hv pair; count: ``[H, W, 1]``.
         height, width: the crop ``[0, height) x [0, width)``.
-        tp_channel: channel of the type map (bits 1-7: ``round``), or -1.
+        tp_channel: channel of the type map (bits 1-7: ``round``, saturated
+            to ``[0, 255]``), or -1.
 
     Returns:
-        A new uint8 ``[height, width, 1]`` tensor on the canvas's device.
+        A new uint8 ``[height, width, 1]`` tensor on the canvas's device and
+        a float32 ``[4]`` tensor ``(min h, max h, min v, max v)`` of the
+        normalised pair (``(inf, -inf, inf, -inf)`` for an empty crop).
         ``pack_fg_tp.launches`` counts kernel launches.
     """
     _check_pack(canvas, count, height, width, tp_channel)
@@ -314,17 +342,19 @@ def pack_fg_tp(canvas, count, height: int, width: int, tp_channel: int = -1):
         raise ValueError(msg)
     out = torch.empty((height, width, 1), dtype=torch.uint8, device=canvas.device)
     if out.numel() == 0:
-        return out
+        return out, _empty_minmax(canvas.device)
     lib = _library()
+    minmax = torch.empty(4, dtype=torch.float32, device=canvas.device)
+    scratch = torch.empty(lib.canvas_pack_scratch_floats(), dtype=torch.float32, device=canvas.device)
     with torch.cuda.device(canvas.device):
         stream = torch.cuda.current_stream(canvas.device).cuda_stream
         code = lib.canvas_pack_fg_tp(
-            canvas.data_ptr(), count.data_ptr(), canvas.shape[1], canvas.shape[2],
-            int(tp_channel), int(height), int(width), out.data_ptr(), stream,
+            canvas.data_ptr(), count.data_ptr(), canvas.shape[1], canvas.shape[2], int(tp_channel),
+            int(height), int(width), out.data_ptr(), scratch.data_ptr(), minmax.data_ptr(), stream,
         )
     _raise_on(code, "canvas_pack_fg_tp")
     pack_fg_tp.launches += 1
-    return out
+    return out, minmax
 
 
 pack_fg_tp.launches = 0

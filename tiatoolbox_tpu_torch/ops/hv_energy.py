@@ -17,10 +17,10 @@ gradients and take ``max(1 - Sh, 1 - Sv)``.
 
 The kernel makes three passes (min/max of the pair; a Sobel pass over tall
 strips of 128 columns with the column window in registers, writing Sh and
-Sv interleaved; the normalise-and-max tail), three launches. It is bound by
-device memory: it must read the pair (8 B a pixel) and write the energy
-(4 B), and moves about 54 B a pixel from a 4-channel canvas (the note in
-``csrc/hv_energy.cu`` counts them).
+Sv interleaved; the normalise-and-max tail), three launches, two where
+``minmax`` is given. It is bound by device memory: it must read the pair
+(8 B a pixel) and write the energy (4 B), and moves about 54 B a pixel
+from a 4-channel canvas (the note in ``csrc/hv_energy.cu`` counts them).
 
 ``hv`` may be a strided ``[H, W, 2]`` view, such as channels 1:3 of a
 ``[H, W, C]`` canvas, as long as its channels are adjacent. With
@@ -28,8 +28,13 @@ device memory: it must read the pair (8 B a pixel) and write the energy
 is the raw accumulated canvas: the pair is divided by ``max(count, 1)`` as
 it is loaded, the same IEEE division as ``normalize_rows`` (K3), so the
 result equals ``normalize_rows`` followed by ``hv_energy`` and no
-normalised copy of the canvas is made. A CUDA map never falls back to the
-plain version: the kernel launches or the call raises.
+normalised copy of the canvas is made. With ``minmax`` (a float32 ``[4]``
+tensor on ``hv``'s device, ``(min h, max h, min v, max v)`` of the
+normalised pair, as ``pack_fg_tp`` reduces it from
+the same canvas) the kernel skips its first pass, and the plain version
+uses those values in place of its ``amin``/``amax``; the energy is the same
+bits as without it when they are the pair's min and max. A CUDA map never
+falls back to the plain version: the kernel launches or the call raises.
 """
 
 from __future__ import annotations
@@ -100,7 +105,7 @@ def _library() -> ctypes.CDLL:
     lib.hv_energy_scratch_floats.argtypes = [i32, i32, i32, i32]
     lib.hv_energy_scratch_floats.restype = i64
     lib.hv_energy_launch.argtypes = [
-        ptr, i64, i64, ptr, i64, i64, i32, i32, ptr, ptr, i32, ptr, ptr, i32, ptr
+        ptr, i64, i64, ptr, i64, i64, i32, i32, ptr, ptr, i32, ptr, ptr, ptr, i32, ptr
     ]
     lib.hv_energy_launch.restype = i32
     lib.hv_energy_error_string.argtypes = [i32]
@@ -116,7 +121,7 @@ def _ksize(scale_factor: float) -> int:
     return ksize
 
 
-def _check(hv: torch.Tensor, dtype, count: torch.Tensor | None) -> None:
+def _check(hv: torch.Tensor, dtype, count: torch.Tensor | None, minmax: torch.Tensor | None) -> None:
     if hv.ndim != 3 or hv.shape[2] != 2:
         msg = f"hv must be [H, W, 2], got {tuple(hv.shape)}."
         raise ValueError(msg)
@@ -134,10 +139,20 @@ def _check(hv: torch.Tensor, dtype, count: torch.Tensor | None) -> None:
             f"got {count.dtype} {tuple(count.shape)} on {count.device}."
         )
         raise ValueError(msg)
+    if minmax is not None and (
+        tuple(minmax.shape) != (4,) or minmax.dtype != torch.float32 or minmax.device != hv.device
+    ):
+        msg = (
+            f"minmax must be float32 [4] on hv's device, "
+            f"got {minmax.dtype} {tuple(minmax.shape)} on {minmax.device}."
+        )
+        raise ValueError(msg)
 
 
-def _minmax(x: torch.Tensor) -> torch.Tensor:
-    mn, mx = x.amin(), x.amax()
+def _minmax(x: torch.Tensor, mn: torch.Tensor | None = None, mx: torch.Tensor | None = None) -> torch.Tensor:
+    """``(x - min) / max(max - min, 1e-30)``, of x's own min and max unless given."""
+    mn = x.amin() if mn is None else mn
+    mx = x.amax() if mx is None else mx
     return (x - mn) / torch.clamp_min(mx - mn, 1e-30)
 
 
@@ -154,38 +169,55 @@ def _sep_conv(x: torch.Tensor, k_x: np.ndarray, k_y: np.ndarray) -> torch.Tensor
 
 
 def hv_energy_reference(
-    hv: torch.Tensor, scale_factor: float = 1.0, dtype=torch.float32, count: torch.Tensor | None = None
+    hv: torch.Tensor,
+    scale_factor: float = 1.0,
+    dtype=torch.float32,
+    count: torch.Tensor | None = None,
+    minmax: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Plain version: ``max(1 - minmax(Sobel_x(minmax h)), 1 - minmax(Sobel_y(minmax v)))``,
-    of ``hv / max(count, 1)`` where ``count`` is given."""
-    _check(hv, dtype, count)
+    of ``hv / max(count, 1)`` where ``count`` is given; ``minmax`` gives the
+    min and max of h and v instead of their ``amin``/``amax``."""
+    _check(hv, dtype, count, minmax)
     if count is not None:
         hv = hv / count.clamp_min(1.0)
     deriv, smooth = sobel_kernels(_ksize(scale_factor))
-    h_dir = _minmax(hv[..., 0])
-    v_dir = _minmax(hv[..., 1])
+    h_range = v_range = ()
+    if minmax is not None:
+        h_range, v_range = (minmax[0], minmax[1]), (minmax[2], minmax[3])
+    h_dir = _minmax(hv[..., 0], *h_range)
+    v_dir = _minmax(hv[..., 1], *v_range)
     sobel_h = _minmax(_sep_conv(h_dir, deriv, smooth))
     sobel_v = _minmax(_sep_conv(v_dir, smooth, deriv))
     return torch.maximum(1.0 - sobel_h, 1.0 - sobel_v).to(dtype)
 
 
 def hv_energy(
-    hv: torch.Tensor, scale_factor: float = 1.0, dtype=torch.float32, count: torch.Tensor | None = None
+    hv: torch.Tensor,
+    scale_factor: float = 1.0,
+    dtype=torch.float32,
+    count: torch.Tensor | None = None,
+    minmax: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Watershed energy ``[H, W]`` of the hv maps ``[H, W, 2]``, as ``dtype``.
 
     With ``count`` (``[H, W, 1]``), ``hv`` is the raw accumulated canvas
-    and is divided by ``max(count, 1)`` first. ``hv_energy.launches``
-    counts kernel launches.
+    and is divided by ``max(count, 1)`` first. With ``minmax`` (float32
+    ``[4]``: min h, max h, min v, max v of the divided pair) the min/max
+    pass is skipped. ``hv_energy.launches`` counts kernel launches (one a
+    call, whatever the passes).
     """
-    _check(hv, dtype, count)
+    _check(hv, dtype, count, minmax)
     if hv.device.type == "cpu":
-        return hv_energy_reference(hv, scale_factor, dtype, count)
+        return hv_energy_reference(hv, scale_factor, dtype, count, minmax)
     if hv.device.type != "cuda":
         msg = f"hv_energy runs on cpu or cuda tensors, got {hv.device}."
         raise ValueError(msg)
     if hv.stride(2) != 1:
         msg = "hv's two channels must be adjacent in memory."
+        raise ValueError(msg)
+    if minmax is not None and (not minmax.is_contiguous() or minmax.data_ptr() % 16 != 0):
+        msg = "minmax must be contiguous and 16-byte aligned."
         raise ValueError(msg)
     h, w = int(hv.shape[0]), int(hv.shape[1])
     out = torch.empty((h, w), dtype=dtype, device=hv.device)
@@ -203,7 +235,7 @@ def hv_energy(
         cnt_ptr, cnt_rs, cnt_ps = (0, 0, 0) if count is None else (count.data_ptr(), *count.stride()[:2])
         code = lib.hv_energy_launch(
             hv.data_ptr(), hv.stride(0), hv.stride(1), cnt_ptr, cnt_rs, cnt_ps, h, w,
-            deriv.ctypes.data, smooth.ctypes.data, len(deriv),
+            deriv.ctypes.data, smooth.ctypes.data, len(deriv), 0 if minmax is None else minmax.data_ptr(),
             scratch.data_ptr(), out.data_ptr(), int(dtype == torch.float16), stream,
         )
     if code != 0:
