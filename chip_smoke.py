@@ -3,12 +3,25 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels with nvcc and its host C++ with g++ (one
-process per source, all at once), writes synthetic deflate pyramidal slides
-to a temporary directory, and drives the port's entry points on them:
+process per source, all at once), writes synthetic pyramidal slides to a
+temporary directory, and drives the port's entry points on them:
 
+- "jpeg", the host JPEG codec: the card machine's build of the decoder and
+  encoder held to the golden set that scripts/make_jpeg_golden.py made with
+  OpenCV (pixels and bytes exact), the level-0 tiles of an 8192x6144 JPEG
+  slide (Q 90) decoded on 1 thread and on every thread (identical), the
+  encode rate, and the encode -> decode PSNR of a synthetic H&E patch held
+  to a floor;
+- "mask_extract", bench config 2 as bench.py runs it: the morphological
+  tissue mask at 8 mpp, then every 224x224 sliding-window patch at 0.5 mpp
+  (min_mask_ratio 0.1) of a 4096x3072 JPEG slide, counted against the CPU
+  test's count;
+- "predict_jpeg", phase B on the 8192x6144 JPEG slide (each batch's tiles
+  decoded by one native prefetch), the first batch held against the CPU;
 - A, stain normalisation: get_normalizer("macenko") -> fit(target) ->
   prepare_tile_transform(thumbnail) -> transform_tiles(batch) over every
-  224x224 patch batch of a 4096x3072 slide at 0.5 mpp (the stain kernel);
+  224x224 patch batch of a 4096x3072 deflate slide at 0.5 mpp (the stain
+  kernel); phases A to D read deflate slides, as in earlier runs;
 - B, whole-slide patch classification: PatchPredictor with a seeded
   resnet18 CNNModel (9 classes, full width and depth, batch-norm statistics
   taken from the slide's first batch of patches) over the same slide with
@@ -55,6 +68,7 @@ available.
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
 import tempfile
@@ -68,7 +82,7 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
-from tiatoolbox_tpu_torch import PRETRAINED_MODELS, _build  # noqa: E402
+from tiatoolbox_tpu_torch import PRETRAINED_MODELS, _build, native  # noqa: E402
 from tiatoolbox_tpu_torch.data.synth import make_synthetic_slide, synthetic_he_patch  # noqa: E402
 from tiatoolbox_tpu_torch.models.architecture import get_pretrained_model  # noqa: E402
 from tiatoolbox_tpu_torch.models.architecture.hovernet import HoVerNet  # noqa: E402
@@ -90,12 +104,26 @@ from tiatoolbox_tpu_torch.ops.stain import (  # noqa: E402
     stain_transform_reference,
 )
 from tiatoolbox_tpu_torch.parallel import BatchLoader  # noqa: E402
+from tiatoolbox_tpu_torch.tools.patchextraction import get_patch_extractor  # noqa: E402
 from tiatoolbox_tpu_torch.tools.stainnorm import get_normalizer  # noqa: E402
+from tiatoolbox_tpu_torch.wsicore import tiffio  # noqa: E402
 from tiatoolbox_tpu_torch.wsicore.wsireader import WSIReader  # noqa: E402
 
 BATCH = 64
 PATCH = 224
 SLIDE_WH = (4096, 3072)
+# bench config 2 on the port's 4096x3072 JPEG slide (seed 11, Q 90):
+# tests/test_torch_patchextraction.py counts the same on the CPU
+MASK_EXTRACT_PATCHES = 266
+# phase B on JPEG: 0.5 mpp, 20x, 37 x 28 = 1,036 grid patches of 224^2
+JPEG_SLIDE_WH = (8192, 6144)
+JPEG_QUALITY = 90
+# encode -> decode PSNR of the synthetic H&E at Q 90; tests/test_torch_jpeg.py
+# holds the CPU build 1 dB above this floor
+JPEG_PSNR_FLOOR_DB = 38.0
+JPEG_GOLDEN = ROOT / "tiatoolbox_tpu_torch" / "data" / "jpeg_golden.npz"
+# phase B keeps O(batch) on the card: 538,603,008 B at batch 64 on the deflate slide
+PREDICT_PEAK_LIMIT = 1 << 30
 # Published peaks of one H100 SXM (the port's records use these for bounds).
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
@@ -169,6 +197,7 @@ def phase_build() -> None:
             "phase": "build",
             "seconds": time.perf_counter() - t0,
             "libraries": {k: str(v.relative_to(ROOT)) for k, v in libs.items()},
+            "compile_seconds": dict(_build.compile_seconds),
             "ptxas": {k: _build.ptxas_report(k) for k in libs},
         }
     )
@@ -176,7 +205,9 @@ def phase_build() -> None:
 
 def phase_slide(tmp: Path) -> Path:
     t0 = time.perf_counter()
-    path = make_synthetic_slide(tmp / "slide.tiff", size=SLIDE_WH, mpp=0.5, objective_power=20)
+    path = make_synthetic_slide(
+        tmp / "slide.tiff", size=SLIDE_WH, mpp=0.5, objective_power=20, compression="deflate"
+    )
     info = WSIReader.open(path).info
     check(tuple(info.slide_dimensions) == SLIDE_WH, "slide dimensions")
     emit(
@@ -189,6 +220,190 @@ def phase_slide(tmp: Path) -> Path:
         }
     )
     return path
+
+
+def check_jpeg_golden() -> dict:
+    """The card machine's build of the codec against the golden set that
+    scripts/make_jpeg_golden.py made with OpenCV: pixels and bytes exact."""
+    g = np.load(JPEG_GOLDEN)
+    for i, name in enumerate(g["dec_names"]):
+        stream = g["dec_blob"][g["dec_offsets"][i] : g["dec_offsets"][i + 1]].tobytes()
+        want = g["dec_pixels"][g["dec_pixel_offsets"][i] : g["dec_pixel_offsets"][i + 1]]
+        got = native.decode_jpeg(stream)
+        check(np.array_equal(got, want.reshape(g["dec_shapes"][i])), f"golden decode {name}")
+    for i, name in enumerate(g["enc_names"]):
+        img = g["enc_inputs"][g["enc_input_offsets"][i] : g["enc_input_offsets"][i + 1]]
+        img = img.reshape(g["enc_shapes"][i])
+        want = g["enc_blob"][g["enc_offsets"][i] : g["enc_offsets"][i + 1]].tobytes()
+        got = native.encode_jpeg(img, int(g["enc_quality"][i]))
+        check(got == want, f"golden encode {name}: the stream differs from cv2's")
+    return {"decode_cases": len(g["dec_names"]), "encode_cases": len(g["enc_names"])}
+
+
+def phase_jpeg(tmp: Path, card: str) -> Path:
+    """The host codec: the golden set, level-0 decode of the 8192x6144 JPEG
+    slide on 1 and on every thread (identical), encode rate, PSNR floor."""
+    golden = check_jpeg_golden()
+    t0 = time.perf_counter()
+    slide = make_synthetic_slide(
+        tmp / "jpeg_slide.tiff",
+        size=JPEG_SLIDE_WH,
+        mpp=0.5,
+        objective_power=20,
+        jpeg_quality=JPEG_QUALITY,
+    )
+    slide_seconds = time.perf_counter() - t0
+    tiff = tiffio.TiffFile(slide)
+    page = tiff.pages[tiff.pyramid_pages()[0]]
+    streams = [
+        tiffio._merge_jpeg_tables(page.jpeg_tables or b"", tiff._read(off, n))
+        for off, n in zip(page.offsets, page.byte_counts)
+    ]
+    tl, tw = page.tile_length, page.tile_width
+    mpix = len(streams) * tl * tw / 1e6
+    n_threads = os.cpu_count() or 1
+    native.decode_jpeg_batch(streams[:16], tl, tw, n_threads=1)  # warm: pages, library
+    t0 = time.perf_counter()
+    one = native.decode_jpeg_batch(streams, tl, tw, n_threads=1)
+    one_s = time.perf_counter() - t0
+    many_s = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        many = native.decode_jpeg_batch(streams, tl, tw, n_threads=n_threads)
+        many_s.append(time.perf_counter() - t0)
+        check(np.array_equal(one, many), "1-thread and n-thread level-0 decodes differ")
+    t0 = time.perf_counter()
+    sizes = [len(native.encode_jpeg(tile, JPEG_QUALITY)) for tile in one]
+    encode_s = time.perf_counter() - t0
+    he = synthetic_he_patch((2048, 1536), seed=13)
+    back = native.decode_jpeg(native.encode_jpeg(he, JPEG_QUALITY)).astype(np.float64)
+    psnr = float(10 * np.log10(255.0**2 / np.mean((back - he) ** 2)))
+    check(psnr >= JPEG_PSNR_FLOOR_DB, f"JPEG Q{JPEG_QUALITY} PSNR {psnr:.2f} dB < {JPEG_PSNR_FLOOR_DB}")
+    emit(
+        {
+            "phase": "jpeg",
+            "golden": golden,
+            "slide_seconds": slide_seconds,
+            "slide_bytes": slide.stat().st_size,
+            "level0_tiles": len(streams),
+            "level0_stream_bytes": sum(len(x) for x in streams),
+            "decode_mpix_per_s_1_thread": mpix / one_s,
+            "decode_mpix_per_s_n_threads": [mpix / x for x in many_s],
+            "n_threads": n_threads,
+            "cpu_count": os.cpu_count(),
+            "encode_mpix_per_s_1_thread": mpix / encode_s,
+            "reencoded_bytes": sum(sizes),
+            "psnr_db_q90": psnr,
+            "psnr_floor_db": JPEG_PSNR_FLOOR_DB,
+            "card": card,
+        }
+    )
+    return slide
+
+
+def phase_mask_extract(tmp: Path, card: str) -> None:
+    """Bench config 2 as bench.py:640-667 runs it: the morphological mask at
+    8 mpp, then every 224^2 sliding-window patch at 0.5 mpp (ratio 0.1)."""
+    slide = make_synthetic_slide(tmp / "mask_extract.tiff", size=SLIDE_WH, mpp=0.5, objective_power=20)
+
+    def run() -> tuple[int, int]:
+        wsi = WSIReader.open(slide)
+        mask = wsi.tissue_mask(method="morphological", resolution=8.0, units="mpp")
+        extractor = get_patch_extractor(
+            "slidingwindow",
+            input_img=wsi,
+            input_mask=mask,
+            patch_size=(PATCH, PATCH),
+            stride=(PATCH, PATCH),
+            resolution=0.5,
+            units="mpp",
+            min_mask_ratio=0.1,
+        )
+        n = px = 0
+        for patch in extractor:
+            check(patch.shape == (PATCH, PATCH, 3) and patch.dtype == np.uint8, "patch shape")
+            n += 1
+            px += patch.shape[0] * patch.shape[1]
+        return n, px
+
+    run()  # warm: page cache, libraries
+    t0 = time.perf_counter()
+    n, px = run()
+    seconds = time.perf_counter() - t0
+    check(n == MASK_EXTRACT_PATCHES, f"config 2 kept {n} patches, the CPU test {MASK_EXTRACT_PATCHES}")
+    emit(
+        {
+            "phase": "mask_extract",
+            "seconds": seconds,
+            "n_patches": n,
+            "patches_per_s": n / seconds,
+            "mpix_per_s": px / seconds / 1e6,
+            "card": card,
+        }
+    )
+
+
+def phase_predict_jpeg(slide: Path, card: str) -> None:
+    """Phase B on the 8192x6144 JPEG slide: resnet18, batch 64, the kather100k
+    ioconfig and the Otsu mask, each batch's tiles decoded by one prefetch."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    ioconfig = IOPatchPredictorConfig(
+        **PRETRAINED_MODELS["resnet18-kather100k"]["ioconfig"]["kwargs"]
+    )
+    grid = dict(patch_input_shape=(PATCH, PATCH), stride_shape=(PATCH, PATCH), resolution=0.5, units="mpp")
+    n_grid = len(WSIPatchDataset(slide, auto_get_mask=False, **grid))
+    expected = WSIPatchDataset(slide, **grid)
+    n_first = min(BATCH, len(expected))
+    check(n_first > 0, "the tissue mask keeps no patch")
+    first = np.stack([expected[i]["image"] for i in range(n_first)])
+    model = CNNModel("resnet18", num_classes=9, seed=0)
+    calibrate_batch_norm(model, first)
+    CNNModel.infer_batch(model, np.zeros((BATCH, PATCH, PATCH, 3), np.uint8))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    tiffio.reset_decode_counts()
+    t0 = time.perf_counter()
+    predictor = PatchPredictor(model=model, batch_size=BATCH, verbose=False)
+    output = predictor.run([slide], patch_mode=False, ioconfig=ioconfig)[str(slide)]
+    seconds = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    decoded = dict(tiffio.decode_counts)
+    stages = predictor.stages
+
+    probs = output["probabilities"]
+    check(len(probs) == len(expected), f"patch count {len(probs)} vs {len(expected)}")
+    check(np.array_equal(output["coordinates"], expected.inputs), "patch coordinates")
+    check(bool(np.isfinite(probs).all()), "probabilities finite")
+    row_err = float(np.abs(probs.sum(axis=1) - 1.0).max())
+    check(row_err <= 1e-4, f"probability rows sum to 1 within {row_err}")
+    check(decoded["batch"] > 0, "no tile was decoded by the batch prefetch")
+    check(peak <= PREDICT_PEAK_LIMIT, f"peak device memory {peak} B is not O(batch)")
+    cpu_model = CNNModel("resnet18", num_classes=9, device="cpu")
+    cpu_model.load_state_dict(model.state_dict())
+    cpu_err = float(np.abs(CNNModel.infer_batch(cpu_model, first) - probs[:n_first]).max())
+    check(cpu_err <= 1e-3, f"card vs CPU probabilities max abs diff {cpu_err} > 1e-3")
+    slot_wait = stages.get("slot_wait", {}).get("seconds", 0.0)
+    emit(
+        {
+            "phase": "predict_jpeg",
+            "seconds": seconds,
+            "patches": int(len(probs)),
+            "grid_patches": n_grid,
+            "patches_per_s": len(probs) / seconds,
+            "stages": stages,
+            "decode_seconds": stages["decode"]["seconds"] - slot_wait,
+            "prefetch_seconds": stages.get("prefetch", {}).get("seconds", 0.0),
+            "wire_seconds": stages["wire"]["seconds"],
+            "decode_share": (stages["decode"]["seconds"] - slot_wait) / seconds,
+            "tiles_decoded_by_prefetch_batches": decoded["batch"],
+            "tiles_decoded_one_at_a_time": decoded["single"],
+            "peak_memory_bytes": int(peak),
+            "row_sum_err": row_err,
+            "cpu_max_abs_diff": cpu_err,
+            "card": card,
+        }
+    )
 
 
 def held_against_plain(got: torch.Tensor, tiles: torch.Tensor, args, what: str) -> tuple[int, float]:
@@ -505,7 +720,12 @@ class CanvasRecorder:
 def phase_segment_slide(tmp: Path) -> Path:
     t0 = time.perf_counter()
     path = make_synthetic_slide(
-        tmp / "segment.tiff", size=SEG_SLIDE_WH, mpp=0.25, objective_power=40, seed=31
+        tmp / "segment.tiff",
+        size=SEG_SLIDE_WH,
+        mpp=0.25,
+        objective_power=40,
+        seed=31,
+        compression="deflate",
     )
     info = WSIReader.open(path).info
     check(tuple(info.slide_dimensions) == SEG_SLIDE_WH, "segment slide dimensions")
@@ -1323,7 +1543,12 @@ def phase_instance(tmp: Path, card: str) -> tuple[list[dict], dict]:
     torch.backends.cuda.matmul.allow_tf32 = False
     t0 = time.perf_counter()
     slide = make_synthetic_slide(
-        tmp / "nuclei.tiff", size=INST_SLIDE_WH, mpp=0.25, objective_power=40, seed=41
+        tmp / "nuclei.tiff",
+        size=INST_SLIDE_WH,
+        mpp=0.25,
+        objective_power=40,
+        seed=41,
+        compression="deflate",
     )
     slide_seconds = time.perf_counter() - t0
     t0 = time.perf_counter()
@@ -1521,6 +1746,14 @@ def main() -> int:
     card = phase_env()
     phase_build()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        jpeg_slide = phase_jpeg(Path(tmp), card)
+        phase_mask_extract(Path(tmp), card)
+        phase_predict_jpeg(jpeg_slide, card)
+        jpeg_slide.unlink()
+        # Peak allocated bytes depend on which cached blocks the allocator
+        # reuses (a block is not split below 1 MiB of slack), so phases A-D
+        # start from an emptied cache, as they did before the JPEG phases.
+        torch.cuda.empty_cache()
         slide = phase_slide(Path(tmp))
         stain = phase_stain(slide)
         phase_predict(slide, card)

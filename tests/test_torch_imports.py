@@ -3,9 +3,11 @@
 A subprocess installs a ``sys.meta_path`` finder that refuses jax, flax,
 cv2, yaml, PIL, pandas, tqdm, psutil and the JAX package, imports every
 module of ``tiatoolbox_tpu_torch`` and ``chip_smoke``, and runs the slices
-(stain transform, whole-slide patch classification, whole-slide semantic
-segmentation and whole-slide nucleus instance segmentation, which builds
-and loads the host C++ library) on the CPU on a tiny slide.
+(stain transform, bench config 2's mask and sliding-window extraction,
+whole-slide patch classification, whole-slide semantic segmentation and
+whole-slide nucleus instance segmentation, which build and load the host
+C++ libraries: the JPEG codec of the slide's tiles, the watershed) on the
+CPU on a tiny JPEG slide.
 """
 
 from __future__ import annotations
@@ -57,6 +59,13 @@ GUARDED_RUN = textwrap.dedent(
     with tempfile.TemporaryDirectory() as tmp:
         slide = make_synthetic_slide(f"{tmp}/slide.tiff", size=(512, 384), seed=3)
         reader = WSIReader.open(slide)
+        from tiatoolbox_tpu_torch.tools.patchextraction import get_patch_extractor
+
+        mask = reader.tissue_mask(method="morphological", resolution=8.0, units="mpp")
+        extractor = get_patch_extractor("slidingwindow", input_img=reader, input_mask=mask,
+                                        patch_size=(64, 64), stride=(64, 64), resolution=0.5,
+                                        units="mpp", min_mask_ratio=0.1)
+        assert len(extractor) > 0 and next(iter(extractor)).shape == (64, 64, 3)
         norm = get_normalizer("macenko")
         norm.fit(synthetic_he_patch((96, 96), seed=4))
         constants = norm.prepare_tile_transform(reader.slide_thumbnail(resolution=5, units="power"))

@@ -106,7 +106,9 @@ class _JaxOnce(JaxHoVerNet):
 @pytest.fixture(scope="module")
 def slide(tmp_path_factory) -> str:
     path = tmp_path_factory.mktemp("mts") / "slide.tiff"
-    make_synthetic_slide(path, size=(560, 400), mpp=0.25, objective_power=40)
+    make_synthetic_slide(
+        path, size=(560, 400), mpp=0.25, objective_power=40, compression="deflate"
+    )
     return str(path)
 
 

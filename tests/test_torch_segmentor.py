@@ -53,7 +53,9 @@ KWARGS = {**NARROW, "num_output_channels": 3}
 @pytest.fixture(scope="module")
 def slide(tmp_path_factory) -> str:
     path = tmp_path_factory.mktemp("seg") / "slide.tiff"
-    make_synthetic_slide(path, size=(560, 400), mpp=0.5, objective_power=20, seed=21)
+    make_synthetic_slide(
+        path, size=(560, 400), mpp=0.5, objective_power=20, seed=21, compression="deflate"
+    )
     return str(path)
 
 

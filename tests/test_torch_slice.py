@@ -4,7 +4,9 @@ On a 1024x768 deflate slide both packages plan the same patch grid, mask it
 with the same Otsu tissue mask, load the same batches, and classify with
 the same resnet18 weights (flax variables carried over with
 ``flax_resnet_to_torch``). Coordinates and predictions must be identical
-and probabilities within 1e-4 (float32 on both sides). The stain phase runs
+and probabilities within 1e-4 (float32 on both sides). The same holds on a
+JPEG slide (the port's writer at Q 90), where the port's batch loader
+decodes each batch's tiles in one native prefetch. The stain phase runs
 the port's plain version beside JAX ``transform_tiles`` over the same
 batches, held to one uint8 level and 99.9 % identical values.
 """
@@ -32,6 +34,7 @@ from tiatoolbox_tpu_torch.models.engine.io_config import IOPatchPredictorConfig
 from tiatoolbox_tpu_torch.models.engine.patch_predictor import PatchPredictor
 from tiatoolbox_tpu_torch.parallel import BatchLoader
 from tiatoolbox_tpu_torch.tools import stainnorm as port_stainnorm
+from tiatoolbox_tpu_torch.wsicore import tiffio as port_tiffio
 from tiatoolbox_tpu_torch.wsicore.wsireader import WSIReader
 
 
@@ -51,6 +54,13 @@ GRID = dict(patch_input_shape=(224, 224), stride_shape=(224, 224), resolution=0.
 @pytest.fixture(scope="module")
 def slide(tmp_path_factory) -> str:
     path = tmp_path_factory.mktemp("slice") / "slide.tiff"
+    make_synthetic_slide(path, size=(1024, 768), seed=41, compression="deflate")
+    return str(path)
+
+
+@pytest.fixture(scope="module")
+def jpeg_slide(tmp_path_factory) -> str:
+    path = tmp_path_factory.mktemp("slice") / "jpeg_slide.tiff"
     make_synthetic_slide(path, size=(1024, 768), seed=41)
     return str(path)
 
@@ -82,7 +92,7 @@ def test_staged_batches_match_plain_batches(slide: str) -> None:
         np.testing.assert_array_equal(got["coords"], want["coords"])
 
 
-def test_patch_predictor_wsi_matches_jax(slide: str) -> None:
+def _predictor_matches_jax(slide: str) -> None:
     jax_model = JaxCNNModel("resnet18", num_classes=9)
     jax_model.init(input_shape=(1, 224, 224, 3))
     rng = np.random.default_rng(7)
@@ -111,6 +121,22 @@ def test_patch_predictor_wsi_matches_jax(slide: str) -> None:
     np.testing.assert_allclose(
         patch_out["probabilities"], got["probabilities"][:3], atol=1e-6, rtol=0
     )
+
+
+def test_patch_predictor_wsi_matches_jax(slide: str) -> None:
+    _predictor_matches_jax(slide)
+
+
+def test_patch_predictor_jpeg_slide_matches_jax(jpeg_slide: str) -> None:
+    """Phase B on a JPEG slide; the port's batches read tiles its prefetch
+    decoded in native batches."""
+    port_tiffio.reset_decode_counts()
+    _predictor_matches_jax(jpeg_slide)
+    assert port_tiffio.decode_counts["batch"] > 0
+    jax_ds = JaxWSIPatchDataset(jpeg_slide, **GRID)
+    port_ds = WSIPatchDataset(jpeg_slide, **GRID)
+    for i in (0, len(port_ds) // 2, len(port_ds) - 1):
+        np.testing.assert_array_equal(port_ds[i]["image"], jax_ds[i]["image"])
 
 
 def test_stain_phase_matches_jax(slide: str) -> None:

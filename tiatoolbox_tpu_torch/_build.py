@@ -4,8 +4,8 @@ Each source under ``csrc/`` exposes a C interface, so the build needs
 neither PyTorch's headers nor ``torch.utils.cpp_extension``: one ``nvcc``
 call per CUDA source (``*.cu``) and one ``g++`` call per host source
 (``*.cpp``) compiles in seconds. Libraries go to ``<repo>/build_torch/``,
-named by a hash of the source, every ``csrc/*.cuh`` header and the
-compiler's flags, and are built at first use. Beside each CUDA library a
+named by a hash of the source, every ``csrc/*.cuh`` and ``csrc/*.h``
+header and the compiler's flags, and are built at first use. Beside each CUDA library a
 ``.ptxas`` file keeps what ``ptxas -v`` said of its kernels (registers,
 spills, shared memory). A failed build raises; nothing falls back.
 """
@@ -18,6 +18,7 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
@@ -37,10 +38,13 @@ NVCC_FLAGS = (
     "-v",
 )
 
-HOST_FLAGS = ("-std=c++17", "-O3", "-shared", "-fPIC")
+# -pthread: the JPEG decoder's batch entry runs std::thread workers
+HOST_FLAGS = ("-std=c++17", "-O3", "-shared", "-fPIC", "-pthread")
 
 _load_lock = threading.Lock()
 _loaded: dict[str, ctypes.CDLL] = {}
+# seconds each compiler process of this process took, by source
+compile_seconds: dict[str, float] = {}
 
 
 def find_nvcc() -> str:
@@ -77,7 +81,7 @@ def library_path(source: str) -> Path:
     """Where the library built from ``csrc/<source>`` lives."""
     src = CSRC_DIR / source
     digest = hashlib.sha256(src.read_bytes())
-    for header in sorted(CSRC_DIR.glob("*.cuh")):
+    for header in sorted([*CSRC_DIR.glob("*.cuh"), *CSRC_DIR.glob("*.h")]):
         digest.update(header.name.encode() + b"\0" + header.read_bytes())
     digest.update(" ".join(_flags(source)).encode())
     return BUILD_DIR / f"lib{src.stem}-{digest.hexdigest()[:16]}.so"
@@ -108,7 +112,9 @@ def build(source: str) -> Path:
     tmp = out.with_name(f"{out.stem}.{os.getpid()}.{threading.get_ident()}.tmp.so")
     compiler = find_gxx() if _is_host(source) else find_nvcc()
     cmd = [compiler, *_flags(source), "-o", str(tmp), str(CSRC_DIR / source)]
+    start = time.perf_counter()
     proc = subprocess.run(cmd, capture_output=True, text=True, check=False)
+    compile_seconds[source] = time.perf_counter() - start
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
         msg = (

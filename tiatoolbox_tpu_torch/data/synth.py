@@ -3,8 +3,9 @@
 Tissue blobs with nuclei on a white background, composed by Beer-Lambert
 from the Ruifrok H&E stain vectors, so stain estimation recovers sensible
 matrices. Smoothing uses ``scipy.ndimage`` and the pyramid is written with
-the port's deflate TIFF writer. The pixels follow the same recipe as the
-JAX package's but are not bit-identical to them.
+the port's TIFF writer, JPEG tiles at Q 90 by default as JAX writes them
+(the port's encoder) or deflate tiles. The pixels follow the same recipe
+as the JAX package's but are not bit-identical to them.
 """
 
 from __future__ import annotations
@@ -78,12 +79,15 @@ def make_synthetic_slide(
     tile_size: int = 256,
     levels: int | None = None,
     seed: int = 11,
+    compression: str = "jpeg",
+    jpeg_quality: int = 90,
 ) -> Path:
-    """Write a pyramidal tiled deflate TIFF synthetic slide to ``path``.
+    """Write a pyramidal tiled TIFF synthetic slide to ``path``.
 
     A baseline level plus 2x-downsampled levels until the image fits in one
     tile; mpp and power go into the resolution tags and an Aperio-style
-    ImageDescription.
+    ImageDescription ("JPEG/RGB Q=90" for JPEG tiles, as JAX's
+    ``synth.py:126-138``, "Deflate/RGB" for deflate ones).
     """
     path = Path(path)
     width, height = size
@@ -98,12 +102,18 @@ def make_synthetic_slide(
         prev = images[-1]
         out_wh = (max(1, prev.shape[1] // 2), max(1, prev.shape[0] // 2))
         images.append(imresize(prev, output_size=out_wh, interpolation="area"))
+    codec = f"JPEG/RGB Q={jpeg_quality}" if compression == "jpeg" else "Deflate/RGB"
     description = (
         f"Aperio Image Library v0.0.0\n"
         f"{width}x{height} [0,0 {width}x{height}] ({tile_size}x{tile_size})"
-        f" Deflate/RGB|AppMag = {objective_power:g}|MPP = {mpp:g}"
+        f" {codec}|AppMag = {objective_power:g}|MPP = {mpp:g}"
     )
     TiffPyramidWriter(
-        path, tile_size=tile_size, description=description, mpp=(mpp, mpp)
+        path,
+        tile_size=tile_size,
+        description=description,
+        mpp=(mpp, mpp),
+        compression=compression,
+        jpeg_quality=jpeg_quality,
     ).write(images)
     return path

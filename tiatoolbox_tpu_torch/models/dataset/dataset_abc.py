@@ -2,8 +2,10 @@
 
 ``PatchDataset`` (:64) serves in-memory patches. ``WSIPatchDataset`` (:89)
 plans the patch grid at the ioconfig resolution, filters it by a tissue
-mask, and serves fixed-shape uint8 patches by index. Both are copied; image
-files other than slides are not read (the port carries no image codec).
+mask, and serves fixed-shape uint8 patches by index; its ``prefetch``
+(:223-244) decodes the JPEG tiles of a batch of grid cells in one threaded
+native call before the reads. Both are copied; image files other than
+slides are not read (the port carries no image codec for them).
 """
 
 from __future__ import annotations
@@ -207,6 +209,21 @@ class WSIPatchDataset(PatchDatasetABC):
                 logger.warning("Auto tissue mask failed (%s); using full grid.", exc)
                 return None
         return None
+
+    def prefetch(self, indices) -> None:
+        """Decode the tiles that the grid cells ``indices`` will read, in one
+        native batch. Readers without the hook (not TIFF) ignore it; a tile
+        that cannot be decoded raises here, as its read would."""
+        hook = getattr(self.reader, "prefetch_bounds", None)
+        if hook is None:
+            return
+        bounds = [
+            self.reader.bounds_at_resolution_to_baseline(
+                np.asarray(self.inputs[idx], float), self.resolution, self.units
+            )
+            for idx in indices
+        ]
+        hook(bounds, self.resolution, self.units)
 
     def __getitem__(self, idx: int) -> dict:
         coords = self.inputs[idx]

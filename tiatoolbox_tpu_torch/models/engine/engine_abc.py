@@ -5,7 +5,11 @@ the model on the device, post-process and return the outputs. Ported:
 ``EngineABC.run`` (:475), ``get_dataloader`` (:216), ``infer_patches``
 (:255) with its bounded window of unfetched device outputs, ``infer_wsi``
 (:346) and ``argmax_probabilities`` (:526), for ``output_type="dict"``.
-Zarr and annotation-store outputs are not ported yet.
+Zarr and annotation-store outputs are not ported yet. ``infer_patches``
+keeps a ``StageTimer`` in ``stages`` after each run: the batch loader's
+"decode" (tile prefetch and patch reads, with "prefetch", the native tile
+decode, inside it) and "wire" (the copy to the device), and "infer", the
+whole loop.
 """
 
 from __future__ import annotations
@@ -21,6 +25,7 @@ from tiatoolbox_tpu_torch.models.dataset import PatchDataset, WSIPatchDataset
 from tiatoolbox_tpu_torch.models.engine.io_config import ModelIOConfigABC
 from tiatoolbox_tpu_torch.models.models_abc import ModelABC
 from tiatoolbox_tpu_torch.parallel import BatchLoader
+from tiatoolbox_tpu_torch.utils.profiling import StageTimer
 
 
 class EngineABC(ABC):
@@ -52,6 +57,7 @@ class EngineABC(ABC):
         self.num_loader_workers = num_loader_workers
         self.device = device
         self.verbose = verbose
+        self.stages: dict[str, dict] = {}
         self.images = None
         self.masks = None
         self.labels = None
@@ -198,6 +204,8 @@ class EngineABC(ABC):
         inflight: deque = deque()
         probabilities, coordinates, labels = [], [], []
         n_total = 0
+        timer = StageTimer()
+        dataloader.timer = timer
         t_start = time.perf_counter()
         pin = self.model.device.type == "cuda"
         for batch in dataloader.iter_staged(self.model.stage_batch, pin_memory=pin):
@@ -219,9 +227,10 @@ class EngineABC(ABC):
                 labels.append(np.asarray(batch["label"])[:n_valid])
         while inflight:
             probabilities.append(_fetch(*inflight.popleft()))
+        timer.add("infer", time.perf_counter() - t_start, items=n_total)
+        self.stages = timer.summary()
         if self.verbose:
-            seconds = time.perf_counter() - t_start
-            logger.info("infer: %d patches in %.3f s", n_total, seconds)
+            logger.info("infer: %d patches, stages %s", n_total, self.stages)
         if probabilities and isinstance(probabilities[0], tuple):  # one array per head
             output = {
                 "probabilities": [

@@ -1,30 +1,44 @@
 """The port's host C++, loaded with ctypes (counterpart of ``tiatoolbox_tpu/native/__init__.py``).
 
-``csrc/watershed.cpp`` is built with ``g++`` by ``_build.py`` into
-``build_torch/`` at first use; a failed build raises, and there is no
-Python fallback on the path. It holds:
+Each source under ``csrc/`` is built with ``g++`` by ``_build.py`` into
+``build_torch/`` at first use; a failed build raises, and nothing falls
+back to another decoder.
 
-- ``watershed`` (JAX :131-156): the marker watershed of
-  ``skimage.segmentation.watershed(image, markers, mask=mask)``, the image
-  cast to float32 as JAX's wrapper casts it;
-- ``outer_contours``: the outer border of each instance of a label map,
-  as ``cv2.findContours(RETR_TREE, CHAIN_APPROX_SIMPLE)[0][0]`` gives it on
-  the instance's crop (``hovernet.py:555-558``).
-
-The JPEG and LZW decoders of the JAX module are not ported yet
-(ROADMAP item 2).
+- ``csrc/watershed.cpp``: ``watershed`` (JAX :131-156), the marker
+  watershed of ``skimage.segmentation.watershed(image, markers,
+  mask=mask)``, the image cast to float32 as JAX's wrapper casts it; and
+  ``outer_contours``, the outer border of each instance of a label map, as
+  ``cv2.findContours(RETR_TREE, CHAIN_APPROX_SIMPLE)[0][0]`` gives it on the
+  instance's crop (``hovernet.py:555-558``).
+- ``csrc/jpegdec.cpp``: ``decode_jpeg_batch`` (JAX :153-189), the baseline
+  JPEG decoder on ``std::thread`` workers, and ``decode_jpeg``, one stream at
+  its own size (the ``cv2.imdecode`` of JAX's ``tiffio.py:406-415``). Both
+  give libjpeg-turbo's pixels bit for bit; a stream they cannot decode
+  raises ``ValueError`` naming it, where JAX's batch returns ``None`` and its
+  per-tile ``cv2`` path raises on the same tile.
+- ``csrc/jpegenc.cpp``: ``encode_jpeg``, the stream of ``cv2.imencode(".jpg",
+  bgr, [IMWRITE_JPEG_QUALITY, q])`` (JAX's ``tiffio.py:694-704``).
+- ``csrc/lzw.cpp``: ``lzw_decode`` and ``packbits_decode`` (JAX :192-219),
+  ``None`` on a malformed stream or an overflow, so that the caller decodes
+  with the pure-Python decoders as JAX's reader does.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+import os
 
 import numpy as np
 
 from tiatoolbox_tpu_torch import _build
 
 SOURCE = "watershed.cpp"
+JPEG_DECODER = "jpegdec.cpp"
+JPEG_ENCODER = "jpegenc.cpp"
+TIFF_CODECS = "lzw.cpp"
+# JAX's batch decoder takes min(cpu_count, n, 16) threads (its __init__.py:168-169)
+MAX_DECODE_THREADS = 16
 
 
 @functools.cache
@@ -89,3 +103,143 @@ def outer_contours(labels: np.ndarray, ids, starts, areas) -> list[np.ndarray]:
         msg = "outer_contours: a contour exceeded its point capacity."
         raise RuntimeError(msg)
     return [points[a:b].copy() for a, b in zip(offsets[:-1], offsets[1:])]
+
+
+@functools.cache
+def _jpeg_decoder() -> ctypes.CDLL:
+    lib = _build.load(JPEG_DECODER)
+    ptr, i32, u64 = ctypes.c_void_p, ctypes.c_int32, ctypes.c_uint64
+    lib.jpeg_header.argtypes = [ctypes.c_char_p, u64, ptr]
+    lib.jpeg_header.restype = i32
+    lib.jpeg_status_message.argtypes = [i32]
+    lib.jpeg_status_message.restype = ctypes.c_char_p
+    lib.jpeg_decode_batch.argtypes = [ctypes.c_char_p, ptr, ptr, i32, ptr, i32, i32, i32, i32, ptr]
+    lib.jpeg_decode_batch.restype = i32
+    return lib
+
+
+@functools.cache
+def _jpeg_encoder() -> ctypes.CDLL:
+    lib = _build.load(JPEG_ENCODER)
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int32
+    lib.jpeg_encode.argtypes = [ptr, i32, i32, i32, i32, ptr, ctypes.c_uint64]
+    lib.jpeg_encode.restype = ctypes.c_int64
+    return lib
+
+
+@functools.cache
+def _tiff_codecs() -> ctypes.CDLL:
+    lib = _build.load(TIFF_CODECS)
+    for fn in (lib.lzw_decode, lib.packbits_decode):
+        fn.argtypes = [ctypes.c_char_p, ctypes.c_uint64, ctypes.c_void_p, ctypes.c_uint64]
+        fn.restype = ctypes.c_int64
+    return lib
+
+
+class JpegDecodeError(ValueError):
+    """A JPEG stream the decoder refused; ``index`` is its place in the batch."""
+
+    def __init__(self, index: int, reason: str) -> None:
+        super().__init__(f"JPEG decode failed for stream {index}: {reason}")
+        self.index = index
+        self.reason = reason
+
+
+def _jpeg_error(lib: ctypes.CDLL, index: int, code: int) -> JpegDecodeError:
+    return JpegDecodeError(index, lib.jpeg_status_message(code).decode())
+
+
+def decode_jpeg_batch(
+    streams: list[bytes],
+    tile_h: int,
+    tile_w: int,
+    out_ch: int = 3,
+    n_threads: int | None = None,
+) -> np.ndarray:
+    """Decode JPEG streams in parallel into ``[n, tile_h, tile_w, out_ch]`` uint8.
+
+    Each stream's top-left ``min(h, tile_h)`` x ``min(w, tile_w)`` pixels are
+    copied into a zeroed tile; ``out_ch`` 3 gives RGB (a grey stream
+    replicated), 1 gives grey. ``n_threads`` defaults to ``min(cpu_count, n,
+    16)``.
+
+    Raises:
+        JpegDecodeError: (a ``ValueError``) a stream cannot be decoded; it
+            names the first such stream by its index and says why.
+    """
+    if out_ch not in (1, 3):
+        msg = f"out_ch must be 1 or 3, got {out_ch}."
+        raise ValueError(msg)
+    n = len(streams)
+    out = np.zeros((n, tile_h, tile_w, out_ch), np.uint8)
+    if n == 0:
+        return out
+    if n_threads is None:
+        n_threads = min(os.cpu_count() or 4, n, MAX_DECODE_THREADS)
+    lib = _jpeg_decoder()
+    blob = b"".join(streams)
+    sizes = np.array([len(s) for s in streams], np.uint64)
+    offsets = np.zeros(n, np.uint64)
+    np.cumsum(sizes[:-1], out=offsets[1:])
+    status = np.zeros(n, np.int32)
+    first = lib.jpeg_decode_batch(
+        blob, _ptr(offsets), _ptr(sizes), n, _ptr(out), tile_h, tile_w, out_ch, n_threads, _ptr(status)
+    )
+    if first >= 0:
+        raise _jpeg_error(lib, first, int(status[first]))
+    return out
+
+
+def decode_jpeg(stream: bytes) -> np.ndarray:
+    """Decode one JPEG stream to ``[h, w, c]`` uint8 at its own size (c 1 or 3)."""
+    lib = _jpeg_decoder()
+    hwc = np.zeros(3, np.int32)
+    code = lib.jpeg_header(stream, len(stream), _ptr(hwc))
+    if code != 0:
+        raise _jpeg_error(lib, 0, code)
+    h, w, c = (int(v) for v in hwc)
+    return decode_jpeg_batch([stream], h, w, out_ch=c, n_threads=1)[0]
+
+
+def encode_jpeg(image: np.ndarray, quality: int = 90) -> bytes:
+    """Baseline JPEG of an ``[h, w, 3]`` RGB or ``[h, w]`` / ``[h, w, 1]`` grey
+    uint8 image at ``quality`` (1-100), as ``cv2.imencode`` writes it."""
+    image = np.ascontiguousarray(image, np.uint8)
+    if image.ndim == 3 and image.shape[2] == 1:
+        image = image[:, :, 0]
+    if image.ndim not in (2, 3) or (image.ndim == 3 and image.shape[2] != 3):
+        msg = f"encode_jpeg takes [h, w, 3] RGB or [h, w] grey, got {image.shape}."
+        raise ValueError(msg)
+    h, w = image.shape[:2]
+    ch = 1 if image.ndim == 2 else 3
+    if not (0 < h <= 65535 and 0 < w <= 65535):
+        msg = f"JPEG frames are 1-65535 pixels a side, got {h}x{w}."
+        raise ValueError(msg)
+    lib = _jpeg_encoder()
+    cap = h * w * ch + 4096
+    while True:
+        out = np.empty(cap, np.uint8)
+        n = lib.jpeg_encode(_ptr(image), h, w, ch, int(quality), _ptr(out), cap)
+        if n > 0:
+            return out[:n].tobytes()
+        if n == 0:
+            msg = f"jpeg_encode refused a {h}x{w}x{ch} image."
+            raise ValueError(msg)
+        cap = -n
+
+
+def _tiff_decode(fn, data: bytes, expected: int) -> bytes | None:
+    out = np.empty(max(expected, 1), np.uint8)
+    n = fn(data, len(data), _ptr(out), expected)
+    return None if n < 0 else out[:n].tobytes()
+
+
+def lzw_decode(data: bytes, expected: int) -> bytes | None:
+    """TIFF LZW (MSB first, early change) into at most ``expected`` bytes;
+    ``None`` on a malformed stream or an overflow."""
+    return _tiff_decode(_tiff_codecs().lzw_decode, data, expected)
+
+
+def packbits_decode(data: bytes, expected: int) -> bytes | None:
+    """PackBits into at most ``expected`` bytes; ``None`` on an overflow."""
+    return _tiff_decode(_tiff_codecs().packbits_decode, data, expected)

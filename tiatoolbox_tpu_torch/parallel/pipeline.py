@@ -2,7 +2,12 @@
 
 ``BatchLoader`` (:94-236) iterates a dataset as fixed-size batches with
 reader threads and background prefetch, writing each item straight into
-preallocated batch slots. For a CUDA consumer, ``iter_staged`` writes the
+preallocated batch slots. Before a batch's reads it calls the dataset's
+``prefetch`` where there is one (:131-134): one threaded native decode of
+every JPEG tile the batch touches. A ``StageTimer`` set as ``timer``
+accumulates "decode" (a batch's prefetch and reads, and any wait for a
+free pinned slot, which "slot_wait" counts), "prefetch" (the tile decode
+alone) and "wire" (``iter_staged``'s stage function). For a CUDA consumer, ``iter_staged`` writes the
 images into a ring of pinned host slots; the stage function copies a slot
 to the device asynchronously, and the slot is reused once the device has
 passed an event recorded after that copy.
@@ -10,6 +15,7 @@ passed an event recorded after that copy.
 
 from __future__ import annotations
 
+import contextlib
 import queue
 import threading
 from concurrent.futures import ThreadPoolExecutor
@@ -93,6 +99,7 @@ class BatchLoader:
         self.batch_size = int(batch_size)
         self.num_workers = int(num_workers)
         self.prefetch = max(int(prefetch), 1)
+        self.timer = None
         self.indices = (
             np.arange(len(dataset)) if indices is None else np.asarray(indices)
         )
@@ -107,15 +114,27 @@ class BatchLoader:
         slots: _SlotRing | None = None,
         stop: threading.Event | None = None,
     ) -> dict:
+        with self._stage("decode", len(batch_indices)):
+            return self._read_batch(batch_indices, pool, slots, stop)
+
+    def _stage(self, name: str, items: int):
+        return self.timer.stage(name, items) if self.timer is not None else contextlib.nullcontext()
+
+    def _read_batch(self, batch_indices, pool, slots, stop) -> dict:
         n_valid = len(batch_indices)
         batch: dict = {"n_valid": n_valid, "indices": np.asarray(batch_indices)}
+        prefetch = getattr(self.dataset, "prefetch", None)
+        if prefetch is not None:
+            with self._stage("prefetch", n_valid):
+                prefetch(batch_indices)
         first = self.dataset[batch_indices[0]]
         buffers = {}
         for key, value in first.items():
             arr = np.asarray(value)
             shape = (self.batch_size, *arr.shape)
             if key == "image" and slots is not None:
-                slot = slots.acquire(stop)
+                with self._stage("slot_wait", 0):
+                    slot = slots.acquire(stop)
                 if slot is None:
                     raise _Stopped
                 buffers[key] = slot.buffer(shape, arr.dtype)
@@ -206,7 +225,8 @@ class BatchLoader:
         for batch in self._batches(slots):
             slot = batch.pop("_slot", None)
             host = slot.tensor if slot is not None else batch["image"]
-            batch["image"] = stage_fn(host)
+            with self._stage("wire", host.nbytes):
+                batch["image"] = stage_fn(host)
             if slot is not None:
                 slots.release(slot, batch["image"].device)
             yield batch

@@ -6,9 +6,17 @@ without OpenCV, with OpenCV's own fixed-point tables (sRGB gamma table,
 cube-root table, 12-bit luminance coefficients, 15-bit L descale): it
 equals ``cv2.cvtColor(img, cv2.COLOR_RGB2LAB)[..., 0]`` for every one of
 the 2**24 RGB colours.
+
+``read_locations`` (:193) reads point annotations from an ndarray, ``.npy``,
+``.csv`` or ``.json`` into a ``LocationTable``, a small numpy-backed table
+with the columns of JAX's DataFrame (the card machine has no pandas).
 """
 
 from __future__ import annotations
+
+import csv
+import json
+from pathlib import Path
 
 import numpy as np
 
@@ -93,3 +101,113 @@ def get_luminosity_tissue_mask(img: np.ndarray, threshold: float) -> np.ndarray:
         msg = "Empty tissue mask computed."
         raise ValueError(msg)
     return tissue_mask
+
+
+class LocationTable:
+    """Columns of equal length by name, each a numpy array (``x``, ``y``,
+    ``class``; a JSON table keeps the keys it has)."""
+
+    def __init__(self, columns: dict[str, np.ndarray]) -> None:
+        lengths = {len(v) for v in columns.values()}
+        if len(lengths) > 1:
+            msg = f"columns of unequal length: { {k: len(v) for k, v in columns.items()} }"
+            raise ValueError(msg)
+        self._columns = {k: np.asarray(v) for k, v in columns.items()}
+
+    @property
+    def columns(self) -> list[str]:
+        return list(self._columns)
+
+    @property
+    def shape(self) -> tuple[int, int]:
+        return len(self), len(self._columns)
+
+    def __len__(self) -> int:
+        return len(next(iter(self._columns.values()))) if self._columns else 0
+
+    def __getitem__(self, name: str) -> np.ndarray:
+        return self._columns[name]
+
+    def __setitem__(self, name: str, values) -> None:
+        values = np.asarray(values)
+        if values.ndim == 0:
+            values = np.full(len(self), values.item(), dtype=values.dtype)
+        if self._columns and len(values) != len(self):
+            msg = f"column {name!r} has {len(values)} values for {len(self)} rows."
+            raise ValueError(msg)
+        self._columns[name] = values
+
+
+def _none_column(n: int) -> np.ndarray:
+    return np.full(n, None, dtype=object)
+
+
+def _csv_column(cells: list[str]) -> np.ndarray:
+    """Numbers as pandas infers them (int64 if every cell is an integer, else
+    float64, empty cells NaN); anything else as strings."""
+    try:
+        return np.array([int(c) for c in cells], np.int64)
+    except ValueError:
+        pass
+    try:
+        return np.array([float(c) if c != "" else np.nan for c in cells], np.float64)
+    except ValueError:
+        return np.array(cells, dtype=object)
+
+
+def _read_csv(path: Path) -> LocationTable:
+    with path.open(newline="") as fh:
+        rows = [row for row in csv.reader(fh) if row]
+    if rows and "x" in rows[0]:
+        header, body = rows[0], rows[1:]
+    else:
+        header, body = ["x", "y", "class"], rows
+    width = len(header)
+    body = [row + [""] * (width - len(row)) for row in body]
+    columns = {name: _csv_column([row[i] for row in body]) for i, name in enumerate(header)}
+    table = LocationTable({k: columns[k] for k in ("x", "y") if k in columns})
+    table["class"] = columns["class"] if "class" in columns else _none_column(len(body))
+    return table
+
+
+def read_locations(input_table) -> LocationTable:
+    """Point annotations as a table with ``x``, ``y`` and ``class`` columns.
+
+    Takes an ``[n, 2]`` or ``[n, 3]`` ndarray, or a ``.npy``, ``.csv`` (with
+    an ``x, y[, class]`` header or none) or ``.json`` file (a list of records
+    or a dict of columns), as ``misc.py:193-246`` does; ``class`` is None
+    where the input has none (a ``.json`` table keeps its own columns).
+
+    Raises:
+        ValueError: an ndarray without 2 or 3 columns.
+        TypeError: an input of another kind or file suffix.
+    """
+    if isinstance(input_table, LocationTable):
+        return LocationTable({k: input_table[k].copy() for k in input_table.columns})
+    if isinstance(input_table, (str, Path)):
+        path = Path(input_table)
+        if path.suffix == ".npy":
+            input_table = np.load(str(path))
+        elif path.suffix == ".csv":
+            return _read_csv(path)
+        elif path.suffix == ".json":
+            with path.open() as fh:
+                data = json.load(fh)
+            if isinstance(data, dict):
+                return LocationTable({k: np.asarray(v) for k, v in data.items()})
+            keys = list(dict.fromkeys(k for record in data for k in record))
+            return LocationTable({k: np.asarray([r.get(k) for r in data]) for k in keys})
+        else:
+            msg = f"File type not supported: {path.suffix}"
+            raise TypeError(msg)
+    if isinstance(input_table, np.ndarray):
+        if input_table.ndim == 2 and input_table.shape[1] in (2, 3):
+            table = LocationTable({"x": input_table[:, 0], "y": input_table[:, 1]})
+            table["class"] = (
+                input_table[:, 2] if input_table.shape[1] == 3 else _none_column(len(input_table))
+            )
+            return table
+        msg = "Numpy table should be of format `x, y` or `x, y, class`."
+        raise ValueError(msg)
+    msg = "File type not supported."
+    raise TypeError(msg)

@@ -1,11 +1,21 @@
-"""TIFF parsing, block decoding and a deflate pyramid writer (counterpart of ``tiatoolbox_tpu/wsicore/tiffio.py``).
+"""TIFF parsing, block decoding and a pyramid writer (counterpart of ``tiatoolbox_tpu/wsicore/tiffio.py``).
 
 ``TiffFile`` (:214) parses classic and BigTIFF files of either byte order
-and decodes tiled or stripped pages that are uncompressed, deflate
-(``zlib``), PackBits or LZW (the pure-Python decoders ``_packbits_decode``
-:196 and ``_lzw_decode`` :151), as the block decode at :386-460 does.
-JPEG and JPEG 2000 tiles raise: this port carries no image codec.
-``TiffPyramidWriter`` (:670-800) writes deflate tiles only.
+and decodes tiled or stripped pages, as the block decode at :386-460 does:
+uncompressed, deflate (``zlib``), PackBits and LZW (the port's C++ in
+``csrc/lzw.cpp``; on a malformed stream the pure-Python decoders
+``_packbits_decode`` :196 and ``_lzw_decode`` :151), and JPEG with the
+page's shared JPEGTables merged in (``_merge_jpeg_tables`` :132), through
+the port's own baseline decoder (``csrc/jpegdec.cpp``, libjpeg-turbo's
+pixels bit for bit) where JAX calls ``cv2.imdecode``. The tiles a region
+touches decode in one threaded native batch (``_batch_decode_tiles``
+:460-518), and ``prefetch_regions`` (:520-545) decodes the union of many
+regions' tiles at once into the tile cache. JPEG 2000 tiles raise.
+``TiffPyramidWriter`` (:670-800) writes JPEG tiles (the port's encoder,
+``csrc/jpegenc.cpp``, the stream ``cv2.imencode`` writes) or deflate tiles.
+
+``decode_counts`` counts the JPEG tiles decoded by native batches and one
+at a time, over every file of the process.
 """
 
 from __future__ import annotations
@@ -20,6 +30,8 @@ from dataclasses import dataclass, field
 from pathlib import Path
 
 import numpy as np
+
+from tiatoolbox_tpu_torch import native
 
 # TIFF tag ids used here.
 TAG_NEW_SUBFILE_TYPE = 254
@@ -43,6 +55,7 @@ TAG_TILE_LENGTH = 323
 TAG_TILE_OFFSETS = 324
 TAG_TILE_BYTE_COUNTS = 325
 TAG_SAMPLE_FORMAT = 339
+TAG_JPEG_TABLES = 347
 
 COMPRESSION_NONE = 1
 COMPRESSION_LZW = 5
@@ -91,6 +104,7 @@ class TiffPage:
     offsets: tuple = ()
     byte_counts: tuple = ()
     description: str = ""
+    jpeg_tables: bytes | None = None
     subfile_type: int = 0
     x_resolution: float | None = None
     y_resolution: float | None = None
@@ -119,6 +133,41 @@ class TiffPage:
         if self.is_tiled:
             return -(-self.height // self.tile_length)
         return -(-self.height // max(self.rows_per_strip, 1))
+
+
+_counts_lock = threading.Lock()
+decode_counts = {"batch": 0, "single": 0}
+
+
+def _count_decoded(path: str, n: int) -> None:
+    with _counts_lock:
+        decode_counts[path] += n
+
+
+def reset_decode_counts() -> None:
+    """Set both JPEG tile counts of ``decode_counts`` to 0."""
+    with _counts_lock:
+        for key in decode_counts:
+            decode_counts[key] = 0
+
+
+def _merge_jpeg_tables(tables: bytes, data: bytes) -> bytes:
+    """Insert shared JPEGTables segments into an abbreviated JPEG stream.
+
+    TIFF/EP stores quantisation+huffman tables once (tag 347) and each
+    tile is an abbreviated stream. The merged stream is
+    SOI + tables-body + tile-body (both stripped of SOI/EOI).
+    """
+    if not tables or len(tables) < 4:
+        return data
+    body = tables
+    if body[:2] == b"\xff\xd8":
+        body = body[2:]
+    if body[-2:] == b"\xff\xd9":
+        body = body[:-2]
+    if data[:2] == b"\xff\xd8":
+        return b"\xff\xd8" + body + data[2:]
+    return b"\xff\xd8" + body + data
 
 
 def _lzw_decode(data: bytes) -> bytes:
@@ -318,6 +367,7 @@ class TiffFile:
         page.sample_format = int(self._as_tuple(sf)[0])
         page.subfile_type = int(tags.get(TAG_NEW_SUBFILE_TYPE, 0))
         page.description = tags.get(TAG_IMAGE_DESCRIPTION, "") or ""
+        page.jpeg_tables = tags.get(TAG_JPEG_TABLES)
         if page.is_tiled:
             page.offsets = self._as_tuple(tags.get(TAG_TILE_OFFSETS, ()))
             page.byte_counts = self._as_tuple(tags.get(TAG_TILE_BYTE_COUNTS, ()))
@@ -370,32 +420,142 @@ class TiffFile:
             return np.zeros((h, w, spp), dtype=page.dtype)
         data = self._read(page.offsets[idx], page.byte_counts[idx])
         comp = page.compression
-        if comp == COMPRESSION_NONE:
-            raw = data
-        elif comp in (COMPRESSION_DEFLATE, COMPRESSION_DEFLATE_ADOBE):
-            raw = zlib.decompress(data)
-        elif comp == COMPRESSION_PACKBITS:
-            raw = _packbits_decode(data)
-        elif comp == COMPRESSION_LZW:
-            raw = _lzw_decode(data)
-        elif comp in (
-            COMPRESSION_JPEG,
-            COMPRESSION_APERIO_J2K_YCBCR,
-            COMPRESSION_APERIO_J2K_RGB,
-        ):
-            msg = f"JPEG/JPEG 2000 TIFF tiles are not supported (compression {comp})."
+        if comp == COMPRESSION_JPEG:
+            stream = _merge_jpeg_tables(page.jpeg_tables or b"", data)
+            try:
+                arr = native.decode_jpeg(stream)
+            except native.JpegDecodeError as exc:
+                msg = f"JPEG decode failed for block {idx} of page {page.index}: {exc.reason}"
+                raise ValueError(msg) from exc
+            _count_decoded("single", 1)
+            if arr.shape[2] == 1 and spp == 3:
+                arr = np.repeat(arr, 3, axis=2)
+        elif comp in (COMPRESSION_APERIO_J2K_YCBCR, COMPRESSION_APERIO_J2K_RGB):
+            msg = f"JPEG 2000 TIFF tiles are not supported (compression {comp})."
             raise ValueError(msg)
         else:
-            msg = f"Unsupported TIFF compression: {comp}"
-            raise ValueError(msg)
-        arr = np.frombuffer(raw, dtype=page.dtype)
-        expect = h * w * spp
-        if arr.size < expect:  # short final strip
-            arr = np.pad(arr, (0, expect - arr.size))
-        arr = arr[:expect].reshape(h, w, spp)
-        if page.raw_tags.get(317) == 2:  # horizontal differencing predictor
-            arr = np.cumsum(arr, axis=1, dtype=np.uint64).astype(page.dtype)
+            if comp == COMPRESSION_NONE:
+                raw = data
+            elif comp in (COMPRESSION_DEFLATE, COMPRESSION_DEFLATE_ADOBE):
+                raw = zlib.decompress(data)
+            elif comp in (COMPRESSION_PACKBITS, COMPRESSION_LZW):
+                native_fn, python_fn = (
+                    (native.packbits_decode, _packbits_decode)
+                    if comp == COMPRESSION_PACKBITS
+                    else (native.lzw_decode, _lzw_decode)
+                )
+                expected = h * w * spp * np.dtype(page.dtype).itemsize
+                raw = native_fn(data, expected)
+                if raw is None:  # malformed or overflowing: the Python decoder, as JAX
+                    raw = python_fn(data)
+            else:
+                msg = f"Unsupported TIFF compression: {comp}"
+                raise ValueError(msg)
+            arr = np.frombuffer(raw, dtype=page.dtype)
+            expect = h * w * spp
+            if arr.size < expect:  # short final strip
+                arr = np.pad(arr, (0, expect - arr.size))
+            arr = arr[:expect].reshape(h, w, spp)
+            if page.raw_tags.get(317) == 2:  # horizontal differencing predictor
+                arr = np.cumsum(arr, axis=1, dtype=np.uint64).astype(page.dtype)
+        # a JPEG stream may hold more or fewer pixels than the block: crop/pad
+        if arr.shape[0] != h or arr.shape[1] != w:
+            out = np.zeros((h, w, arr.shape[2]), dtype=arr.dtype)
+            ch, cw = min(h, arr.shape[0]), min(w, arr.shape[1])
+            out[:ch, :cw] = arr[:ch, :cw]
+            arr = out
         return arr
+
+    def _batch_decode_tiles(
+        self, page: TiffPage, ix0: int, iy0: int, ix1: int, iy1: int
+    ) -> dict[int, np.ndarray] | None:
+        """Decode all JPEG tiles of a region at once with the native decoder.
+
+        Returns {tile_index: array}, or None where the page is not JPEG (the
+        caller then decodes tile by tile).
+        """
+        if page.compression != COMPRESSION_JPEG or page.samples_per_pixel not in (1, 3):
+            return None
+        tw, tl = page.tile_width, page.tile_length
+        ta = page.tiles_across
+        indices = [
+            ty * ta + tx
+            for ty in range(iy0 // tl, (iy1 - 1) // tl + 1)
+            for tx in range(ix0 // tw, (ix1 - 1) // tw + 1)
+        ]
+        return self._batch_decode_indices(page, indices)
+
+    def _batch_decode_indices(
+        self, page: TiffPage, indices
+    ) -> dict[int, np.ndarray] | None:
+        """Decode the given tile indices in one native batch (cached).
+
+        Fewer than 2 uncached tiles are left to the per-tile path.
+
+        Raises:
+            ValueError: a tile cannot be decoded; the message names it.
+        """
+        if page.compression != COMPRESSION_JPEG or page.samples_per_pixel not in (1, 3):
+            return None
+        tw, tl = page.tile_width, page.tile_length
+        cached = {}
+        for i in indices:
+            tile = self._cache_get((page.index, i))
+            if tile is not None:
+                cached[i] = tile
+        indices = [
+            i
+            for i in indices
+            if i not in cached
+            and i < len(page.offsets)
+            and page.byte_counts[i] > 0
+        ]
+        if len(indices) < 2:  # not worth the batch setup
+            return cached or None
+        streams = [
+            _merge_jpeg_tables(
+                page.jpeg_tables or b"",
+                self._read(page.offsets[i], page.byte_counts[i]),
+            )
+            for i in indices
+        ]
+        try:
+            decoded = native.decode_jpeg_batch(streams, tl, tw, out_ch=page.samples_per_pixel)
+        except native.JpegDecodeError as exc:
+            msg = f"JPEG decode failed for block {indices[exc.index]} of page {page.index}: {exc.reason}"
+            raise ValueError(msg) from exc
+        _count_decoded("batch", len(indices))
+        result = dict(cached)
+        for k, idx in enumerate(indices):
+            tile = decoded[k]
+            result[idx] = tile
+            self._cache_put((page.index, idx), tile)
+        return result
+
+    def prefetch_regions(self, page_index: int, bounds_list) -> None:
+        """Batch-decode the JPEG tiles covering many regions at once.
+
+        ``bounds_list``: iterable of (x0, y0, x1, y1) in page pixels. The
+        union of touched tiles decodes in one threaded native call; later
+        ``read_region`` calls hit the cache. No-op for non-JPEG pages.
+        """
+        page = self.pages[page_index]
+        if page.compression != COMPRESSION_JPEG or not page.tile_width:
+            return
+        tw, tl = page.tile_width, page.tile_length
+        ta = page.tiles_across
+        wanted: set[int] = set()
+        for x0, y0, x1, y1 in bounds_list:
+            x0 = max(int(x0), 0)
+            y0 = max(int(y0), 0)
+            x1 = min(int(np.ceil(x1)), page.width)
+            y1 = min(int(np.ceil(y1)), page.height)
+            if x1 <= x0 or y1 <= y0:
+                continue
+            for ty in range(y0 // tl, (y1 - 1) // tl + 1):
+                for tx in range(x0 // tw, (x1 - 1) // tw + 1):
+                    wanted.add(ty * ta + tx)
+        self._batch_decode_indices(page, sorted(wanted))
 
     def read_region(
         self,
@@ -426,10 +586,14 @@ class TiffFile:
         if page.is_tiled:
             tw, tl = page.tile_width, page.tile_length
             ta = page.tiles_across
+            tile_cache = self._batch_decode_tiles(page, ix0, iy0, ix1, iy1)
             for ty in range(iy0 // tl, (iy1 - 1) // tl + 1):
                 for tx in range(ix0 // tw, (ix1 - 1) // tw + 1):
                     idx = ty * ta + tx
-                    tile = self._decode_block(page, idx, (tl, tw))
+                    if tile_cache is not None and idx in tile_cache:
+                        tile = tile_cache[idx]
+                    else:
+                        tile = self._decode_block(page, idx, (tl, tw))
                     tx0, ty0_ = tx * tw, ty * tl
                     sx0, sy0 = max(ix0 - tx0, 0), max(iy0 - ty0_, 0)
                     sx1 = min(ix1 - tx0, tw)
@@ -515,10 +679,12 @@ class TiffFile:
 
 
 class TiffPyramidWriter:
-    """Write a tiled pyramidal TIFF with deflate tiles (classic, little-endian).
+    """Write a tiled pyramidal TIFF (classic, little-endian), ``tiffio.py:670-800``.
 
-    Each level is one IFD; level 0 carries the description and resolution
-    tags (``tiffio.py:670-800`` with ``compression="deflate"``).
+    Tiles are JPEG (``compression="jpeg"``, the default, at
+    ``jpeg_quality``; RGB uint8 only, as ``cv2.imencode`` of a BGR tile is
+    in JAX) or deflate (``"deflate"``). Each level is one IFD; level 0
+    carries the description and resolution tags.
     """
 
     def __init__(
@@ -527,14 +693,25 @@ class TiffPyramidWriter:
         tile_size: int = 256,
         description: str = "",
         mpp: tuple[float, float] | None = None,
+        compression: str = "jpeg",
+        jpeg_quality: int = 90,
     ) -> None:
+        if compression not in ("jpeg", "deflate"):
+            msg = f"compression must be 'jpeg' or 'deflate', got {compression!r}."
+            raise ValueError(msg)
         self.path = Path(path)
         self.tile_size = tile_size
         self.description = description
         self.mpp = mpp
+        self.compression = compression
+        self.jpeg_quality = jpeg_quality
 
-    @staticmethod
-    def _encode_tile(tile: np.ndarray) -> bytes:
+    def _encode_tile(self, tile: np.ndarray) -> bytes:
+        if self.compression == "jpeg":
+            if tile.dtype != np.uint8 or tile.shape[2] != 3:
+                msg = f"JPEG tiles are RGB uint8, got {tile.shape[2]} channels of {tile.dtype}."
+                raise ValueError(msg)
+            return native.encode_jpeg(tile, self.jpeg_quality)
         return zlib.compress(np.ascontiguousarray(tile).tobytes(), 6)
 
     def write(self, images: list[np.ndarray]) -> None:
@@ -599,8 +776,8 @@ class TiffPyramidWriter:
             entries.append((tag, ftype, len(values), payload))
 
         bits = int(np.dtype(dtype).itemsize * 8)
-        comp = COMPRESSION_DEFLATE_ADOBE
-        photometric = 2 if c == 3 else 1
+        comp = COMPRESSION_JPEG if self.compression == "jpeg" else COMPRESSION_DEFLATE_ADOBE
+        photometric = 6 if self.compression == "jpeg" else (2 if c == 3 else 1)
         add(TAG_NEW_SUBFILE_TYPE, 4, 0 if level == 0 else 1)
         add(TAG_IMAGE_WIDTH, 4, w)
         add(TAG_IMAGE_LENGTH, 4, h)

@@ -5,7 +5,9 @@
 ``slide_thumbnail`` and ``tissue_mask`` (:534). Concrete readers:
 
 - ``VirtualWSIReader`` (:616): an ndarray as a slide, with virtual scaling;
-- ``TIFFWSIReader`` (:783): tiled pyramidal TIFF through the port's ``tiffio``.
+- ``TIFFWSIReader`` (:783): tiled pyramidal TIFF through the port's ``tiffio``,
+  with ``prefetch_bounds`` (:977-986), which decodes the JPEG tiles of many
+  bounds in one threaded native batch.
 
 Reads return RGB as stored: multiplex post-processing is not ported.
 """
@@ -613,3 +615,12 @@ class TIFFWSIReader(WSIReader):
         return self.tiff.read_region(
             page_index, tuple(int(v) for v in location), tuple(int(v) for v in size)
         )
+
+    def prefetch_bounds(self, bounds_list, resolution, units) -> None:
+        """Decode every JPEG tile that the given baseline-frame bounds touch,
+        in one threaded native batch (``TiffFile.prefetch_regions``), at the
+        level that reads at ``resolution``; later reads hit the tile cache."""
+        level, _scale = self._find_optimal_level_and_downsample(resolution, units)
+        ds = self.info.level_downsamples[level]
+        level_bounds = [tuple(np.asarray(b, float) / ds) for b in bounds_list]
+        self.tiff.prefetch_regions(self._level_pages[level], level_bounds)
