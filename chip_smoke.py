@@ -39,7 +39,20 @@ temporary directory, and drives the port's entry points on them:
   with the packed foreground/type plane and the watershed energy computed
   on the card, the per-patch feed with the Otsu mask, and tile mode with
   the host Sobel front-end; the watershed and contours run on the host in
-  the port's C++.
+  the port's C++;
+- "outputs", the engines' writers: phase B's, C's and D's results saved as
+  zarr, an SQLite AnnotationStore, QuPath JSON (B, D) and an OME-TIFF
+  heatmap (C), each read back with the port's readers (zarr arrays bit for
+  bit, one box a patch, one polygon an instance, the heatmap's level 0 bit
+  for bit), with each writer's seconds and bytes and SQLite's compile
+  options (the R*Tree module is required), then one
+  run(output_type="annotationstore", save_dir=...) each for C and D;
+- "spill", the host canvas with the device canvas refused: phase C's engine
+  on its slide and phase D's on bench config 5's 2048x1536 slide, each in
+  RAM (memory_threshold 1.0) and spilled to zarr under save_dir/cache
+  (0.0): the spilled result equals the RAM run's bit for bit, C's map is
+  within 1e-6 of its device-canvas run, the cache is gone after each run,
+  and no canvas kernel launches.
 
 Each phase prints one JSON line. The stain kernel is held against its plain
 PyTorch version on the card (main-path batch, all 2^24 RGB colours, ragged
@@ -106,6 +119,9 @@ from tiatoolbox_tpu_torch.ops.stain import (  # noqa: E402
 from tiatoolbox_tpu_torch.parallel import BatchLoader  # noqa: E402
 from tiatoolbox_tpu_torch.tools.patchextraction import get_patch_extractor  # noqa: E402
 from tiatoolbox_tpu_torch.tools.stainnorm import get_normalizer  # noqa: E402
+from tiatoolbox_tpu_torch.annotation.storage import SQLiteStore  # noqa: E402
+from tiatoolbox_tpu_torch.models.engine.engine_abc import OUTPUT_SUFFIXES  # noqa: E402
+from tiatoolbox_tpu_torch.utils.zarrlite import open_zarr  # noqa: E402
 from tiatoolbox_tpu_torch.wsicore import tiffio  # noqa: E402
 from tiatoolbox_tpu_torch.wsicore.wsireader import WSIReader  # noqa: E402
 
@@ -131,6 +147,11 @@ FP32_OPS_PER_S = 67e12
 # 3 exp and about 40 other float32 operations.
 STAIN_BYTES_PER_PIX = 6
 STAIN_OPS_PER_PIX = 46
+
+
+# what phases B, C and D hand to the "outputs" and "spill" phases: each
+# phase's engine, slide, ioconfig and processed result
+KEPT: dict[str, dict] = {}
 
 
 def emit(obj: dict) -> None:
@@ -596,6 +617,7 @@ def phase_predict(slide: Path, card: str) -> None:
     seconds = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated()
 
+    KEPT["B"] = {"engine": predictor, "slide": slide, "ioconfig": ioconfig, "result": output}
     probs = output["probabilities"]
     check(len(probs) == len(expected), f"patch count {len(probs)} vs {len(expected)}")
     check(np.array_equal(output["coordinates"], expected.inputs), "patch coordinates")
@@ -658,6 +680,8 @@ def phase_predict(slide: Path, card: str) -> None:
             "card": card,
         }
     )
+    # kept for the outputs phase off the card, so later phases' peaks are their own
+    model.to("cpu")
 
 
 # -- phase C: whole-slide semantic segmentation ---------------------------------
@@ -837,7 +861,7 @@ def run_segment_path(
         "class_counts": np.bincount(preds.ravel(), minlength=5).tolist(),
         "card": card,
     }
-    return line, recorder, counts
+    return line, recorder, counts, result
 
 
 def _bound(n_bytes: float) -> float:
@@ -1116,9 +1140,10 @@ def phase_segment(tmp: Path, card: str) -> list[dict]:
     # batches of either run: at most one partial batch per band
     n_slots = -(-len(dataset) // SEG_BATCH) + len(plan.bands)
 
-    region, region_rec, region_counts = run_segment_path(
+    region, region_rec, region_counts, region_result = run_segment_path(
         model, slide, ioconfig, card, "device-canvas+region-feed", n_slots, auto_get_mask=False
     )
+    KEPT["C"] = {"model": model, "slide": slide, "ioconfig": ioconfig, "result": region_result}
     check(all(n > 0 for n in region_counts.values()), f"region-feed launches {region_counts}")
     # K2 and K3 against their plain versions on the run's first batch and
     # canvas, which then go, so the next run's peak is its own
@@ -1128,7 +1153,7 @@ def phase_segment(tmp: Path, card: str) -> list[dict]:
     normalize = check_normalize(region_rec.canvas, h, w)
     card_probs = region_rec.calls[0][0].numpy().copy()
     del region_rec
-    masked, masked_rec, masked_counts = run_segment_path(
+    masked, masked_rec, masked_counts, _ = run_segment_path(
         model, slide, ioconfig, card, "device-canvas", n_slots, min_mask_ratio=SEG_MIN_MASK_RATIO
     )
     check(
@@ -1223,6 +1248,7 @@ def phase_segment(tmp: Path, card: str) -> list[dict]:
             "card": card,
         }
     )
+    model.to("cpu")  # kept for the outputs and spill phases, off the card
     csrc = "tiatoolbox_tpu_torch/csrc/"
     return [
         kernel_row("scatter_accumulate", csrc + "canvas.cu", "tiatoolbox_tpu/ops/canvas.py:53",
@@ -1588,6 +1614,7 @@ def phase_instance(tmp: Path, card: str) -> tuple[list[dict], dict]:
         counts1["normalize_rows"] == 0 and all(n > 0 for k, n in counts1.items() if k != "normalize_rows"),
         f"region-feed launches {counts1}",
     )
+    KEPT["D"] = {"model": model, "slide": slide, "ioconfig": ioconfig, "instances": inst1}
     region.update(forward_ms_per_batch=forward_ms, setup_seconds=setup_seconds, slide_seconds=slide_seconds)
     region["stages"]["forward_estimate"] = {
         "seconds": forward_ms / 1e3 * -(-len(dataset) // INST_BATCH)
@@ -1728,6 +1755,7 @@ def phase_instance(tmp: Path, card: str) -> tuple[list[dict], dict]:
         name: {"launches": counts1[name] + counts2[name] + counts3[name], "max_abs_err": m["max_abs_err"]}
         for name, m in (("scatter_accumulate", scatter), ("normalize_rows", normalize), ("extract_patches", extract))
     }
+    model.to("cpu")  # kept for the outputs and spill phases, off the card
     csrc = "tiatoolbox_tpu_torch/csrc/"
     rows = [
         kernel_row("hv_energy", csrc + "hv_energy.cu", "tiatoolbox_tpu/ops/hv_energy.py:37",
@@ -1739,17 +1767,246 @@ def phase_instance(tmp: Path, card: str) -> tuple[list[dict], dict]:
     return rows, held
 
 
+# -- engine outputs and the zarr spill --------------------------------------------
+
+PREDICT_PATCHES = 266  # phase B's patches on its 4096x3072 slide
+SPILL_SLIDE_WH = (2048, 1536)  # bench config 5's slide, at 0.25 mpp
+SPILL_TOL_DEVICE = 1e-6  # the spilled map against phase C's device canvas
+
+
+def disk_bytes(path: Path) -> int:
+    path = Path(path)
+    if path.is_dir():
+        return sum(f.stat().st_size for f in path.rglob("*") if f.is_file())
+    return path.stat().st_size
+
+
+def all_counts() -> dict[str, int]:
+    """Launches of every canvas, band, energy and pack kernel since the last reset."""
+    return {name: fn.launches for name, fn in INST_KERNELS.items()}
+
+
+def reset_all_counts() -> None:
+    for fn in INST_KERNELS.values():
+        fn.launches = 0
+
+
+def write_each(engine, result: dict, kinds, out_dir: Path, stem: str, scale_factor) -> dict:
+    """``engine.save_predictions`` in each output type, as ``run`` names the
+    files; seconds and bytes of each writer."""
+    out_dir.mkdir(parents=True, exist_ok=True)
+    written = {}
+    for kind in kinds:
+        t0 = time.perf_counter()
+        path = engine.save_predictions(
+            result, kind, out_dir, output_file=f"{stem}{OUTPUT_SUFFIXES[kind]}", scale_factor=scale_factor
+        )
+        seconds = time.perf_counter() - t0
+        check(Path(path) == out_dir / f"{stem}{OUTPUT_SUFFIXES[kind]}", f"{kind} written to {path}")
+        written[kind] = {"path": Path(path), "seconds": seconds, "bytes": disk_bytes(path)}
+    return written
+
+
+def store_rows(path: Path) -> list:
+    store = SQLiteStore(path)
+    rows = sorted((a.geometry.to_wkb(), json.dumps(a.properties, sort_keys=True)) for a in store.values())
+    store.close()
+    return rows
+
+
+def qupath_features(path: Path) -> list:
+    return json.loads(Path(path).read_text())["features"]
+
+
+def timing(written: dict) -> dict:
+    return {k: {"seconds": v["seconds"], "bytes": v["bytes"]} for k, v in written.items()}
+
+
+def phase_outputs(tmp: Path, card: str) -> None:
+    """Each phase's result in every output type, read back with the port's
+    readers; one ``run(output_type="annotationstore", save_dir=...)`` each for
+    C and D through the engine."""
+    options = SQLiteStore.compile_options()
+    check("ENABLE_RTREE" in options, f"this Python's SQLite lacks the R*Tree module: {options}")
+    out = tmp / "outputs"
+    line: dict = {"phase": "outputs", "sqlite_compile_options": options}
+
+    # B: 266 patch predictions
+    kept = KEPT.pop("B")
+    engine, slide, result = kept["engine"], kept["slide"], kept["result"]
+    scale = engine._calculate_scale_factor(engine.get_dataloader(slide, ioconfig=kept["ioconfig"], patch_mode=False))
+    written = write_each(engine, result, ("zarr", "annotationstore", "qupath"), out / "B", slide.stem, scale)
+    group = open_zarr(written["zarr"]["path"])
+    for key in ("coordinates", "predictions", "probabilities"):
+        check(np.array_equal(np.asarray(group[key]), result[key]), f"B zarr {key} bit for bit")
+    n = len(result["predictions"])
+    check(n == PREDICT_PATCHES, f"B kept {n} patches, not {PREDICT_PATCHES}")
+    check(len(store_rows(written["annotationstore"]["path"])) == n, "B store holds one box a patch")
+    check(len(qupath_features(written["qupath"]["path"])) == n, "B QuPath JSON holds one feature a patch")
+    line["B"] = {"annotations": n, "scale_factor": list(scale), "writers": timing(written)}
+
+    # C: the region feed's probability map and class map
+    kept = KEPT["C"]
+    model, slide, ioconfig, result = kept["model"], kept["slide"], kept["ioconfig"], kept["result"]
+    seg = SemanticSegmentor(model, batch_size=SEG_BATCH, verbose=False)
+    scale = seg._calculate_scale_factor(seg.get_dataloader(slide, ioconfig=ioconfig, patch_mode=False))
+    written = write_each(seg, result, ("zarr", "annotationstore", "ome-tiff"), out / "C", slide.stem, scale)
+    group = open_zarr(written["zarr"]["path"])
+    t0 = time.perf_counter()
+    for key in ("probabilities", "predictions"):
+        check(np.array_equal(np.asarray(group[key]), result[key]), f"C zarr {key} bit for bit")
+    zarr_read_seconds = time.perf_counter() - t0
+    rows = store_rows(written["annotationstore"]["path"])
+    classes = {int(c) for c in np.unique(result["predictions"]) if c != 0}
+    types = {json.loads(props)["type"] for _, props in rows}
+    # a class seen only in specks of under 3 contour points has no polygon
+    check(len(rows) > 0 and types <= classes, f"C store classes {types} vs the map's {classes}")
+    level0 = tiffio.TiffFile(written["ome-tiff"]["path"])
+    page = level0.pages[0]
+    heat = level0.read_region(0, (0, 0), (page.width, page.height))
+    want = np.clip(result["probabilities"][..., 1] * 255.0, 0, 255).astype(np.uint8)
+    check(heat.shape == (*want.shape, 3) and all(np.array_equal(heat[..., c], want) for c in range(3)),
+          "C OME-TIFF level 0 bit for bit")
+    check("<OME" in page.description, "C OME-TIFF carries its OME-XML")
+    reset_all_counts()
+    t0 = time.perf_counter()
+    ran = seg.run([slide], patch_mode=False, ioconfig=ioconfig, auto_get_mask=False,
+                  output_type="annotationstore", save_dir=out / "C_run")[str(slide)]
+    run_seconds = time.perf_counter() - t0
+    run_counts = all_counts()
+    check(Path(ran) == out / "C_run" / f"{slide.stem}.db", f"C run wrote {ran}")
+    check(run_counts["scatter_accumulate"] > 0 and run_counts["extract_patches"] > 0, f"C run launches {run_counts}")
+    ran_rows = store_rows(ran)
+    check(abs(len(ran_rows) - len(rows)) <= 0.005 * len(rows),
+          f"C run's store holds {len(ran_rows)} polygons, save_predictions' {len(rows)}")
+    line["C"] = {
+        "polygons": len(rows), "classes": sorted(classes), "scale_factor": list(scale),
+        "writers": timing(written), "zarr_read_seconds": zarr_read_seconds,
+        "run_annotationstore": {"seconds": run_seconds, "polygons": len(ran_rows),
+                                "identical": ran_rows == rows, "launches": run_counts},
+    }
+    del group, heat, want, rows, ran_rows
+
+    # D: run 1's instances
+    kept = KEPT["D"]
+    model, slide, ioconfig, instances = kept["model"], kept["slide"], kept["ioconfig"], kept["instances"]
+    seg = MultiTaskSegmentor(model, batch_size=INST_BATCH, verbose=False)
+    scale = seg._calculate_scale_factor(seg.get_dataloader(slide, ioconfig=ioconfig, patch_mode=False))
+    result = {"instances": instances, "canvas_wh": INST_SLIDE_WH}
+    written = write_each(seg, result, ("zarr", "annotationstore", "qupath"), out / "D", slide.stem, scale)
+    n = len(instances)
+    check(len(open_zarr(written["zarr"]["path"]).attrs["instances"]) == n, "D zarr holds every instance")
+    check(len(store_rows(written["annotationstore"]["path"])) == n, "D store holds every instance")
+    check(len(qupath_features(written["qupath"]["path"])) == n, "D QuPath JSON holds every instance")
+    reset_all_counts()
+    t0 = time.perf_counter()
+    ran = seg.run([slide], patch_mode=False, ioconfig=ioconfig, auto_get_mask=False,
+                  output_type="annotationstore", save_dir=out / "D_run")[str(slide)]
+    run_seconds = time.perf_counter() - t0
+    run_counts = all_counts()
+    check(Path(ran) == out / "D_run" / f"{slide.stem}.db", f"D run wrote {ran}")
+    check(run_counts["pack_fg_tp"] > 0 and run_counts["hv_energy"] > 0, f"D run launches {run_counts}")
+    ran_n = len(store_rows(ran))
+    check(ran_n == n, f"D run's store holds {ran_n} instances, run 1 kept {n}")
+    line["D"] = {
+        "instances": n, "scale_factor": list(scale), "writers": timing(written),
+        "run_annotationstore": {"seconds": run_seconds, "instances": ran_n, "launches": run_counts},
+    }
+    line["card"] = card
+    emit(line)
+
+
+class HostCanvasSegmentor(SemanticSegmentor):
+    """The semantic engine with the device canvas refused: the host canvas path."""
+
+    def _device_canvas_budget_bytes(self) -> int:
+        return 0
+
+
+class HostCanvasMultiTask(MultiTaskSegmentor):
+    """The multitask engine with the device canvas refused: the host canvas path."""
+
+    def _device_canvas_budget_bytes(self) -> int:
+        return 0
+
+
+def spill_pair(engine, slide: Path, ioconfig, save_dir: Path) -> tuple[dict, dict, dict]:
+    """The host canvas in RAM (``memory_threshold=1.0``), then spilled to zarr
+    under ``save_dir/cache`` (``0.0``); each run's seconds, spilled bytes
+    and launches, counted from zero."""
+    runs = {}
+    for name, threshold, target in (("ram", 1.0, None), ("zarr", 0.0, save_dir)):
+        reset_all_counts()
+        t0 = time.perf_counter()
+        out = engine.run([slide], patch_mode=False, ioconfig=ioconfig, auto_get_mask=False,
+                         memory_threshold=threshold, save_dir=target)[str(slide)]
+        runs[name] = {"seconds": time.perf_counter() - t0, "spill_bytes": engine.spill_bytes,
+                      "launches": all_counts(), "path": engine.last_stage_summary["path"]}
+        runs[name]["output"] = out
+    check(runs["ram"]["spill_bytes"] == 0 and runs["zarr"]["spill_bytes"] > 0, "only the zarr run spills")
+    check(not (save_dir / "cache").exists(), "the spill's cache is removed")
+    for run in runs.values():
+        check(all(n == 0 for n in run["launches"].values()), f"the host canvas launches no kernel: {run['launches']}")
+    ram, spilled = runs["ram"].pop("output"), runs["zarr"].pop("output")
+    return ram, spilled, runs
+
+
+def instance_rows(instances: dict) -> list:
+    return sorted(
+        (np.asarray(v["contours"]).tolist(), np.asarray(v["box"]).tolist(), int(v["type"]), float(v["prob"]))
+        for v in instances.values()
+    )
+
+
+def phase_spill(tmp: Path, card: str) -> None:
+    """Phase C's engine, and phase D's on bench config 5's slide, with the
+    device canvas refused: the host canvas in RAM and spilled to zarr."""
+    kept = KEPT.pop("C")
+    seg = HostCanvasSegmentor(kept["model"], batch_size=SEG_BATCH, verbose=False)
+    ram, spilled, runs = spill_pair(seg, kept["slide"], kept["ioconfig"], tmp / "spill_C")
+    check(runs["zarr"]["path"] == "host-canvas", f"C spill path {runs['zarr']['path']}")
+    for key in ("probabilities", "predictions"):
+        check(np.array_equal(spilled[key], ram[key]), f"C spilled {key} == RAM run's, bit for bit")
+    device_diff = float(np.abs(spilled["probabilities"] - kept["result"]["probabilities"]).max())
+    check(device_diff <= SPILL_TOL_DEVICE, f"C spilled map vs the device canvas: {device_diff} > {SPILL_TOL_DEVICE}")
+    line = {"phase": "spill", "C": {**runs, "max_abs_diff_vs_device_canvas": device_diff,
+                                    "canvas_bytes": int(ram["probabilities"].nbytes)}}
+    del ram, spilled, kept
+
+    kept = KEPT.pop("D")
+    t0 = time.perf_counter()
+    slide = make_synthetic_slide(tmp / "config5.tiff", size=SPILL_SLIDE_WH, mpp=0.25, objective_power=40)
+    slide_seconds = time.perf_counter() - t0
+    seg = HostCanvasMultiTask(kept["model"], batch_size=INST_BATCH, verbose=False)
+    ram, spilled, runs = spill_pair(seg, slide, kept["ioconfig"], tmp / "spill_D")
+    check(runs["zarr"]["path"] == "multitask-host-stitch", f"D spill path {runs['zarr']['path']}")
+    n = len(ram["instances"])
+    check(n > 0 and instance_rows(spilled["instances"]) == instance_rows(ram["instances"]),
+          "D spilled instances == RAM run's")
+    line["D"] = {**runs, "instances": n, "slide_seconds": slide_seconds}
+    line["card"] = card
+    emit(line)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; nothing was run.", file=sys.stderr)
         return 1
+    t_start = time.perf_counter()
+    marks: dict[str, float] = {}
+
+    def mark(name: str) -> None:
+        marks[name] = time.perf_counter() - t_start
+
     card = phase_env()
     phase_build()
+    mark("build")
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         jpeg_slide = phase_jpeg(Path(tmp), card)
         phase_mask_extract(Path(tmp), card)
         phase_predict_jpeg(jpeg_slide, card)
         jpeg_slide.unlink()
+        mark("jpeg_phases")
         # Peak allocated bytes depend on which cached blocks the allocator
         # reuses (a block is not split below 1 MiB of slack), so phases A-D
         # start from an emptied cache, as they did before the JPEG phases.
@@ -1757,8 +2014,17 @@ def main() -> int:
         slide = phase_slide(Path(tmp))
         stain = phase_stain(slide)
         phase_predict(slide, card)
+        mark("A_B")
         segment = phase_segment(Path(tmp), card)
+        mark("C")
         instance, held = phase_instance(Path(tmp), card)
+        mark("D")
+        phase_outputs(Path(tmp), card)
+        mark("outputs")
+        phase_spill(Path(tmp), card)
+        mark("spill")
+    # seconds since the start at the end of each group of phases
+    emit({"phase": "timeline", "seconds_at_end": marks})
     # K2 to K4 run on phases C and D: their rows count both phases' launches
     # and the larger difference from the plain versions
     for row in segment:

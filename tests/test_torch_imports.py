@@ -7,7 +7,8 @@ module of ``tiatoolbox_tpu_torch`` and ``chip_smoke``, and runs the slices
 whole-slide patch classification, whole-slide semantic segmentation and
 whole-slide nucleus instance segmentation, which build and load the host
 C++ libraries: the JPEG codec of the slide's tiles, the watershed) on the
-CPU on a tiny JPEG slide.
+CPU on a tiny JPEG slide, and saves the results in every output type (the
+contour tracer's C++, sqlite3, the colour tables).
 """
 
 from __future__ import annotations
@@ -91,6 +92,15 @@ GUARDED_RUN = textwrap.dedent(
         seg = segmentor.run([slide], patch_mode=False, ioconfig=seg_io, auto_get_mask=False)
         assert seg[str(slide)]["predictions"].shape == (384, 512)
         assert segmentor.last_stage_summary["path"] == "device-canvas+region-feed"
+        # the writers: zarr, the AnnotationStore (the native contour tracer),
+        # QuPath JSON and the OME-TIFF heatmap (the colour tables)
+        for kind, name in (("zarr", "s.zarr"), ("annotationstore", "s.db"), ("qupath", "s.json"),
+                           ("ome-tiff", "s.ome.tiff")):
+            written = segmentor.save_predictions(seg[str(slide)], kind, tmp, output_file=name)
+            assert written.exists(), kind
+        from tiatoolbox_tpu_torch.utils.misc import write_probability_heatmap_as_ome_tiff
+
+        write_probability_heatmap_as_ome_tiff(f"{tmp}/jet.ome.tiff", seg[str(slide)]["probabilities"][..., 1], 2)
 
         from tiatoolbox_tpu_torch.models.architecture import get_pretrained_model
         from tiatoolbox_tpu_torch.models.architecture.hovernet_checkpoint import (
@@ -102,9 +112,13 @@ GUARDED_RUN = textwrap.dedent(
                                      objective_power=40, seed=5)
         hovernet, hv_io = get_pretrained_model("hovernet_fast-pannuke", device="cpu")
         hovernet.load_state_dict(functional_hovernet_state_dict())
-        nuclei = MultiTaskSegmentor(hovernet, batch_size=2, verbose=False, device="cpu").run(
-            [small], patch_mode=False, ioconfig=hv_io, auto_get_mask=False)
+        nuclei_engine = MultiTaskSegmentor(hovernet, batch_size=2, verbose=False, device="cpu")
+        nuclei = nuclei_engine.run([small], patch_mode=False, ioconfig=hv_io, auto_get_mask=False)
         assert len(nuclei[str(small)]["instances"]) > 0
+        from tiatoolbox_tpu_torch.annotation.storage import SQLiteStore
+
+        db = nuclei_engine.save_predictions(nuclei[str(small)], "annotationstore", tmp, output_file="nuclei.db")
+        assert len(SQLiteStore(db)) == len(nuclei[str(small)]["instances"])
 
     leaked = sorted(n for n in sys.modules if n.split(".")[0] in BLOCKED)
     assert not leaked, leaked

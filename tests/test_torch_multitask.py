@@ -249,6 +249,82 @@ def test_postproc_func_gets_the_raw_maps_as_in_jax(models, slide) -> None:
 
 
 def test_outputs_other_than_dict_raise(models) -> None:
+    # without a save_dir, and for patch mode's per-patch instances, as in JAX
     seg = MultiTaskSegmentor(models[1], device="cpu", verbose=False)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="save_dir"):
         seg.save_predictions({"instances": {}}, "annotationstore")
+    with pytest.raises(ValueError, match="Patch-mode"):
+        seg.save_predictions({"instances": [{}]}, "zarr", save_dir=".")
+
+
+def _instance_rows(instances: dict) -> list:
+    """Instances by content: contour, box, type and prob, sorted (keys are uuid4)."""
+    return sorted(
+        (np.asarray(v["contours"]).tolist(), np.asarray(v["box"]).tolist(), v["type"], float(v["prob"]))
+        for v in instances.values()
+    )
+
+
+@pytest.mark.parametrize("kind", ["zarr", "annotationstore", "qupath"])
+def test_engine_outputs_match_jax(models, slide, tmp_path, kind: str) -> None:
+    """``run(output_type=...)`` writes JAX's file name, with JAX's instances."""
+    import json
+
+    from tiatoolbox_tpu_torch.annotation.storage import SQLiteStore
+    from tiatoolbox_tpu_torch.utils.zarrlite import open_zarr
+
+    jax_model, port = models
+    common = dict(patch_mode=False, auto_get_mask=False, output_type=kind)
+    want = JaxSegmentor(jax_model, batch_size=4, num_loader_workers=0, verbose=False).run(
+        [slide], ioconfig=JaxIOConfig(**IOCONFIG), save_dir=tmp_path / "jax", **common
+    )[slide]
+    got = MultiTaskSegmentor(port, batch_size=4, num_loader_workers=0, verbose=False, device="cpu").run(
+        [slide], ioconfig=IOInstanceSegmentorConfig(**IOCONFIG), save_dir=tmp_path / "port", **common
+    )[slide]
+    suffix = {"zarr": ".zarr", "annotationstore": ".db", "qupath": ".json"}[kind]
+    assert got == tmp_path / "port" / f"slide{suffix}"
+    assert Path(want).name == got.name
+    if kind == "zarr":
+        g, w = open_zarr(got).attrs["instances"], open_zarr(want).attrs["instances"]
+        rows_g, rows_w = _instance_rows(g), _instance_rows(w)
+    elif kind == "annotationstore":
+        def rows(path):
+            return sorted(
+                (a.geometry.to_wkb(), a.properties["type"], a.properties["prob"]) for a in SQLiteStore(path).values()
+            )
+
+        rows_g, rows_w = rows(got), rows(want)
+    else:
+        def rows(path):
+            feats = json.loads(Path(path).read_text())["features"]
+            return sorted(
+                (json.dumps(f["geometry"]), f["properties"]["classification"]["name"], f["properties"]["prob"])
+                for f in feats
+            )
+
+        rows_g, rows_w = rows(got), rows(want)
+    assert len(rows_g) == len(rows_w) > 20
+    for g_row, w_row in zip(rows_g, rows_w):
+        assert g_row[:-1] == w_row[:-1]
+        assert g_row[-1] == pytest.approx(w_row[-1], abs=1e-5)
+
+
+@pytest.mark.parametrize("tile_mode", [False, True])
+def test_host_canvas_spill_equals_ram(models, slide, tmp_path, tile_mode: bool) -> None:
+    """With a ``save_dir`` and ``memory_threshold=0`` the host canvases go to
+    zarr under ``save_dir/cache``; the instances equal the in-RAM run's (tile
+    mode reads the zarr canvases tile by tile), and the cache is removed."""
+    _, port = models
+    seg = MultiTaskSegmentor(port, batch_size=4, num_loader_workers=0, verbose=False, device="cpu")
+    seg._can_use_multihead_device_canvas = lambda *a, **k: False
+    if tile_mode:
+        seg.full_postproc_limit = 100_000
+        seg.tile_shape = (256, 256)
+    common = dict(patch_mode=False, ioconfig=IOInstanceSegmentorConfig(**IOCONFIG), auto_get_mask=False)
+    ram = seg.run([slide], memory_threshold=1.0, **common)[slide]
+    assert seg.spill_bytes == 0
+    spilled = seg.run([slide], memory_threshold=0.0, save_dir=tmp_path / "out", **common)[slide]
+    assert seg.last_stage_summary["path"] == "multitask-host-stitch" and seg.spill_bytes > 0
+    assert not (tmp_path / "out" / "cache").exists()
+    assert _instance_rows(spilled["instances"]) == _instance_rows(ram["instances"])
+    assert len(ram["instances"]) > 20

@@ -161,19 +161,29 @@ def test_patch_mode_matches_jax(models, slide: str) -> None:
     np.testing.assert_allclose(got["probabilities"], np.asarray(want["probabilities"]), atol=1e-4, rtol=0)
 
 
-def test_what_is_not_ported_raises(models, slide: str, monkeypatch) -> None:
+def test_what_is_not_ported_raises(models, slide: str, monkeypatch, tmp_path) -> None:
     _, port = models
     seg = SemanticSegmentor(port, batch_size=8, device="cpu", verbose=False)
     ioconfig = _ioconfigs(0.5, 64, 48)[1]
     with pytest.raises(NotImplementedError, match="yuv420"):
         seg.run([slide], patch_mode=False, ioconfig=ioconfig, auto_get_mask=False, band_wire="yuv420")
+    # outputs but "dict" need a save_dir, as in JAX
     with pytest.raises(ValueError, match="output_type"):
-        seg.run([slide], patch_mode=False, ioconfig=ioconfig, output_type="zarr")
-    with pytest.raises(NotImplementedError, match="output_type"):
+        seg.run([slide], patch_mode=False, ioconfig=ioconfig, output_type="zarr", band_wire="rgb")
+    with pytest.raises(ValueError, match="save_dir"):
         seg.save_predictions({}, "annotationstore")
+    # a host canvas over memory_threshold stays in RAM without a save_dir and
+    # spills to save_dir/cache with one (JAX's create_smart_array); the
+    # MemoryError the port raised before the spill was ported is gone
     seg.DEVICE_CANVAS_MAX_PIXELS = 1
-    monkeypatch.setattr(
-        "tiatoolbox_tpu_torch.models.engine.semantic_segmentor.free_ram_bytes", lambda: 1000
+    monkeypatch.setattr("tiatoolbox_tpu_torch.utils.zarrlite.free_ram_bytes", lambda: 1000)
+    in_ram = seg.run([slide], patch_mode=False, ioconfig=ioconfig, auto_get_mask=False)
+    assert seg.last_stage_summary == {"path": "host-canvas"} and seg.spill_bytes == 0
+    spilled = seg.run(
+        [slide], patch_mode=False, ioconfig=ioconfig, auto_get_mask=False, save_dir=tmp_path / "out"
     )
-    with pytest.raises(MemoryError, match="zarr spill"):
-        seg.run([slide], patch_mode=False, ioconfig=ioconfig, auto_get_mask=False)
+    assert seg.spill_bytes > 0
+    assert not (tmp_path / "out" / "cache").exists()
+    np.testing.assert_array_equal(
+        spilled[str(slide)]["probabilities"], in_ram[str(slide)]["probabilities"]
+    )

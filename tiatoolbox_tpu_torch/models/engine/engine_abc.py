@@ -4,8 +4,12 @@ Resolve the model and ioconfig, plan the patch grid, stream batches through
 the model on the device, post-process and return the outputs. Ported:
 ``EngineABC.run`` (:475), ``get_dataloader`` (:216), ``infer_patches``
 (:255) with its bounded window of unfetched device outputs, ``infer_wsi``
-(:346) and ``argmax_probabilities`` (:526), for ``output_type="dict"``.
-Zarr and annotation-store outputs are not ported yet. ``infer_patches``
+(:346), ``argmax_probabilities`` (:526), and the outputs:
+``prepare_engines_save_dir`` (:31-45), ``save_predictions`` (:362-412: dict,
+zarr, an SQLite ``AnnotationStore`` or QuPath JSON of the patch
+predictions), ``_calculate_scale_factor`` (:417-429, baseline over read
+resolution, so store coordinates are at baseline), and ``_run_wsi_mode``'s
+output names, ``<slide stem><suffix>`` (:442-473). ``infer_patches``
 keeps a ``StageTimer`` in ``stages`` after each run: the batch loader's
 "decode" (tile prefetch and patch reads, with "prefetch", the native tile
 decode, inside it) and "wire" (the copy to the device), and "infer", the
@@ -14,9 +18,11 @@ whole loop.
 
 from __future__ import annotations
 
+import shutil
 import time
 from abc import ABC
 from collections import deque
+from pathlib import Path
 
 import numpy as np
 
@@ -26,6 +32,30 @@ from tiatoolbox_tpu_torch.models.engine.io_config import ModelIOConfigABC
 from tiatoolbox_tpu_torch.models.models_abc import ModelABC
 from tiatoolbox_tpu_torch.parallel import BatchLoader
 from tiatoolbox_tpu_torch.utils.profiling import StageTimer
+
+# output file suffix of a slide's result, by output type (JAX :455-461)
+OUTPUT_SUFFIXES = {
+    "zarr": ".zarr",
+    "annotationstore": ".db",
+    "qupath": ".json",
+    "ome-tiff": ".ome.tiff",
+    "ome_tiff": ".ome.tiff",
+}
+
+
+def prepare_engines_save_dir(save_dir, *, patch_mode: bool, overwrite: bool = False) -> Path | None:  # noqa: ARG001
+    """Create the engine's output directory, or refuse an existing one unless
+    ``overwrite`` (JAX :31-45); None without a ``save_dir``."""
+    if save_dir is None:
+        return None
+    save_dir = Path(save_dir)
+    if save_dir.exists() and not overwrite:
+        msg = f"save_dir already exists: {save_dir}. Set overwrite=True."
+        raise FileExistsError(msg)
+    if save_dir.exists() and overwrite:
+        shutil.rmtree(save_dir)
+    save_dir.mkdir(parents=True, exist_ok=True)
+    return save_dir
 
 
 class EngineABC(ABC):
@@ -70,6 +100,9 @@ class EngineABC(ABC):
         self.auto_get_mask = True
         self.return_labels = False
         self.output_type = "dict"
+        self.scale_factor = (1.0, 1.0)
+        self.class_dict: dict | None = None
+        self.output_file: str | None = None
         self.wsireader_kwargs: dict = {}
         # Device outputs left unfetched while later batches are dispatched;
         # bounds device memory to O(window) batch outputs.
@@ -101,8 +134,12 @@ class EngineABC(ABC):
         "min_mask_ratio",
         "auto_get_mask",
         "return_labels",
+        "scale_factor",
+        "class_dict",
+        "verbose",
         "device",
         "num_workers",
+        "output_file",
         "wsireader_kwargs",
         "max_inflight_batches",
     )
@@ -258,20 +295,101 @@ class EngineABC(ABC):
         """Hook: transform raw WSI outputs (default passthrough)."""
         return raw_predictions
 
-    def _run_patch_mode(self) -> dict:
-        dataloader = self.get_dataloader(
-            images=self.images, labels=self.labels, patch_mode=True
-        )
-        return self.post_process_patches(self.infer_patches(dataloader))
+    def save_predictions(
+        self,
+        processed_predictions: dict,
+        output_type: str,
+        save_dir: Path | None = None,
+        output_file: str | None = None,
+        **kwargs,
+    ):
+        """Return the dict, or write it as zarr, an AnnotationStore ``.db`` or
+        QuPath JSON under ``save_dir`` and return the path (:362-412).
 
-    def _run_wsi_mode(self) -> dict:
+        ``scale_factor`` (keyword) maps patch coordinates to baseline for the
+        store; ``class_dict`` names the classes.
+        """
+        kind = output_type.lower()
+        if save_dir is None and kind != "dict":
+            msg = f"`save_dir` must be provided for output_type={output_type}."
+            raise ValueError(msg)
+        if kind == "dict":
+            return processed_predictions
+        if kind == "zarr":
+            from tiatoolbox_tpu_torch.utils.zarrlite import ZarrGroup
+
+            out_path = Path(save_dir) / (output_file or "output.zarr")
+            group = ZarrGroup.create(out_path)
+            for key, value in processed_predictions.items():
+                arr = np.asarray(value)
+                if arr.dtype == object:
+                    arr = arr.astype("U")
+                if arr.dtype.kind in "USO":
+                    group.attrs = {**group.attrs, key: arr.tolist()}
+                else:
+                    group.from_array(key, arr)
+            return out_path
+        if kind in ("annotationstore", "qupath"):
+            from tiatoolbox_tpu_torch.utils.store_conversion import (
+                dict_to_store_patch_predictions,
+                store_to_qupath_json,
+            )
+
+            scale_factor = kwargs.get("scale_factor", self.scale_factor)
+            if kind == "qupath":
+                store = dict_to_store_patch_predictions(
+                    processed_predictions, scale_factor=scale_factor, class_dict=self.class_dict
+                )
+                return store_to_qupath_json(store, Path(save_dir) / (output_file or "output.json"))
+            return dict_to_store_patch_predictions(
+                processed_predictions,
+                scale_factor=scale_factor,
+                class_dict=self.class_dict,
+                save_path=Path(save_dir) / (output_file or "output.db"),
+            )
+        msg = f"Unsupported output_type: {output_type}"
+        raise ValueError(msg)
+
+    def _calculate_scale_factor(self, dataloader: BatchLoader) -> tuple[float, float]:
+        """Baseline over read resolution, for store coordinates (:417-429)."""
+        dataset = dataloader.dataset
+        if not isinstance(dataset, WSIPatchDataset):
+            return (1.0, 1.0)
+        reader = dataset.reader
+        baseline_wh = np.array(reader.info.slide_dimensions, dtype=float)
+        read_wh = np.array(reader.slide_dimensions(dataset.resolution, dataset.units), dtype=float)
+        return tuple(baseline_wh / read_wh)
+
+    def _run_patch_mode(self, output_type: str, save_dir: Path | None, **kwargs):
+        dataloader = self.get_dataloader(images=self.images, labels=self.labels, patch_mode=True)
+        # a store needs each patch's box (:436)
+        need_coords = output_type.lower() in ("annotationstore", "qupath")
+        processed = self.post_process_patches(
+            self.infer_patches(dataloader, return_coordinates=need_coords)
+        )
+        return self.save_predictions(
+            processed, output_type, save_dir, output_file=self.output_file, **kwargs
+        )
+
+    def _run_wsi_mode(self, output_type: str, save_dir: Path | None, **kwargs):
         results = {}
         masks = self.masks if self.masks is not None else [None] * len(self.images)
+        suffix = OUTPUT_SUFFIXES.get(output_type.lower(), "")
         for idx, image in enumerate(self.images):
             dataloader = self.get_dataloader(
                 images=image, masks=masks[idx], ioconfig=self._ioconfig, patch_mode=False
             )
-            results[str(image)] = self.post_process_wsi(self.infer_wsi(dataloader))
+            scale_factor = self._calculate_scale_factor(dataloader)
+            processed = self.post_process_wsi(self.infer_wsi(dataloader))
+            output_file = self.output_file or (f"{Path(str(image)).stem}{suffix}" if suffix else None)
+            results[str(image)] = self.save_predictions(
+                processed,
+                output_type,
+                save_dir,
+                output_file=output_file,
+                scale_factor=scale_factor,
+                **kwargs,
+            )
         return results
 
     def run(
@@ -282,9 +400,11 @@ class EngineABC(ABC):
         ioconfig: ModelIOConfigABC | None = None,
         *,
         patch_mode: bool = True,
+        save_dir=None,
+        overwrite: bool = False,
         output_type: str = "dict",
         **kwargs,
-    ) -> dict:
+    ):
         """Run inference on patches (``patch_mode``) or whole slides.
 
         Args:
@@ -294,15 +414,16 @@ class EngineABC(ABC):
             labels: Per-patch labels (patch mode, returned with ``return_labels``).
             ioconfig: Override I/O config.
             patch_mode: Patch batches or whole slides.
-            output_type: "dict" (the only output the port writes so far).
+            save_dir: Output directory, needed for every output but "dict".
+            overwrite: Replace an existing ``save_dir``.
+            output_type: "dict", "zarr", "annotationstore" or "qupath"
+                ("ome-tiff" too for the semantic segmentor).
             **kwargs: Run-parameter overrides (batch_size, device, ...).
 
         Returns:
-            Patch mode: dict of outputs. WSI mode: {slide: dict of outputs}.
+            Patch mode: the dict, or the written path. WSI mode: {slide: the
+            dict, or the path of ``<slide stem><suffix>`` under ``save_dir``}.
         """
-        if output_type.lower() != "dict":
-            msg = f"Unsupported output_type: {output_type} (the port writes 'dict')."
-            raise ValueError(msg)
         dup_filter = DuplicateFilter()
         logger.addFilter(dup_filter)
         try:
@@ -312,13 +433,14 @@ class EngineABC(ABC):
             self.masks = masks
             self.labels = labels
             self.patch_mode = patch_mode
+            save_dir = prepare_engines_save_dir(save_dir, patch_mode=patch_mode, overwrite=overwrite)
             self.model.to(resolve_device(self.device))
             if not patch_mode:
                 self._update_ioconfig(ioconfig)
-                return self._run_wsi_mode()
+                return self._run_wsi_mode(output_type, save_dir)
             if self.ioconfig is None and ioconfig is not None:
                 self._ioconfig = ioconfig
-            return self._run_patch_mode()
+            return self._run_patch_mode(output_type, save_dir)
         finally:
             logger.removeFilter(dup_filter)
 

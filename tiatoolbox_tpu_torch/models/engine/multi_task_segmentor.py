@@ -21,8 +21,11 @@ needs:
   leaves in one copy.
 - **raw**: a canvas over ``full_postproc_limit`` (tile mode) or a caller
   that wants the maps leaves as the normalised ``[np, hv, tp]`` (K3).
-- **host canvas** (:111-206): a canvas over the device budget is added up
-  in RAM from each batch's fetched heads.
+- **host canvas** (:105-206): a canvas over the device budget is added up
+  from each batch's fetched heads, in RAM or, with a ``save_dir`` and
+  canvases over ``memory_threshold`` of free RAM, in zarr arrays under
+  ``save_dir/cache`` (``create_smart_array``); tile mode then reads them tile
+  by tile, and semantic task maps go the same way (:740-752).
 
 ``post_process_wsi`` (:449) runs the model's ``postproc`` on the whole map,
 or, above ``full_postproc_limit``, the reference's 4-pass tile scheme
@@ -30,18 +33,23 @@ or, above ``full_postproc_limit``, the reference's 4-pass tile scheme
 strips and cross-section tiles, each with removal flags, so every instance
 is owned by exactly one pass. Instances are keyed by ``uuid4``.
 
+``save_predictions`` (:811-875) writes the instances as an AnnotationStore
+(types named by the model's ``nuc_type_dict``), QuPath JSON, or a zarr
+group holding them as JSON attributes; patch mode keeps ``"dict"`` only.
+
 Not ported (TPU-only): the relay drains (``BlockDrain``, ``LazyRowsView``,
 ``fetch_chunked_async``) and ``drain_during_loop``; each plane is one
-device-to-pinned copy. Outputs other than ``"dict"`` raise, as the
-semantic segmentor's do.
+device-to-pinned copy.
 """
 
 from __future__ import annotations
 
+import json
 import os
 import time
 import uuid
 from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -49,12 +57,15 @@ import torch
 from tiatoolbox_tpu_torch import logger
 from tiatoolbox_tpu_torch.models.engine.semantic_segmentor import (
     SemanticSegmentor,
+    add_patches,
+    spill_bytes,
     to_pinned_host,
 )
 from tiatoolbox_tpu_torch.ops.canvas import DeviceCanvas, normalize_rows
 from tiatoolbox_tpu_torch.parallel import BatchLoader
 from tiatoolbox_tpu_torch.tools.patchextraction import PatchExtractor
 from tiatoolbox_tpu_torch.utils.profiling import StageTimer
+from tiatoolbox_tpu_torch.utils.zarrlite import ZarrArray, ZarrGroup
 
 
 class MultiTaskSegmentor(SemanticSegmentor):
@@ -119,11 +130,11 @@ class MultiTaskSegmentor(SemanticSegmentor):
         return self._infer_wsi_host_multihead(dataloader, canvas_wh, head_channels, coord_scale)
 
     def _infer_wsi_host_multihead(self, dataloader, canvas_wh, head_channels, coord_scale) -> dict:
-        """Fetch each batch's heads and add them into canvases in RAM (:111-206)."""
+        """Fetch each batch's heads and add them into canvases in RAM or zarr (:105-206)."""
         dataset = dataloader.dataset
         w, h = int(canvas_wh[0]), int(canvas_wh[1])
-        canvases = [self._host_array((h, w, c)) for c in head_channels]
-        count = self._host_array((h, w, 1))
+        canvases = [self._host_array((h, w, c), f"head{i}") for i, c in enumerate(head_channels)]
+        count = self._host_array((h, w, 1), "count")
         outputs_arr = dataset.outputs
         timer = StageTimer()
         t_loop = time.perf_counter()
@@ -135,6 +146,7 @@ class MultiTaskSegmentor(SemanticSegmentor):
                 heads = (heads,)
             heads = [head.to(wire).cpu().numpy().astype(np.float32) for head in heads]
             out_hw = heads[0].shape[1:3]
+            items = []
             for i, ds_idx in enumerate(batch["indices"][: batch["n_valid"]]):
                 oc = outputs_arr[ds_idx].astype(float)
                 # the model's output centred in its output grid cell
@@ -147,10 +159,9 @@ class MultiTaskSegmentor(SemanticSegmentor):
                 cx0, cy0 = max(x0, 0), max(y0, 0)
                 if cx1 <= cx0 or cy1 <= cy0:
                     continue
-                for canvas, head in zip(canvases, heads):
-                    patch = head[i][sy0 : sy0 + (cy1 - cy0), sx0 : sx0 + (cx1 - cx0)]
-                    canvas[cy0:cy1, cx0:cx1] = canvas[cy0:cy1, cx0:cx1] + patch
-                count[cy0:cy1, cx0:cx1] = count[cy0:cy1, cx0:cx1] + 1.0
+                patches = [head[i][sy0 : sy0 + (cy1 - cy0), sx0 : sx0 + (cx1 - cx0)] for head in heads]
+                items.append((cy0, cy1, cx0, cx1, patches))
+            add_patches(canvases, count, items, band_rows=2 * out_hw[0])
         timer.add("feed+forward+fetch+stitch", time.perf_counter() - t_loop)
         with timer.stage("normalize"):
             block = 2048
@@ -160,6 +171,7 @@ class MultiTaskSegmentor(SemanticSegmentor):
                     canvas[y0 : y0 + block] = canvas[y0 : y0 + block] / n
         summary = timer.summary()
         summary["path"] = "multitask-host-stitch"
+        self.spill_bytes = spill_bytes(*canvases, count)
         self._finish(summary)
         return {"head_maps": canvases, "canvas_wh": canvas_wh}
 
@@ -513,7 +525,7 @@ class MultiTaskSegmentor(SemanticSegmentor):
                 pred = np.asarray(task["predictions"])
                 name = task["task_type"]
                 if name not in semantic:
-                    semantic[name] = np.zeros((h, w), pred.dtype)
+                    semantic[name] = self._host_array((h, w), f"semantic_{name}", pred.dtype)
                 semantic[name][y0:y1, x0:x1] = pred[: y1 - y0, : x1 - x0]
         if not tile_instances:
             return
@@ -557,12 +569,75 @@ class MultiTaskSegmentor(SemanticSegmentor):
                 }
         return instances
 
-    def save_predictions(self, processed_predictions: dict, output_type: str, **kwargs):  # noqa: ARG002
-        """Return the dict output (:811); AnnotationStore, QuPath and zarr are not ported."""
-        if output_type.lower() != "dict":
-            msg = f"Unsupported output_type: {output_type} (the port writes 'dict')."
-            raise NotImplementedError(msg)
-        return processed_predictions
+    def save_predictions(
+        self,
+        processed_predictions: dict,
+        output_type: str,
+        save_dir=None,
+        output_file: str | None = None,
+        **kwargs,
+    ):
+        """Return the dict, or write the instances as an AnnotationStore,
+        QuPath JSON or zarr under ``save_dir`` and return the path (:811-875).
+
+        A dict's spilled semantic maps are read into RAM before their cache
+        is removed (JAX returns zarr arrays of the removed cache).
+        """
+        instances = processed_predictions.get("instances", {})
+        kind = output_type.lower()
+        if kind == "dict":
+            semantic = processed_predictions.get("semantic_predictions")
+            if semantic:
+                processed_predictions = {
+                    **processed_predictions,
+                    "semantic_predictions": {
+                        k: np.asarray(v) if isinstance(v, ZarrArray) else v for k, v in semantic.items()
+                    },
+                }
+            return processed_predictions
+        if isinstance(instances, list):  # patch mode: per-patch dicts
+            msg = (
+                "Patch-mode multi-task outputs support output_type='dict'; "
+                "merge or save per-patch instance dicts downstream."
+            )
+            raise ValueError(msg)
+        if save_dir is None:
+            msg = f"`save_dir` must be provided for output_type={output_type}."
+            raise ValueError(msg)
+        from tiatoolbox_tpu_torch.utils.store_conversion import (
+            dict_to_store_instance_segmentor,
+            store_to_qupath_json,
+        )
+
+        scale_factor = kwargs.get("scale_factor", (1.0, 1.0))
+        if kind == "annotationstore":
+            class_dict = getattr(self.model, "nuc_type_dict", None) or self.class_dict
+            return dict_to_store_instance_segmentor(
+                instances,
+                scale_factor=scale_factor,
+                class_dict=class_dict,
+                save_path=Path(save_dir) / (output_file or "output.db"),
+            )
+        if kind == "qupath":
+            store = dict_to_store_instance_segmentor(instances, scale_factor=scale_factor)
+            return store_to_qupath_json(store, Path(save_dir) / (output_file or "output.json"))
+        if kind == "zarr":
+            out_path = Path(save_dir) / (output_file or "output.zarr")
+            group = ZarrGroup.create(out_path)
+            serializable = {
+                key: {
+                    "box": np.asarray(info["box"]).tolist(),
+                    "centroid": np.asarray(info["centroid"]).tolist(),
+                    "contours": np.asarray(info["contours"]).tolist(),
+                    "prob": info["prob"],
+                    "type": int(info["type"]) if info["type"] is not None else None,
+                }
+                for key, info in instances.items()
+            }
+            group.attrs = {"instances": json.loads(json.dumps(serializable))}
+            return out_path
+        msg = f"Unsupported output_type: {output_type}"
+        raise ValueError(msg)
 
 
 class NucleusInstanceSegmentor(MultiTaskSegmentor):

@@ -10,6 +10,10 @@ back to another decoder.
   ``outer_contours``, the outer border of each instance of a label map, as
   ``cv2.findContours(RETR_TREE, CHAIN_APPROX_SIMPLE)[0][0]`` gives it on the
   instance's crop (``hovernet.py:555-558``).
+- ``csrc/contours.cpp``: ``find_contours_ccomp``, the contours and two-level
+  hierarchy of ``cv2.findContours(mask, RETR_CCOMP, CHAIN_APPROX_SIMPLE)``
+  (JAX's ``utils/store_conversion.py:82-117``): the same points, contour
+  order and hierarchy rows.
 - ``csrc/jpegdec.cpp``: ``decode_jpeg_batch`` (JAX :153-189), the baseline
   JPEG decoder on ``std::thread`` workers, and ``decode_jpeg``, one stream at
   its own size (the ``cv2.imdecode`` of JAX's ``tiffio.py:406-415``). Both
@@ -37,6 +41,7 @@ SOURCE = "watershed.cpp"
 JPEG_DECODER = "jpegdec.cpp"
 JPEG_ENCODER = "jpegenc.cpp"
 TIFF_CODECS = "lzw.cpp"
+CONTOURS = "contours.cpp"
 # JAX's batch decoder takes min(cpu_count, n, 16) threads (its __init__.py:168-169)
 MAX_DECODE_THREADS = 16
 
@@ -103,6 +108,53 @@ def outer_contours(labels: np.ndarray, ids, starts, areas) -> list[np.ndarray]:
         msg = "outer_contours: a contour exceeded its point capacity."
         raise RuntimeError(msg)
     return [points[a:b].copy() for a, b in zip(offsets[:-1], offsets[1:])]
+
+
+@functools.cache
+def _contours() -> ctypes.CDLL:
+    lib = _build.load(CONTOURS)
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int32
+    lib.ccomp_trace.argtypes = [ptr, i32, i32, ptr, ptr]
+    lib.ccomp_trace.restype = ptr
+    lib.ccomp_copy.argtypes = [ptr, ptr, ptr, ptr]
+    lib.ccomp_copy.restype = None
+    lib.ccomp_free.argtypes = [ptr]
+    lib.ccomp_free.restype = None
+    return lib
+
+
+def find_contours_ccomp(mask: np.ndarray) -> tuple[list[np.ndarray], np.ndarray]:
+    """Outer borders and holes of a binary mask, as ``cv2.findContours(mask,
+    RETR_CCOMP, CHAIN_APPROX_SIMPLE)`` gives them.
+
+    Returns:
+        The contours, each int32 ``[k, 2]`` (x, y) (cv2's ``[k, 1, 2]``
+        squeezed), and the hierarchy, int32 ``[n, 4]`` rows of (next,
+        previous, first child, parent), -1 for none (cv2's ``hierarchy[0]``).
+
+    Raises:
+        MemoryError: the tracer ran out of memory.
+    """
+    mask8 = np.ascontiguousarray(np.asarray(mask) != 0, np.uint8)
+    if mask8.ndim != 2:
+        msg = f"mask must be 2-D, got shape {mask8.shape}."
+        raise ValueError(msg)
+    lib = _contours()
+    n_contours, n_points = ctypes.c_int64(0), ctypes.c_int64(0)
+    handle = lib.ccomp_trace(
+        _ptr(mask8), mask8.shape[0], mask8.shape[1], ctypes.byref(n_contours), ctypes.byref(n_points)
+    )
+    if not handle:
+        msg = f"find_contours_ccomp ran out of memory on a {mask8.shape} mask."
+        raise MemoryError(msg)
+    try:
+        points = np.empty((max(n_points.value, 1), 2), np.int32)
+        offsets = np.empty(n_contours.value + 1, np.int64)
+        hierarchy = np.empty((n_contours.value, 4), np.int32)
+        lib.ccomp_copy(handle, _ptr(points), _ptr(offsets), _ptr(hierarchy))
+    finally:
+        lib.ccomp_free(handle)
+    return [points[a:b].copy() for a, b in zip(offsets[:-1], offsets[1:])], hierarchy
 
 
 @functools.cache

@@ -97,7 +97,10 @@ def _resize_area(img: np.ndarray, out_w: int, out_h: int) -> np.ndarray:
         return blocks.mean(axis=(1, 3), dtype=np.float64).astype(img.dtype)
     wy = _area_weights(h, out_h)
     wx = _area_weights(w, out_w)
-    out = np.einsum("yh,hw...,xw->yx...", wy, img.astype(np.float64), wx)
+    # rows, then columns: O(output x input) work, where one three-operand
+    # einsum loops over every (y, h, w, x) at once
+    rows = np.tensordot(wy, img.astype(np.float64), axes=(1, 0))
+    out = np.moveaxis(np.tensordot(wx, rows, axes=(1, 1)), 0, 1)
     return _to_dtype(out, img.dtype)
 
 

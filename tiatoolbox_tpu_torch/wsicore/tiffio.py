@@ -26,6 +26,7 @@ import struct
 import threading
 import zlib
 from collections import OrderedDict
+from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass, field
 from pathlib import Path
 
@@ -730,13 +731,20 @@ class TiffPyramidWriter:
             if img.ndim == 2:
                 img = img[:, :, None]
             h, w, c = img.shape
+
+            def encode(origin, img=img, c=c) -> bytes:
+                ty, tx = origin
+                tile = np.zeros((ts, ts, c), dtype=img.dtype)
+                block = img[ty * ts : (ty + 1) * ts, tx * ts : (tx + 1) * ts]
+                tile[: block.shape[0], : block.shape[1]] = block
+                return self._encode_tile(tile)
+
+            # tiles are coded on one thread per core (zlib and the native
+            # encoder release the interpreter lock) and written in order
+            origins = [(ty, tx) for ty in range(-(-h // ts)) for tx in range(-(-w // ts))]
             offsets, counts = [], []
-            for ty in range(-(-h // ts)):
-                for tx in range(-(-w // ts)):
-                    tile = np.zeros((ts, ts, c), dtype=img.dtype)
-                    block = img[ty * ts : (ty + 1) * ts, tx * ts : (tx + 1) * ts]
-                    tile[: block.shape[0], : block.shape[1]] = block
-                    data = self._encode_tile(tile)
+            with ThreadPoolExecutor(min(len(origins), os.cpu_count() or 1)) as pool:
+                for data in pool.map(encode, origins):
                     offsets.append(fh.tell())
                     counts.append(len(data))
                     fh.write(data)
