@@ -52,7 +52,25 @@ temporary directory, and drives the port's entry points on them:
   RAM (memory_threshold 1.0) and spilled to zarr under save_dir/cache
   (0.0): the spilled result equals the RAM run's bit for bit, C's map is
   within 1e-6 of its device-canvas run, the cache is gone after each run,
-  and no canvas kernel launches.
+  and no canvas kernel launches;
+- "detect", nucleus detection: NucleusDetector over mapde-conic (full
+  width, seeded, 252^2 patches at stride 150) on phase A/B's 4096x3072
+  slide at 0.5 mpp, and over sccnn-crchisto (31^2 patches, 13^2 outputs at
+  stride 8, about 12k patches) on a 1024x768 slide at 0.25 mpp; both on the
+  per-patch device canvas (their own host preproc refuses the region feed).
+  The seeded maps are far below the registry thresholds, so a first run's
+  stitched map gives threshold_abs (its 99.9th percentile, printed), and
+  the timed run detects above it; its canvas is stitched again with the
+  plain K2 and K3 (bit for bit), its detections equal those of the plain
+  map, and its first patches match the CPU;
+- "nucleus_zoo", the rest of the nucleus models on the multitask engine:
+  micronet-consep on the spill phase's 2048x1536 slide (0.25 mpp, per-patch
+  feed, its output bias set so half the first batch is foreground) and
+  hovernetplus-oed on phase A/B's slide (0.5 mpp; the functional HoVer-Net
+  checkpoint in its nucleus branches, the layer branch seeded; region feed,
+  the generic fetch: K3 then K5 on the normalised canvas), with instance
+  and layer counts, the same re-stitch and CPU checks, and K4 and K5 held
+  at HoVer-Net+'s shapes.
 
 Each phase prints one JSON line. The stain kernel is held against its plain
 PyTorch version on the card (main-path batch, all 2^24 RGB colours, ragged
@@ -69,9 +87,10 @@ instances (the reference's scheme on these maps, 2004 of 2386 in JAX and
 the port on the CPU); every kernel is timed beside its
 plain version, a library call where one computes the same function, and its
 bound (the normalise kernel also beside a device copy of its bytes). The
-classifier's, the U-Net's and HoVer-Net's first batch are held
-against the same model on the CPU, and one bfloat16 batch of each
-segmentation model against float32. The script prints a "kernels" line,
+classifier's, the U-Net's and HoVer-Net's first batch, and each nucleus
+model's first patches, are held against the same model on the CPU, and one bfloat16 batch of each
+segmentation model against float32. The script prints a "kernels" line
+(K2 to K5 also at each nucleus model's shapes, named ``kernel[model]``),
 the card's name and power limit, and last the result line
 {"ok": true, "device": {...}}. Any failed check raises, so the script exits
 non-zero; it also exits non-zero, printing no result, where CUDA is not
@@ -102,10 +121,11 @@ from tiatoolbox_tpu_torch.models.architecture.hovernet import HoVerNet  # noqa: 
 from tiatoolbox_tpu_torch.models.architecture.hovernet_checkpoint import (  # noqa: E402
     functional_hovernet_state_dict,
 )
+from tiatoolbox_tpu_torch.models.architecture.hovernetplus import HoVerNetPlus  # noqa: E402
 from tiatoolbox_tpu_torch.models.architecture.unet import UNetModel  # noqa: E402
 from tiatoolbox_tpu_torch.models.architecture.vanilla import CNNModel  # noqa: E402
 from tiatoolbox_tpu_torch.models.dataset import WSIPatchDataset  # noqa: E402
-from tiatoolbox_tpu_torch.models.engine import MultiTaskSegmentor, SemanticSegmentor  # noqa: E402
+from tiatoolbox_tpu_torch.models.engine import MultiTaskSegmentor, NucleusDetector, SemanticSegmentor  # noqa: E402
 from tiatoolbox_tpu_torch.models.engine.io_config import IOPatchPredictorConfig  # noqa: E402
 from tiatoolbox_tpu_torch.models.engine.patch_predictor import PatchPredictor  # noqa: E402
 from tiatoolbox_tpu_torch.models.models_abc import ModelABC  # noqa: E402
@@ -1377,6 +1397,28 @@ def run_instance_path(
     return line, recorder, post.calls, instances, counts
 
 
+def energy_library(hv_view: torch.Tensor):
+    """K5's function as PyTorch expressions (reflect pad, two cuDNN
+    convolutions a Sobel, ``amin``/``amax``), the yardstick it is timed against."""
+    deriv, smooth = energy_ops.sobel_kernels(21)
+    kd = torch.from_numpy(deriv).to(DEVICE)
+    ks = torch.from_numpy(smooth).to(DEVICE)
+
+    def norm(x):
+        return (x - x.amin()) / (x.amax() - x.amin()).clamp_min(1e-30)
+
+    def sep(x, kx, ky):
+        x = F.pad(x[None, None], (10, 10, 10, 10), mode="reflect")
+        return F.conv2d(F.conv2d(x, kx.view(1, 1, 1, -1)), ky.view(1, 1, -1, 1))[0, 0]
+
+    def library() -> torch.Tensor:
+        sh = norm(sep(norm(hv_view[..., 0]), kd, ks))
+        sv = norm(sep(norm(hv_view[..., 1]), ks, kd))
+        return torch.maximum(1 - sh, 1 - sv)
+
+    return library
+
+
 def check_energy(hv_view: torch.Tensor, canvas_obj, gen: torch.Generator) -> dict:
     """K5 against its plain version (the run's canvas, ragged maps) and its times,
     through both entries: the normalised ``[H, W, 2]`` view, and the raw
@@ -1423,23 +1465,7 @@ def check_energy(hv_view: torch.Tensor, canvas_obj, gen: torch.Generator) -> dic
     check(max_err <= ENERGY_TOL, f"hv_energy kernel vs plain max abs diff {max_err} > {ENERGY_TOL}")
     raw_err = max(raw_errs)
     check(raw_err <= ENERGY_TOL, f"hv_energy raw-canvas entry vs plain K3 and K5 max abs diff {raw_err} > {ENERGY_TOL}")
-    deriv, smooth = energy_ops.sobel_kernels(21)
-    kd = torch.from_numpy(deriv).to(DEVICE)
-    ks = torch.from_numpy(smooth).to(DEVICE)
-
-    def library() -> torch.Tensor:
-        """The same function as PyTorch expressions: reflect pad, two cuDNN convolutions each."""
-        def norm(x):
-            return (x - x.amin()) / (x.amax() - x.amin()).clamp_min(1e-30)
-
-        def sep(x, kx, ky):
-            x = F.pad(x[None, None], (10, 10, 10, 10), mode="reflect")
-            return F.conv2d(F.conv2d(x, kx.view(1, 1, 1, -1)), ky.view(1, 1, -1, 1))[0, 0]
-
-        sh = norm(sep(norm(hv_view[..., 0]), kd, ks))
-        sv = norm(sep(norm(hv_view[..., 1]), ks, kd))
-        return torch.maximum(1 - sh, 1 - sv)
-
+    library = energy_library(hv_view)
     lib_err = float((library() - energy_ops.hv_energy_reference(hv_view)).abs().max())
     n_pix = h * w
     bytes_s = (ENERGY_BYTES_IN + 4) * n_pix / HBM_BYTES_PER_S
@@ -1988,6 +2014,373 @@ def phase_spill(tmp: Path, card: str) -> None:
     emit(line)
 
 
+# -- nucleus detection and the rest of the nucleus zoo --------------------------
+
+DETECT_MODEL = "mapde-conic"  # on phase A/B's 4096x3072 slide at 0.5 mpp
+SCCNN_MODEL = "sccnn-crchisto"
+SCCNN_SLIDE_WH = (1024, 768)  # 0.25 mpp, 40x: 125 x 93 = 11,625 patches of 31^2 at stride 8
+MICRONET_MODEL = "micronet-consep"  # on the spill phase's 2048x1536 slide at 0.25 mpp
+PLUS_MODEL = "hovernetplus-oed"  # on phase A/B's slide: 25 x 19 output cells of 164^2
+DETECT_BATCH = 16
+SCCNN_BATCH = 256
+PLUS_BATCH = 32
+# The seeded weights give maps far below the registry thresholds (MapDe 205,
+# SCCNN 0.2): the detections are taken above this quantile of the stitched map.
+DETECT_PEAK_QUANTILE = 0.999
+CPU_REL_TOL = 1e-4  # first-batch maps, card against the CPU, of their largest value
+ZOO_KERNELS = {
+    "scatter_accumulate": ("canvas.cu", "tiatoolbox_tpu/ops/canvas.py:53"),
+    "normalize_rows": ("canvas.cu", "tiatoolbox_tpu/ops/canvas.py:77"),
+    "extract_patches": ("region.cu", "tiatoolbox_tpu/ops/region.py:42"),
+    "hv_energy": ("hv_energy.cu", "tiatoolbox_tpu/ops/hv_energy.py:37"),
+}
+
+
+class CanvasKeepingDetector(NucleusDetector):
+    """The detector engine, keeping the stitched map it post-processes."""
+
+    def post_process_wsi(self, raw_predictions: dict, **kwargs) -> dict:
+        self.kept_canvas = raw_predictions["probabilities"]
+        return super().post_process_wsi(raw_predictions, **kwargs)
+
+
+def first_patches(model, slide: Path, ioconfig, n: int) -> tuple[np.ndarray, WSIPatchDataset]:
+    """The first ``n`` grid patches of ``slide`` through the model's own preproc, and the grid."""
+    res = ioconfig.highest_input_resolution
+    dataset = WSIPatchDataset(
+        slide,
+        patch_input_shape=tuple(ioconfig.patch_input_shape),
+        stride_shape=tuple(ioconfig.stride_shape),
+        resolution=res["resolution"],
+        units=res["units"],
+        patch_output_shape=tuple(ioconfig.patch_output_shape),
+        auto_get_mask=False,
+        preproc_func=model.preproc_func,
+    )
+    return np.stack([dataset[i]["image"] for i in range(n)]), dataset
+
+
+def zoo_run(engine, slide: Path, ioconfig, recorder: CanvasRecorder, want_path: str, **run_kwargs):
+    """One whole-slide ``engine.run``, every kernel count set to 0 just before
+    and read just after; its output, counts, seconds and peak device memory."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_all_counts()
+    with recorder:
+        t0 = time.perf_counter()
+        output = engine.run([slide], patch_mode=False, ioconfig=ioconfig, auto_get_mask=False, **run_kwargs)
+        seconds = time.perf_counter() - t0
+    counts = all_counts()
+    torch.cuda.synchronize()
+    summary = engine.last_stage_summary
+    check(summary["path"] == want_path, f"{type(engine.model).__name__} path {summary['path']} != {want_path}")
+    return output[str(slide)], counts, seconds, int(torch.cuda.max_memory_allocated()), summary
+
+
+def check_launched(counts: dict, want: tuple, what: str) -> None:
+    """Each kernel of ``want`` launched in the run, every other one not."""
+    check(all((counts[k] > 0) == (k in want) for k in counts), f"{what} launches {counts}, want {want}")
+
+
+def held_against_cpu(model, cpu_model, batch: np.ndarray, card_heads) -> float:
+    """The card's first-batch maps against the same weights on the CPU: the
+    largest difference over each head's largest magnitude."""
+    cpu_heads = type(model).infer_batch(cpu_model, batch)
+    cpu_heads = cpu_heads if isinstance(cpu_heads, tuple) else (cpu_heads,)
+    card_heads = card_heads if isinstance(card_heads, (tuple, list)) else (card_heads,)
+    worst = 0.0
+    for card, cpu in zip(card_heads, cpu_heads):
+        card = card.cpu().numpy() if isinstance(card, torch.Tensor) else card
+        worst = max(worst, float(np.abs(card - cpu).max()) / max(float(np.abs(cpu).max()), 1e-30))
+    return worst
+
+
+def detect_path(model_name: str, slide: Path, batch: int, card: str) -> tuple[dict, dict, dict, dict]:
+    """NucleusDetector over ``model_name`` on ``slide``: one run with the
+    registry threshold, then the timed run with ``threshold_abs`` at
+    ``DETECT_PEAK_QUANTILE`` of the first run's stitched map. The timed run's
+    canvas is stitched again with the plain K2 and K3 (bit for bit) and its
+    detections equal those of the plain map; its first patches match the CPU."""
+    model, ioconfig = get_pretrained_model(model_name, device=DEVICE)
+    first, dataset = first_patches(model, slide, ioconfig, batch)
+    type(model).infer_batch_device(model, first)  # warm-up: cuDNN picks its algorithms
+    engine = CanvasKeepingDetector(model, batch_size=batch, verbose=False)
+    n_slots = -(-len(dataset) // batch)
+    out_hw = tuple(ioconfig.patch_output_shape)
+    recorder = CanvasRecorder(n_slots, (batch, *out_hw, 1))
+    _, _, calib_seconds, _, _ = zoo_run(engine, slide, ioconfig, recorder, "device-canvas")
+    threshold = float(np.quantile(engine.kept_canvas, DETECT_PEAK_QUANTILE))
+    found, counts, seconds, peak, summary = zoo_run(
+        engine, slide, ioconfig, recorder, "device-canvas", threshold_abs=threshold
+    )
+    check_launched(counts, ("scatter_accumulate", "normalize_rows"), model_name)
+    canvas = engine.kept_canvas
+    h, w = canvas.shape[:2]
+    check(bool(np.isfinite(canvas).all()) and canvas.shape[2] == 1, f"{model_name} map {canvas.shape}")
+    n_found = len(found["coordinates"])
+    check(n_found > 0, f"{model_name}: no detections above {threshold}")
+    xy = np.asarray(found["coordinates"])
+    check(xy[:, 0].max() < w and xy[:, 1].max() < h and xy.min() >= 0, "detections inside the map")
+    scatter_err, plain_c, plain_n = restitch_canvas(recorder)
+    plain_map = canvas_ops.normalize_rows_reference(plain_c, plain_n, 0, h, w).cpu().numpy()
+    del plain_c, plain_n
+    map_err = held_bitwise(torch.from_numpy(canvas), torch.from_numpy(plain_map), "kernel-normalised map == plain map")
+    plain_found = engine.post_process_wsi({"probabilities": plain_map})
+    for key in ("coordinates", "scores", "types"):
+        check(np.array_equal(found[key], plain_found[key]), f"{model_name} detections of the plain map: {key}")
+    card_first = recorder.calls[0][0][:2]
+    cpu_model = type(model)(**PRETRAINED_MODELS[model_name]["architecture"]["kwargs"], device="cpu")
+    cpu_model.load_state_dict(model.state_dict())
+    cpu_err = held_against_cpu(model, cpu_model, first[: len(card_first)], card_first)
+    check(cpu_err <= CPU_REL_TOL, f"{model_name} card vs CPU maps: {cpu_err} of their max > {CPU_REL_TOL}")
+    gen = torch.Generator(device=DEVICE).manual_seed(13)
+    scatter = check_scatter(recorder, gen, ragged=False)
+    normalize = check_normalize(recorder.canvas, h, w)
+    scatter["max_abs_err"] = max(scatter["max_abs_err"], scatter_err)
+    normalize["max_abs_err"] = max(normalize["max_abs_err"], map_err)
+    n_patches = sum(int(np.count_nonzero(valid)) for *_, valid in recorder.calls)
+    line = {
+        "phase": "detect",
+        "model": model_name,
+        "path": summary["path"],
+        "slide_wh": [w, h],
+        "seconds": seconds,
+        "first_run_seconds": calib_seconds,
+        "patches": n_patches,
+        "patches_per_s": n_patches / seconds,
+        "threshold_abs": threshold,
+        "threshold_quantile": DETECT_PEAK_QUANTILE,
+        "detections": n_found,
+        "detections_per_s": n_found / seconds,
+        "map_max": float(canvas.max()),
+        "peak_memory_bytes": peak,
+        "launches": counts,
+        "stages": {k: v for k, v in summary.items() if isinstance(v, dict)},
+        "cpu_relative_max_abs_diff": cpu_err,
+        "restitch_scatter_max_abs_err": scatter_err,
+        "restitch_normalize_max_abs_err": map_err,
+        "card": card,
+    }
+    del recorder
+    model.to("cpu")
+    return line, counts, scatter, normalize
+
+
+def phase_detect(slide: Path, tmp: Path, card: str) -> list[dict]:
+    """MapDe over phase A/B's slide and SCCNN over a 1024x768 slide at 0.25 mpp."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rows = []
+    t0 = time.perf_counter()
+    sccnn_slide = make_synthetic_slide(
+        tmp / "sccnn.tiff", size=SCCNN_SLIDE_WH, mpp=0.25, objective_power=40, seed=53, compression="deflate"
+    )
+    slide_seconds = time.perf_counter() - t0
+    for name, path, batch in ((DETECT_MODEL, slide, DETECT_BATCH), (SCCNN_MODEL, sccnn_slide, SCCNN_BATCH)):
+        line, counts, scatter, normalize = detect_path(name, path, batch, card)
+        if name == SCCNN_MODEL:
+            line["slide_seconds"] = slide_seconds
+        line["kernels"] = {"scatter_accumulate": scatter, "normalize_rows": normalize}
+        emit(line)
+        rows += zoo_rows(name, counts, {"scatter_accumulate": scatter, "normalize_rows": normalize})
+    return rows
+
+
+def zoo_rows(model_name: str, counts: dict, measured: dict) -> list[dict]:
+    """``kernels`` rows at one model's shapes, named ``kernel[model]``."""
+    csrc = "tiatoolbox_tpu_torch/csrc/"
+    return [
+        kernel_row(f"{name}[{model_name}]", csrc + ZOO_KERNELS[name][0], ZOO_KERNELS[name][1], counts[name], m)
+        for name, m in measured.items()
+    ]
+
+
+def temper_micronet(model, batch: np.ndarray) -> float:
+    """Set the output head's bias so that the seeded network calls half of
+    ``batch``'s pixels foreground (its two logits differ by a hair
+    everywhere otherwise); returns the shift."""
+    head = model.layer["out"][1]
+    kept = {}
+    hook = head.register_forward_hook(lambda m, i, o: kept.__setitem__("logits", o.detach()))
+    type(model).infer_batch_device(model, batch)
+    hook.remove()
+    diff = kept["logits"][:, 1] - kept["logits"][:, 0]
+    shift = float(diff.float().median())
+    with torch.no_grad():
+        head.bias[1] -= shift / 2
+        head.bias[0] += shift / 2
+    return shift
+
+
+def check_energy_view(canvas_obj, h: int, w: int) -> dict:
+    """K5's view entry (the generic fetch's call, after K3) against its plain
+    version on the run's normalised canvas, and its times."""
+    normalized = canvas_ops.normalize_rows(canvas_obj.canvas, canvas_obj.count, 0, h, w)
+    view = normalized[..., 1:3]
+    err = float((energy_ops.hv_energy(view) - energy_ops.hv_energy_reference(view)).abs().max())
+    check(err <= ENERGY_TOL, f"hv_energy vs plain max abs diff {err} > {ENERGY_TOL}")
+    library = energy_library(view)
+
+    n_pix = h * w
+    bytes_s = (ENERGY_BYTES_IN + 4) * n_pix / HBM_BYTES_PER_S
+    ops_s = ENERGY_OPS_PER_PIX * n_pix / FP32_OPS_PER_S
+    return {
+        "max_abs_err": err,
+        "ms": time_ms(lambda: energy_ops.hv_energy(view), 20),
+        "plain_ms": time_ms(lambda: energy_ops.hv_energy_reference(view), 10),
+        "library_ms": time_ms(library, 10),
+        "bound_ms": max(bytes_s, ops_s) * 1e3,
+        "bound_by": "bytes" if bytes_s >= ops_s else "operations",
+        "shape": [h, w],
+    }
+
+
+def instances_per_task(instances: dict) -> dict:
+    """Instances of each task."""
+    tasks = [v.get("task_type") for v in instances.values()]
+    return {t: tasks.count(t) for t in sorted(set(tasks), key=str)}
+
+
+def phase_nucleus_zoo(slide: Path, tmp: Path, card: str) -> list[dict]:
+    """MicroNet on the spill phase's slide (0.25 mpp, per-patch feed: its own
+    preproc) and HoVer-Net+ on phase A/B's slide (0.5 mpp, region feed, the
+    generic fetch), both on the multitask engine."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rows = []
+    gen = torch.Generator(device=DEVICE).manual_seed(17)
+
+    # MicroNet: K2 per batch, K3 at the fetch
+    micro_slide = tmp / "config5.tiff"
+    if not micro_slide.exists():
+        make_synthetic_slide(micro_slide, size=SPILL_SLIDE_WH, mpp=0.25, objective_power=40)
+    model, ioconfig = get_pretrained_model(MICRONET_MODEL, device=DEVICE)
+    first, dataset = first_patches(model, micro_slide, ioconfig, DETECT_BATCH)
+    shift = temper_micronet(model, first)
+    engine = MultiTaskSegmentor(model, batch_size=DETECT_BATCH, verbose=False)
+    recorder = CanvasRecorder(-(-len(dataset) // DETECT_BATCH), (DETECT_BATCH, *ioconfig.patch_output_shape, 2))
+    result, counts, seconds, peak, summary = zoo_run(engine, micro_slide, ioconfig, recorder, "multitask-device-canvas")
+    check_launched(counts, ("scatter_accumulate", "normalize_rows"), MICRONET_MODEL)
+    instances = result["instances"]
+    check(len(instances) > 0, "MicroNet: no instances")
+    check(all(len(v["contours"]) >= 3 for v in instances.values()), "MicroNet contours of 3 points or more")
+    w, h = SPILL_SLIDE_WH
+    scatter_err = restitch_canvas(recorder)[0]
+    cpu_model = type(model)(**PRETRAINED_MODELS[MICRONET_MODEL]["architecture"]["kwargs"], device="cpu")
+    cpu_model.load_state_dict(model.state_dict())
+    cpu_err = held_against_cpu(model, cpu_model, first[:2], recorder.calls[0][0][:2])
+    check(cpu_err <= CPU_REL_TOL, f"MicroNet card vs CPU: {cpu_err} of the max > {CPU_REL_TOL}")
+    del cpu_model
+    scatter = check_scatter(recorder, gen, ragged=False)
+    normalize = check_normalize(recorder.canvas, h, w)
+    scatter["max_abs_err"] = max(scatter["max_abs_err"], scatter_err)
+    n_patches = sum(int(np.count_nonzero(valid)) for *_, valid in recorder.calls)
+    emit(
+        {
+            "phase": "nucleus_zoo",
+            "model": MICRONET_MODEL,
+            "path": summary["path"],
+            "slide_wh": [w, h],
+            "seconds": seconds,
+            "patches": n_patches,
+            "patches_per_s": n_patches / seconds,
+            "instances": len(instances),
+            "instances_per_s": len(instances) / seconds,
+            "output_bias_shift": shift,
+            "peak_memory_bytes": peak,
+            "launches": counts,
+            "stages": {k: v for k, v in summary.items() if isinstance(v, dict)},
+            "cpu_relative_max_abs_diff": cpu_err,
+            "restitch_scatter_max_abs_err": scatter_err,
+            "kernels": {"scatter_accumulate": scatter, "normalize_rows": normalize},
+            "card": card,
+        }
+    )
+    rows += zoo_rows(MICRONET_MODEL, counts, {"scatter_accumulate": scatter, "normalize_rows": normalize})
+    del recorder
+    model.to("cpu")
+
+    # HoVer-Net+: K4 and K2 on the region feed, K3 then K5 at the generic fetch
+    model, ioconfig = get_pretrained_model(PLUS_MODEL, device=DEVICE)
+    kwargs = PRETRAINED_MODELS[PLUS_MODEL]["architecture"]["kwargs"]
+    # the nucleus branches from the functional HoVer-Net checkpoint, the layer branch seeded
+    model.load_state_dict({**model.state_dict(), **functional_hovernet_state_dict(num_types=3, mode="fast")})
+    first, dataset = first_patches(model, slide, ioconfig, PLUS_BATCH)
+    HoVerNetPlus.infer_batch_device(model, first)  # warm-up
+    plan = region_ops.BandPlan.build(np.asarray(dataset.inputs), dataset.patch_input_shape, dataset.stride_shape)
+    n_slots = -(-len(dataset) // PLUS_BATCH) + len(plan.bands)
+    engine = MultiTaskSegmentor(model, batch_size=PLUS_BATCH, verbose=False)
+    recorder = CanvasRecorder(n_slots, (PLUS_BATCH, *ioconfig.patch_output_shape, 5))
+    result, counts, seconds, peak, summary = zoo_run(
+        engine, slide, ioconfig, recorder, "multitask-device-canvas+region-feed+device-energy"
+    )
+    check_launched(counts, ("scatter_accumulate", "normalize_rows", "extract_patches", "hv_energy"), PLUS_MODEL)
+    check(not model.banded_fetch_spec([1, 2, 1, 1]), "HoVer-Net+ takes the generic fetch")
+    instances = result["instances"]
+    per_task = instances_per_task(instances)
+    layers = np.asarray(result["semantic_predictions"]["layer_segmentation"])
+    w, h = SLIDE_WH
+    check(layers.shape == (h, w), f"layer map {layers.shape}")
+    check(per_task.get("nuclei_segmentation", 0) > 0 and per_task.get("layer_segmentation", 0) > 0,
+          f"HoVer-Net+ instances per task {per_task}")
+    scatter_err = restitch_canvas(recorder)[0]
+    cpu_model = HoVerNetPlus(**kwargs, device="cpu")
+    cpu_model.load_state_dict(model.state_dict())
+    with torch.inference_mode():
+        card_logits = model(model.stage_batch(first[:2]).float())
+        cpu_logits = cpu_model(torch.from_numpy(first[:2]).float())
+    card_heads = HoVerNetPlus._head_outputs(card_logits)
+    cpu_heads = HoVerNetPlus._head_outputs(cpu_logits)
+    compared = {
+        "np": (card_heads[0], cpu_heads[0]),
+        "hv": (card_heads[1], cpu_heads[1]),
+        # the seeded layer branch's top two classes are often a hair apart, so
+        # its softmax is held, not its argmax
+        **{f"{head}_softmax": (torch.softmax(card_logits[head].float(), -1), torch.softmax(cpu_logits[head].float(), -1))
+           for head in ("tp", "ls")},
+    }
+    cpu_errs = {
+        name: float((a.cpu() - b).abs().max()) / max(float(b.abs().max()), 1e-30) for name, (a, b) in compared.items()
+    }
+    check(max(cpu_errs.values()) <= CPU_REL_TOL, f"HoVer-Net+ card vs CPU {cpu_errs}")
+    ls_agree = float((card_logits["ls"].argmax(-1).cpu() == cpu_logits["ls"].argmax(-1)).float().mean())
+    del cpu_model
+    scatter = check_scatter(recorder, gen, ragged=False)
+    normalize = check_normalize(recorder.canvas, h, w)
+    extract = check_extract(slide, dataset, plan, PLUS_BATCH)
+    energy = check_energy_view(recorder.canvas, h, w)
+    scatter["max_abs_err"] = max(scatter["max_abs_err"], scatter_err)
+    n_patches = sum(int(np.count_nonzero(valid)) for *_, valid in recorder.calls)
+    measured = {"scatter_accumulate": scatter, "normalize_rows": normalize, "extract_patches": extract, "hv_energy": energy}
+    emit(
+        {
+            "phase": "nucleus_zoo",
+            "model": PLUS_MODEL,
+            "path": summary["path"],
+            "slide_wh": [w, h],
+            "seconds": seconds,
+            "patches": n_patches,
+            "patches_per_s": n_patches / seconds,
+            "instances_per_task": per_task,
+            "instances_per_s": len(instances) / seconds,
+            "layer_pixel_counts": np.bincount(layers.ravel(), minlength=5).tolist(),
+            "peak_memory_bytes": peak,
+            "launches": counts,
+            "n_bands": summary.get("n_bands"),
+            "stages": {k: v for k, v in summary.items() if isinstance(v, dict)},
+            "cpu_relative_max_abs_diff": cpu_errs,
+            "cpu_layer_agreement": ls_agree,
+            "restitch_scatter_max_abs_err": scatter_err,
+            "kernels": measured,
+            "card": card,
+        }
+    )
+    rows += zoo_rows(PLUS_MODEL, counts, measured)
+    del recorder
+    model.to("cpu")
+    return rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; nothing was run.", file=sys.stderr)
@@ -2023,6 +2416,10 @@ def main() -> int:
         mark("outputs")
         phase_spill(Path(tmp), card)
         mark("spill")
+        detect = phase_detect(slide, Path(tmp), card)
+        mark("detect")
+        zoo = phase_nucleus_zoo(slide, Path(tmp), card)
+        mark("nucleus_zoo")
     # seconds since the start at the end of each group of phases
     emit({"phase": "timeline", "seconds_at_end": marks})
     # K2 to K4 run on phases C and D: their rows count both phases' launches
@@ -2030,7 +2427,7 @@ def main() -> int:
     for row in segment:
         row["launches"] += held[row["name"]]["launches"]
         row["max_abs_err"] = max(row["max_abs_err"], held[row["name"]]["max_abs_err"])
-    print(json.dumps({"kernels": [stain, *segment, *instance]}), flush=True)
+    print(json.dumps({"kernels": [stain, *segment, *instance, *detect, *zoo]}), flush=True)
     print(card, flush=True)
     print(
         json.dumps(

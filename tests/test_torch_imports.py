@@ -8,7 +8,8 @@ whole-slide patch classification, whole-slide semantic segmentation and
 whole-slide nucleus instance segmentation, which build and load the host
 C++ libraries: the JPEG codec of the slide's tiles, the watershed) on the
 CPU on a tiny JPEG slide, and saves the results in every output type (the
-contour tracer's C++, sqlite3, the colour tables).
+contour tracer's C++, sqlite3, the colour tables); then nucleus detection
+with SCCNN and HoVer-Net+'s layer post-processing.
 """
 
 from __future__ import annotations
@@ -119,6 +120,26 @@ GUARDED_RUN = textwrap.dedent(
 
         db = nuclei_engine.save_predictions(nuclei[str(small)], "annotationstore", tmp, output_file="nuclei.db")
         assert len(SQLiteStore(db)) == len(nuclei[str(small)]["instances"])
+
+        # nucleus detection (SCCNN on a tiny slide, its points in a store) and
+        # HoVer-Net+'s layer post-processing (the box morphology, the tree contours)
+        from tiatoolbox_tpu_torch.models.architecture.hovernetplus import HoVerNetPlus
+        from tiatoolbox_tpu_torch.models.engine import NucleusDetector
+
+        sccnn, sccnn_io = get_pretrained_model("sccnn-crchisto", device="cpu")
+        detector = NucleusDetector(sccnn, batch_size=16, verbose=False, device="cpu")
+        detections = detector.run([small], patch_mode=False, ioconfig=sccnn_io, auto_get_mask=False,
+                                  threshold_abs=0.0)[str(small)]
+        assert len(detections["coordinates"]) > 0
+        db = detector.save_predictions(detections, "annotationstore", tmp, output_file="points.db")
+        assert len(SQLiteStore(db)) == len(detections["coordinates"])
+        layers = np.zeros((300, 300, 1), np.float32)
+        layers[20:280, 20:280] = 1
+        layers[60:260, 40:240] = 3
+        layers[120:160, 120:160] = 1
+        cleaned = HoVerNetPlus._proc_ls(layers)
+        assert set(np.unique(cleaned)) == {0, 1, 3}
+        assert [v["type"] for v in HoVerNetPlus._get_layer_info(cleaned).values()] == [1, 1, 1, 3, 3]
 
     leaked = sorted(n for n in sys.modules if n.split(".")[0] in BLOCKED)
     assert not leaked, leaked

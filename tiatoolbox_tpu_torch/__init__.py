@@ -221,3 +221,92 @@ PRETRAINED_MODELS.update(
         "hovernet_original-kumar": _hovernet_entry("original", None, None, 270, 80, 2048),
     }
 )
+
+
+def _segmentor_ioconfig(mpp: float, patch: int, out: int, stride: int, *, tile: int | None = 2048, **extra) -> dict:
+    """An ``IOSegmentorConfig`` of one input and one output at ``mpp``."""
+    res = {"resolution": mpp, "units": "mpp"}
+    kwargs = {
+        **extra,
+        "input_resolutions": [dict(res)],
+        "output_resolutions": [dict(res)],
+        "patch_input_shape": [patch, patch],
+        "patch_output_shape": [out, out],
+        "save_resolution": dict(res),
+        "stride_shape": [stride, stride],
+    }
+    if tile is not None:
+        kwargs["tile_shape"] = [tile, tile]
+    return {"class": "IOSegmentorConfig", "kwargs": kwargs}
+
+
+def _detector_entry(cls: str, ioconfig: dict, **arch) -> dict:
+    """A MapDe or SCCNN registry entry: one nucleus class."""
+    kwargs = {"class_dict": {0: "nucleus"}, **arch, "tile_shape": [2048, 2048]}
+    return {"architecture": {"class": cls, "kwargs": kwargs}, "ioconfig": ioconfig}
+
+
+# ``pretrained_model.yaml:830`` (hovernetplus-oed), :919 and :954 (mapde-*),
+# :992 (micronet-consep), :1746 and :1784 (sccnn-*)
+PRETRAINED_MODELS.update(
+    {
+        "hovernetplus-oed": {
+            "architecture": {
+                "class": "hovernetplus.HoVerNetPlus",
+                "kwargs": {
+                    "layer_type_dict": {
+                        0: "Background",
+                        1: "Other Tissue",
+                        2: "Basal Epithelium",
+                        3: "(Core) Epithelium",
+                        4: "Keratin",
+                    },
+                    "nuc_type_dict": {0: "Background", 1: "Other", 2: "Epithelial"},
+                    "num_layers": 5,
+                    "num_types": 3,
+                },
+            },
+            "ioconfig": {
+                "class": "IOInstanceSegmentorConfig",
+                "kwargs": {
+                    "ignore_index": 0,
+                    "input_resolutions": [{"resolution": 0.5, "units": "mpp"}],
+                    "margin": 128,
+                    "output_resolutions": [{"resolution": 0.5, "units": "mpp"} for _ in range(4)],
+                    "patch_input_shape": [256, 256],
+                    "patch_output_shape": [164, 164],
+                    "save_resolution": {"resolution": 0.5, "units": "mpp"},
+                    "stride_shape": [164, 164],
+                    "tile_shape": [2048, 2048],
+                },
+            },
+        },
+        "mapde-conic": _detector_entry(
+            "mapde.MapDe",
+            _segmentor_ioconfig(0.5, 252, 252, 150, tile=None),
+            min_distance=3, num_classes=1, num_input_channels=3, threshold_abs=205,
+        ),
+        "mapde-crchisto": _detector_entry(
+            "mapde.MapDe",
+            _segmentor_ioconfig(0.5, 252, 252, 150),
+            min_distance=4, num_classes=1, num_input_channels=3, threshold_abs=250,
+        ),
+        "micronet-consep": {
+            "architecture": {
+                "class": "micronet.MicroNet",
+                "kwargs": {"num_input_channels": 3, "num_output_channels": 2},
+            },
+            "ioconfig": _segmentor_ioconfig(0.25, 252, 252, 150, ignore_index=0),
+        },
+        "sccnn-conic": _detector_entry(
+            "sccnn.SCCNN",
+            _segmentor_ioconfig(0.25, 31, 13, 8, tile=None),
+            min_distance=5, num_input_channels=3, patch_output_shape=[13, 13], radius=12, threshold_abs=0.05,
+        ),
+        "sccnn-crchisto": _detector_entry(
+            "sccnn.SCCNN",
+            _segmentor_ioconfig(0.25, 31, 13, 8, tile=None),
+            min_distance=6, num_input_channels=3, patch_output_shape=[13, 13], radius=12, threshold_abs=0.2,
+        ),
+    }
+)

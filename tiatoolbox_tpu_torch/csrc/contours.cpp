@@ -1,8 +1,10 @@
 // Host C++ contour tracer with holes: the counterpart of
 // cv2.findContours(mask, RETR_CCOMP, CHAIN_APPROX_SIMPLE) that
-// tiatoolbox_tpu/utils/store_conversion.py:82-117 (process_contours) calls.
-// Built with g++ into a shared library with a plain C interface and loaded
-// with ctypes (tiatoolbox_tpu_torch/native).
+// tiatoolbox_tpu/utils/store_conversion.py:82-117 (process_contours) calls,
+// and of cv2.findContours(mask, RETR_TREE, CHAIN_APPROX_NONE) that
+// tiatoolbox_tpu/models/architecture/hovernetplus.py:181-183
+// (_get_layer_info) calls. Built with g++ into a shared library with a plain
+// C interface and loaded with ctypes (tiatoolbox_tpu_torch/native).
 //
 // The algorithm is OpenCV's (Suzuki and Abe, as its contour scanner runs
 // it): the mask is padded by one background pixel, made 0/1, and scanned in
@@ -15,14 +17,18 @@
 // each next one counter-clockwise from the one after the previous pixel. A
 // pixel whose right neighbour was passed as background is marked
 // `nbd | 0x80` (negative), an unvisited one `nbd`; a point is written where
-// the direction changes (CHAIN_APPROX_SIMPLE), a lone pixel once.
+// the direction changes (CHAIN_APPROX_SIMPLE) or at every step
+// (CHAIN_APPROX_NONE), a lone pixel once.
 //
-// RETR_CCOMP: every outer border is a child of the frame; a hole's parent is
-// the border that marked the last marked pixel left of it (`lnbd`), or that
-// border's parent when it is a hole. A child is inserted at the head of its
-// parent's list, and the result is the tree in pre-order, so outer borders
-// come last-found first, each followed by its holes, last-found first.
-// Hierarchy rows are [next, previous, first child, parent], -1 for none.
+// Parents: a new border's candidate is the border that marked the last
+// marked pixel left of it (`lnbd`), or the frame where there is none; when
+// the candidate is of the new border's kind (both outer, or both holes), the
+// parent is the candidate's parent. RETR_TREE applies this to every border;
+// RETR_CCOMP to holes only, and makes every outer border a child of the
+// frame. A child is inserted at the head of its parent's list, and the result
+// is the tree in pre-order, each border followed by its children,
+// last-found first. Hierarchy rows are [next, previous, first child,
+// parent], -1 for none.
 
 #include <cstddef>
 #include <cstdint>
@@ -50,10 +56,16 @@ struct Result {
     std::vector<int> order;  // pre-order of the tree
 };
 
+// trace modes: bit 0 RETR_TREE (else RETR_CCOMP), bit 1 CHAIN_APPROX_NONE
+// (else CHAIN_APPROX_SIMPLE)
+constexpr int kTree = 1;
+constexpr int kAllPoints = 2;
+
 class Scanner {
 public:
-    Scanner(const uint8_t* mask, int h, int w)
-        : h_(h + 2), w_(w + 2), img_(static_cast<std::size_t>(h_) * w_, 0),
+    Scanner(const uint8_t* mask, int h, int w, int mode)
+        : tree_((mode & kTree) != 0), all_points_((mode & kAllPoints) != 0),
+          h_(h + 2), w_(w + 2), img_(static_cast<std::size_t>(h_) * w_, 0),
           owner_(static_cast<std::size_t>(h_) * w_, -1) {
         for (int y = 0; y < h; ++y) {
             for (int x = 0; x < w; ++x) {
@@ -94,9 +106,9 @@ public:
                 }
                 if (start) {
                     int parent = -1;
-                    if (hole && lnbd_x > 0) {
+                    if ((hole || tree_) && lnbd_x > 0) {
                         parent = owner_[static_cast<std::size_t>(lnbd_y) * w_ + lnbd_x];
-                        if (parent >= 0 && out.contours[parent].hole) {
+                        if (parent >= 0 && out.contours[parent].hole == hole) {
                             parent = out.contours[parent].parent;
                         }
                     }
@@ -194,7 +206,7 @@ private:
                 img_[i3] = static_cast<int8_t>(label);
                 owner_[i3] = index;
             }
-            if (s != prev_s) {
+            if (all_points_ || s != prev_s) {
                 points.push_back(px - 1);
                 points.push_back(py - 1);
             }
@@ -209,6 +221,8 @@ private:
         }
     }
 
+    bool tree_;
+    bool all_points_;
     int h_;
     int w_;
     std::vector<int8_t> img_;
@@ -218,17 +232,18 @@ private:
 
 }  // namespace
 
-// Trace `mask` (uint8 [h, w], nonzero is foreground). Returns a handle for
-// ccomp_copy and ccomp_free, or null if memory ran out; `n_contours` and
-// `n_points` receive the sizes ccomp_copy fills.
-extern "C" void* ccomp_trace(const uint8_t* mask, int h, int w, int64_t* n_contours,
-                             int64_t* n_points) {
+// Trace `mask` (uint8 [h, w], nonzero is foreground) in `mode` (kTree,
+// kAllPoints). Returns a handle for contours_copy and contours_free, or null if
+// memory ran out; `n_contours` and `n_points` receive the sizes contours_copy
+// fills.
+extern "C" void* contours_trace(const uint8_t* mask, int h, int w, int mode, int64_t* n_contours,
+                                int64_t* n_points) {
     Result* result = new (std::nothrow) Result();
     if (result == nullptr) {
         return nullptr;
     }
     try {
-        Scanner scanner(mask, h, w);
+        Scanner scanner(mask, h, w, mode);
         scanner.run(*result);
     } catch (const std::bad_alloc&) {
         delete result;
@@ -245,7 +260,7 @@ extern "C" void* ccomp_trace(const uint8_t* mask, int h, int w, int64_t* n_conto
 
 // Copy the traced contours in output order: points (x, y) int32, offsets
 // [n_contours + 1] into them, hierarchy int32 [n_contours, 4].
-extern "C" void ccomp_copy(const void* handle, int32_t* points, int64_t* offsets,
+extern "C" void contours_copy(const void* handle, int32_t* points, int64_t* offsets,
                            int32_t* hierarchy) {
     const Result& r = *static_cast<const Result*>(handle);
     std::vector<int> rank(r.contours.size(), -1);
@@ -269,4 +284,4 @@ extern "C" void ccomp_copy(const void* handle, int32_t* points, int64_t* offsets
     offsets[r.order.size()] = written;
 }
 
-extern "C" void ccomp_free(void* handle) { delete static_cast<Result*>(handle); }
+extern "C" void contours_free(void* handle) { delete static_cast<Result*>(handle); }

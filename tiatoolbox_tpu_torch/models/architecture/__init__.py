@@ -2,8 +2,9 @@
 
 ``get_pretrained_model`` is the counterpart of
 ``tiatoolbox_tpu/models/architecture/__init__.py:89``: it builds a registry
-model (``vanilla.CNNModel``, ``unet.UNetModel`` or ``hovernet.HoVerNet``)
-and its ioconfig.
+model (``vanilla.CNNModel``, ``unet.UNetModel``, ``hovernet.HoVerNet``,
+``hovernetplus.HoVerNetPlus``, ``micronet.MicroNet``, ``mapde.MapDe`` or
+``sccnn.SCCNN``) and its ioconfig.
 Without ``pretrained_weights`` it looks for a local checkpoint first
 (``fetch_pretrained_weights``, :21-43), in the JAX package's order: flax
 ``.npz``, then torch ``.pth`` and ``.tar`` ``state_dict``s. It never
@@ -36,15 +37,24 @@ def load_weights(model, path: str | Path) -> None:
     """Load a flax ``.npz`` (through the converter) or a torch ``state_dict`` into ``model``."""
     from tiatoolbox_tpu_torch.models.architecture import weight_converter
     from tiatoolbox_tpu_torch.models.architecture.hovernet import HoVerNet
+    from tiatoolbox_tpu_torch.models.architecture.mapde import MapDe
+    from tiatoolbox_tpu_torch.models.architecture.micronet import MicroNet
+    from tiatoolbox_tpu_torch.models.architecture.sccnn import SCCNN
     from tiatoolbox_tpu_torch.models.architecture.unet import UNetModel
 
     path = Path(path)
     if path.suffix == ".npz":
         variables = weight_converter.load_flax_npz(path)
-        if isinstance(model, HoVerNet):
-            convert = weight_converter.flax_hovernet_to_torch
-        elif isinstance(model, UNetModel):
-            convert = weight_converter.flax_unet_to_torch
+        # MapDe is a MicroNet: the subclass first
+        for cls, convert in (
+            (HoVerNet, weight_converter.flax_hovernet_to_torch),
+            (UNetModel, weight_converter.flax_unet_to_torch),
+            (MapDe, weight_converter.flax_mapde_to_torch),
+            (MicroNet, weight_converter.flax_micronet_to_torch),
+            (SCCNN, weight_converter.flax_sccnn_to_torch),
+        ):
+            if isinstance(model, cls):
+                break
         else:
             convert = weight_converter.flax_resnet_to_torch
         state = convert(variables)
@@ -52,8 +62,10 @@ def load_weights(model, path: str | Path) -> None:
         state = torch.load(path, map_location="cpu", weights_only=True)
         if "state_dict" in state:
             state = state["state_dict"]
-        # the reference UNet's fixed nearest-upsample matrix is no parameter
-        state.pop("upsample2x.unpool_mat", None)
+        # fixed tables of the reference models, which the port computes: the
+        # UNet's nearest-upsample matrix, MapDe's distance cone, SCCNN's grids
+        for key in ("upsample2x.unpool_mat", "dist_filter", "xv", "yv"):
+            state.pop(key, None)
     model.load_state_dict(state)
 
 

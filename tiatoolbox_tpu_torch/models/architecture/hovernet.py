@@ -199,6 +199,24 @@ def _decoder_branch(out_ch: int, ksize: int) -> nn.Sequential:
     return nn.Sequential(OrderedDict([("u3", u3), ("u2", u2), ("u1", u1), ("u0", u0)]))
 
 
+def he_init(module: nn.Module, gen: torch.Generator) -> None:
+    """He-normal (fan out) convolution weights drawn from ``gen``, zero biases."""
+    for m in module.modules():
+        if isinstance(m, nn.Conv2d):
+            nn.init.kaiming_normal_(m.weight, mode="fan_out", nonlinearity="relu", generator=gen)
+            if m.bias is not None:
+                nn.init.zeros_(m.bias)
+
+
+def instance_columns(info_dict: dict) -> dict:
+    """``{key: object array over instances}`` of an instance-info dict, empty
+    arrays when there is none (the ``info_dict`` of ``postproc``'s results)."""
+    keys = ("box", "centroid", "contours", "prob", "type")
+    if not info_dict:
+        return {k: np.empty(0) for k in keys}
+    return {k: np.array([info_dict[i][k] for i in info_dict], dtype=object) for k in keys}
+
+
 class HoVerNet(ModelABC):
     """Nucleus instance segmentation (and, with ``num_types``, typing).
 
@@ -251,12 +269,7 @@ class HoVerNet(ModelABC):
         self.decoder = nn.ModuleDict(
             OrderedDict((name, _decoder_branch(ch, ksize)) for name, ch in branches)
         )
-        gen = torch.Generator().manual_seed(seed)
-        for m in self.modules():
-            if isinstance(m, nn.Conv2d):
-                nn.init.kaiming_normal_(m.weight, mode="fan_out", nonlinearity="relu", generator=gen)
-                if m.bias is not None:
-                    nn.init.zeros_(m.bias)
+        he_init(self, torch.Generator().manual_seed(seed))
         self.place(device)
 
     def forward(self, batch: torch.Tensor) -> dict[str, torch.Tensor]:
@@ -510,18 +523,11 @@ class HoVerNet(ModelABC):
             acc["watershed"] += t1 - t0
             acc["instance_info"] += t2 - t1
             self.last_postproc_seconds = acc
-        keys = ["box", "centroid", "contours", "prob", "type"]
-        if not info_dict:
-            columns = {k: np.empty(0) for k in keys}
-        else:
-            columns = {
-                k: np.array([info_dict[i][k] for i in info_dict], dtype=object) for k in keys
-            }
         return (
             {
                 "task_type": self.tasks[0],
                 "predictions": pred_inst,
-                "info_dict": columns,
+                "info_dict": instance_columns(info_dict),
                 "seg_type": "instance",
             },
         )

@@ -1,10 +1,13 @@
-"""Shared architecture utilities (counterpart of ``tiatoolbox_tpu/models/architecture/utils.py:1-70``).
+"""Shared architecture utilities (counterpart of ``tiatoolbox_tpu/models/architecture/utils.py:1-114``).
 
 ``argmax_last_axis``, ``centre_crop``, ``centre_crop_to_shape``,
 ``upsample2x`` (nearest) and ``resize_bilinear`` on numpy arrays or torch
 tensors. ``data_format`` names the axis order of a 4-D batch: "NHWC" (the
 JAX default) or "NCHW" (PyTorch's, which a channels_last tensor keeps in
-its shape). The peak tools (``:72+``) come with the detector engines.
+its shape). The detectors' peak tools (:61-114),
+``peak_detection_map_overlap`` and ``nms_on_detection_maps``, run on the
+host with the same numpy and scipy calls in the same order, so their
+results, the order of tied peaks included, are JAX's.
 """
 
 from __future__ import annotations
@@ -12,6 +15,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 import torch.nn.functional as F
+from scipy import ndimage
+from scipy.spatial import cKDTree
 
 _FORMATS = ("NCHW", "NHWC")
 
@@ -84,3 +89,59 @@ def resize_bilinear(x: torch.Tensor, scale: int = 2, data_format: str = "NHWC") 
         _as_nchw(x, data_format), scale_factor=scale, mode="bilinear", align_corners=False
     )
     return _from_nchw(out, data_format)
+
+
+def peak_detection_map_overlap(
+    detection_map: np.ndarray,
+    min_distance: int = 6,
+    threshold_abs: float = 0.5,
+) -> np.ndarray:
+    """[N, 2] (row, col) of the local maxima above ``threshold_abs`` (``utils.py:61``).
+
+    A peak is the largest value of its ``(2 * min_distance + 1)`` square
+    window (zero outside the map) and exceeds ``threshold_abs``; peaks come
+    in descending intensity, in ``np.argsort``'s order on ties.
+    """
+    size = 2 * min_distance + 1
+    local_max = ndimage.maximum_filter(detection_map, size=size, mode="constant")
+    mask = (detection_map == local_max) & (detection_map > threshold_abs)
+    coords = np.argwhere(mask)
+    if len(coords):
+        intensities = detection_map[coords[:, 0], coords[:, 1]]
+        coords = coords[np.argsort(-intensities)]
+    return coords
+
+
+def nms_on_detection_maps(coords: np.ndarray, scores: np.ndarray, radius: float) -> np.ndarray:
+    """Indices of the detections kept by greedy non-maximum suppression (``utils.py:86``).
+
+    In descending score, a detection is kept unless a kept one lies within
+    ``radius`` of it (``cKDTree.query_ball_point``).
+    """
+    if len(coords) == 0:
+        return np.array([], dtype=int)
+    coords = np.asarray(coords, dtype=float)
+    order = np.argsort(-np.asarray(scores))
+    tree = cKDTree(coords)
+    suppressed = np.zeros(len(coords), dtype=bool)
+    kept: list[int] = []
+    for idx in order:
+        if suppressed[idx]:
+            continue
+        kept.append(int(idx))
+        for j in tree.query_ball_point(coords[idx], r=radius):
+            if j != idx:
+                suppressed[j] = True
+    return np.array(kept, dtype=int)
+
+
+def peak_map(block: np.ndarray, min_distance: int, threshold_abs: float) -> np.ndarray:
+    """1.0 at each channel's peaks of an HWC map, else 0 (the detectors'
+    ``postproc``, ``mapde.py:113`` and ``sccnn.py:118``)."""
+    block = np.asarray(block)
+    out = np.zeros_like(block, dtype=np.float32)
+    for c in range(block.shape[-1]):
+        coords = peak_detection_map_overlap(block[..., c], min_distance=min_distance, threshold_abs=threshold_abs)
+        if len(coords):
+            out[coords[:, 0], coords[:, 1], c] = 1.0
+    return out

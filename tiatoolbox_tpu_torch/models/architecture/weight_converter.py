@@ -4,14 +4,22 @@
 (``tiatoolbox_tpu/models/architecture/weight_converter.py:28-97``) and
 ``flax_unet_to_torch`` the inverse of ``torch_unet_to_flax`` (:910-988),
 ``flax_hovernet_to_torch`` the inverse of ``torch_hovernet_to_flax``
-(:354-462):
-conv kernels HWIO -> OIHW, dense kernels [in, out] -> [out, in], and
-batch-norm scale/bias/mean/var -> weight/bias/running_mean/running_var.
+(:354-462, HoVerNet+'s ``ls`` branch included),
+``flax_micronet_to_torch``, ``flax_mapde_to_torch`` and
+``flax_sccnn_to_torch`` the inverses of ``torch_micronet_to_flax`` (:490),
+``torch_mapde_to_flax`` (:629) and ``torch_sccnn_to_flax`` (:473):
+conv kernels HWIO -> OIHW, transpose-conv kernels HWIO -> IOHW flipped in
+both spatial axes (flax applies them unflipped, ``_convT_kernel``
+:463-470), dense kernels [in, out] -> [out, in], and batch-norm
+scale/bias/mean/var -> weight/bias/running_mean/running_var.
 Keys follow the reference tiatoolbox models (``CNNModel``: ``feat_extract.*``
 with torchvision names inside, ``classifier.*``; ``UNetModel``:
 ``backbone.*``, ``conv1x1``, ``uplist.*``, ``clf``; ``HoVerNet``:
-``conv0./``, ``d0.units.0.conv1/bn``, ``decoder.np.u3.dense.*``), so the same
-``state_dict`` is what a reference ``.pth`` holds. ``load_flax_npz`` reads
+``conv0./``, ``d0.units.0.conv1/bn``, ``decoder.np.u3.dense.*``;
+``MicroNet`` and MapDe's trunk: ``layer.b1.conv1.0``, ``layer.b6.up1``;
+``SCCNN``: ``layer.l1.conv1.0``), so the same ``state_dict`` is what a
+reference ``.pth`` holds, less the fixed buffers the port computes (MapDe's
+``dist_filter``, SCCNN's ``xv`` and ``yv``). ``load_flax_npz`` reads
 the JAX package's flattened ``.npz`` variables (``load_flax_npz`` :114).
 """
 
@@ -119,7 +127,7 @@ def _hovernet_module_path(path: tuple[str, ...]) -> str:
         return head
     if re.fullmatch(r"d\d", head):
         return f"{head}.{_unit_name(rest[0], preact='preact/bn')}"
-    # decoder branch: np, hv, tp
+    # decoder branch: np, hv, tp, ls
     name = rest[0]
     if name in ("u0_bn", "u0_conv"):
         return f"decoder.{head}.u0.{name[3:]}"
@@ -149,18 +157,60 @@ def _unit_name(name: str, preact: str) -> str:
 
 
 def flax_hovernet_to_torch(variables: dict) -> dict[str, torch.Tensor]:
-    """Convert flax ``HoVerNet`` variables (either mode) to an upstream-named ``state_dict``."""
+    """Convert flax ``HoVerNet`` (either mode) or ``HoVerNetPlus`` variables to an upstream-named ``state_dict``."""
     return _convert(variables, _hovernet_module_path)
 
 
-def _convert(variables: dict, module_path) -> dict[str, torch.Tensor]:
-    """Flax leaves -> ``state_dict`` entries, under the names ``module_path`` gives."""
+def _micronet_module_path(path: tuple[str, ...]) -> str:
+    """Upstream MicroNet module name of a flax module path (``torch_micronet_to_flax``)."""
+    head, *rest = path
+    if rest:  # b1-b4, b6-b9: convK, bn1 / bn3 (after conv1 / conv3's tanh), upK
+        name = rest[0]
+        if name.startswith("bn"):
+            return f"layer.{head}.conv{name[2:]}.2"
+        return f"layer.{head}.{name}" if name.startswith("up") else f"layer.{head}.{name}.0"
+    block, name = head.rsplit("_", 1)  # b5_conv1, fm1_up1, fm1_conv1, aux_out1_conv, out_conv
+    if name == "conv" and block.startswith(("aux_out", "out")):
+        return f"layer.{block}.1"
+    return f"layer.{block}.{name}" if name.startswith("up") else f"layer.{block}.{name}.0"
+
+
+def _is_transposed(module: str) -> bool:
+    """MicroNet's transpose convolutions: ``up1`` to ``up3``."""
+    return module.rsplit(".", 1)[-1].startswith("up")
+
+
+def flax_micronet_to_torch(variables: dict) -> dict[str, torch.Tensor]:
+    """Convert flax ``MicroNet`` variables to an upstream-named ``state_dict``."""
+    return _convert(variables, _micronet_module_path, transposed=_is_transposed)
+
+
+def flax_mapde_to_torch(variables: dict) -> dict[str, torch.Tensor]:
+    """Convert flax ``MapDe`` variables (the MicroNet trunk under "trunk") to an
+    upstream-named ``state_dict``, without the fixed ``dist_filter``."""
+    trunk = {collection: tree["trunk"] for collection, tree in variables.items() if "trunk" in tree}
+    return flax_micronet_to_torch(trunk)
+
+
+def flax_sccnn_to_torch(variables: dict) -> dict[str, torch.Tensor]:
+    """Convert flax ``SCCNN`` variables to an upstream-named ``state_dict``,
+    without the fixed ``xv``/``yv`` grids."""
+    return _convert(variables, lambda path: f"layer.{path[0]}.conv1.0")
+
+
+def _convert(variables: dict, module_path, transposed=lambda module: False) -> dict[str, torch.Tensor]:
+    """Flax leaves -> ``state_dict`` entries, under the names ``module_path``
+    gives; a kernel of a module that ``transposed`` names is a transpose
+    convolution's."""
     state: dict[str, torch.Tensor] = {}
     for path, value in _leaves(variables["params"]):
         module = module_path(path[:-1])
         leaf = path[-1]
         if leaf == "kernel":
-            value = value.transpose(3, 2, 0, 1) if value.ndim == 4 else value.T
+            if transposed(module):
+                value = value[::-1, ::-1].transpose(2, 3, 0, 1)
+            else:
+                value = value.transpose(3, 2, 0, 1) if value.ndim == 4 else value.T
             state[f"{module}.weight"] = torch.from_numpy(np.ascontiguousarray(value))
         elif leaf == "scale":
             state[f"{module}.weight"] = torch.from_numpy(value.copy())

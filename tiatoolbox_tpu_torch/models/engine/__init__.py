@@ -12,3 +12,4 @@ from tiatoolbox_tpu_torch.models.engine.multi_task_segmentor import (  # noqa: F
     MultiTaskSegmentor,
     NucleusInstanceSegmentor,
 )
+from tiatoolbox_tpu_torch.models.engine.nucleus_detector import NucleusDetector  # noqa: F401, E402

@@ -12,7 +12,9 @@ back to another decoder.
   instance's crop (``hovernet.py:555-558``).
 - ``csrc/contours.cpp``: ``find_contours_ccomp``, the contours and two-level
   hierarchy of ``cv2.findContours(mask, RETR_CCOMP, CHAIN_APPROX_SIMPLE)``
-  (JAX's ``utils/store_conversion.py:82-117``): the same points, contour
+  (JAX's ``utils/store_conversion.py:82-117``), and ``find_contours_tree``,
+  those of ``cv2.findContours(mask, RETR_TREE, CHAIN_APPROX_NONE)`` (JAX's
+  ``models/architecture/hovernetplus.py:181-183``): the same points, contour
   order and hierarchy rows.
 - ``csrc/jpegdec.cpp``: ``decode_jpeg_batch`` (JAX :153-189), the baseline
   JPEG decoder on ``std::thread`` workers, and ``decode_jpeg``, one stream at
@@ -114,13 +116,41 @@ def outer_contours(labels: np.ndarray, ids, starts, areas) -> list[np.ndarray]:
 def _contours() -> ctypes.CDLL:
     lib = _build.load(CONTOURS)
     ptr, i32 = ctypes.c_void_p, ctypes.c_int32
-    lib.ccomp_trace.argtypes = [ptr, i32, i32, ptr, ptr]
-    lib.ccomp_trace.restype = ptr
-    lib.ccomp_copy.argtypes = [ptr, ptr, ptr, ptr]
-    lib.ccomp_copy.restype = None
-    lib.ccomp_free.argtypes = [ptr]
-    lib.ccomp_free.restype = None
+    lib.contours_trace.argtypes = [ptr, i32, i32, i32, ptr, ptr]
+    lib.contours_trace.restype = ptr
+    lib.contours_copy.argtypes = [ptr, ptr, ptr, ptr]
+    lib.contours_copy.restype = None
+    lib.contours_free.argtypes = [ptr]
+    lib.contours_free.restype = None
     return lib
+
+
+# ``contours_trace`` modes (csrc/contours.cpp)
+_TREE = 1
+_ALL_POINTS = 2
+
+
+def _trace_contours(mask: np.ndarray, mode: int) -> tuple[list[np.ndarray], np.ndarray]:
+    mask8 = np.ascontiguousarray(np.asarray(mask) != 0, np.uint8)
+    if mask8.ndim != 2:
+        msg = f"mask must be 2-D, got shape {mask8.shape}."
+        raise ValueError(msg)
+    lib = _contours()
+    n_contours, n_points = ctypes.c_int64(0), ctypes.c_int64(0)
+    handle = lib.contours_trace(
+        _ptr(mask8), mask8.shape[0], mask8.shape[1], mode, ctypes.byref(n_contours), ctypes.byref(n_points)
+    )
+    if not handle:
+        msg = f"the contour tracer ran out of memory on a {mask8.shape} mask."
+        raise MemoryError(msg)
+    try:
+        points = np.empty((max(n_points.value, 1), 2), np.int32)
+        offsets = np.empty(n_contours.value + 1, np.int64)
+        hierarchy = np.empty((n_contours.value, 4), np.int32)
+        lib.contours_copy(handle, _ptr(points), _ptr(offsets), _ptr(hierarchy))
+    finally:
+        lib.contours_free(handle)
+    return [points[a:b].copy() for a, b in zip(offsets[:-1], offsets[1:])], hierarchy
 
 
 def find_contours_ccomp(mask: np.ndarray) -> tuple[list[np.ndarray], np.ndarray]:
@@ -135,26 +165,23 @@ def find_contours_ccomp(mask: np.ndarray) -> tuple[list[np.ndarray], np.ndarray]
     Raises:
         MemoryError: the tracer ran out of memory.
     """
-    mask8 = np.ascontiguousarray(np.asarray(mask) != 0, np.uint8)
-    if mask8.ndim != 2:
-        msg = f"mask must be 2-D, got shape {mask8.shape}."
-        raise ValueError(msg)
-    lib = _contours()
-    n_contours, n_points = ctypes.c_int64(0), ctypes.c_int64(0)
-    handle = lib.ccomp_trace(
-        _ptr(mask8), mask8.shape[0], mask8.shape[1], ctypes.byref(n_contours), ctypes.byref(n_points)
-    )
-    if not handle:
-        msg = f"find_contours_ccomp ran out of memory on a {mask8.shape} mask."
-        raise MemoryError(msg)
-    try:
-        points = np.empty((max(n_points.value, 1), 2), np.int32)
-        offsets = np.empty(n_contours.value + 1, np.int64)
-        hierarchy = np.empty((n_contours.value, 4), np.int32)
-        lib.ccomp_copy(handle, _ptr(points), _ptr(offsets), _ptr(hierarchy))
-    finally:
-        lib.ccomp_free(handle)
-    return [points[a:b].copy() for a, b in zip(offsets[:-1], offsets[1:])], hierarchy
+    return _trace_contours(mask, 0)
+
+
+def find_contours_tree(mask: np.ndarray) -> tuple[list[np.ndarray], np.ndarray]:
+    """Every border of a binary mask with its full nesting and every point, as
+    ``cv2.findContours(mask, RETR_TREE, CHAIN_APPROX_NONE)`` gives them.
+
+    The contours come in cv2's order, a pre-order walk of the tree, which
+    differs from ``find_contours_ccomp``'s where holes hold islands.
+
+    Returns:
+        As ``find_contours_ccomp``.
+
+    Raises:
+        MemoryError: the tracer ran out of memory.
+    """
+    return _trace_contours(mask, _TREE | _ALL_POINTS)
 
 
 @functools.cache

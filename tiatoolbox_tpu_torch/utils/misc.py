@@ -7,6 +7,8 @@ cube-root table, 12-bit luminance coefficients, 15-bit L descale): it
 equals ``cv2.cvtColor(img, cv2.COLOR_RGB2LAB)[..., 0]`` for every one of
 the 2**24 RGB colours.
 
+``get_bounding_box`` (:165) is the box of a mask's nonzero pixels.
+
 ``read_locations`` (:193) reads point annotations from an ndarray, ``.npy``,
 ``.csv`` or ``.json`` into a ``LocationTable``, a small numpy-backed table
 with the columns of JAX's DataFrame (the card machine has no pandas).
@@ -101,6 +103,15 @@ def get_luminosity_tissue_mask(img: np.ndarray, threshold: float) -> np.ndarray:
         msg = "Empty tissue mask computed."
         raise ValueError(msg)
     return tissue_mask
+
+
+def get_bounding_box(img: np.ndarray) -> np.ndarray:
+    """(start_x, start_y, end_x, end_y) of a mask's nonzero pixels, ends exclusive (``misc.py:165``)."""
+    rows = np.any(img, axis=1)
+    cols = np.any(img, axis=0)
+    r_min, r_max = np.where(rows)[0][[0, -1]]
+    c_min, c_max = np.where(cols)[0][[0, -1]]
+    return np.array([c_min, r_min, c_max + 1, r_max + 1])
 
 
 class LocationTable:
