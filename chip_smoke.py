@@ -70,7 +70,22 @@ temporary directory, and drives the port's entry points on them:
   checkpoint in its nucleus branches, the layer branch seeded; region feed,
   the generic fetch: K3 then K5 on the normalised canvas), with instance
   and layer counts, the same re-stitch and CPU checks, and K4 and K5 held
-  at HoVer-Net+'s shapes.
+  at HoVer-Net+'s shapes;
+- "zoo", the patch-classifier zoo: each of the registry's 19 classifier
+  backbones as get_pretrained_model("<backbone>-kather100k") and
+  ("<backbone>-pcam") at full width (seeded, batch norm calibrated on the
+  slide's patches), one batch of 64 at the registry shape (224^2 at 0.5
+  mpp, 96^2 at 1.0 mpp) timed and its first patches held against the CPU;
+  then PatchPredictor over phase A/B's slide with densenet161-kather100k
+  and with resnet18-idars-msi (the float host preproc), counts, grid and
+  CPU checked;
+- "features", DeepFeatureExtractor over the same slide with
+  CNNBackbone("resnet50"), TimmBackbone("UNI") and
+  TimmBackbone("efficientnet_b0"), each written to zarr and read back
+  equal, on the predictor's grid, its first patches against the CPU; then
+  each other VIT_CONFIGS encoder at full width on one batch of 16 (H0-mini
+  also against the CPU). No hand-written kernel is on these two phases'
+  path: their kernel counts are read and printed (all zero).
 
 Each phase prints one JSON line. The stain kernel is held against its plain
 PyTorch version on the card (main-path batch, all 2^24 RGB colours, ragged
@@ -123,9 +138,15 @@ from tiatoolbox_tpu_torch.models.architecture.hovernet_checkpoint import (  # no
 )
 from tiatoolbox_tpu_torch.models.architecture.hovernetplus import HoVerNetPlus  # noqa: E402
 from tiatoolbox_tpu_torch.models.architecture.unet import UNetModel  # noqa: E402
-from tiatoolbox_tpu_torch.models.architecture.vanilla import CNNModel  # noqa: E402
+from tiatoolbox_tpu_torch.models.architecture.vanilla import CNNBackbone, CNNModel  # noqa: E402
+from tiatoolbox_tpu_torch.models.architecture.vit import VIT_CONFIGS, TimmBackbone  # noqa: E402
 from tiatoolbox_tpu_torch.models.dataset import WSIPatchDataset  # noqa: E402
-from tiatoolbox_tpu_torch.models.engine import MultiTaskSegmentor, NucleusDetector, SemanticSegmentor  # noqa: E402
+from tiatoolbox_tpu_torch.models.engine import (  # noqa: E402
+    DeepFeatureExtractor,
+    MultiTaskSegmentor,
+    NucleusDetector,
+    SemanticSegmentor,
+)
 from tiatoolbox_tpu_torch.models.engine.io_config import IOPatchPredictorConfig  # noqa: E402
 from tiatoolbox_tpu_torch.models.engine.patch_predictor import PatchPredictor  # noqa: E402
 from tiatoolbox_tpu_torch.models.models_abc import ModelABC  # noqa: E402
@@ -583,13 +604,21 @@ def phase_stain(slide: Path) -> dict:
     return result
 
 
+def model_ready(images: np.ndarray) -> torch.Tensor:
+    """A host batch as the model takes it: uint8 / 255, a float batch as it is."""
+    x = torch.from_numpy(images).float()
+    return x.div_(255.0) if images.dtype == np.uint8 else x
+
+
 def calibrate_batch_norm(model: ModelABC, images: np.ndarray) -> None:
     """Set every batch norm's statistics to those of ``images``.
 
     With torchvision's initialisation every batch norm is the identity, and
     the logits hardly depend on the input. One forward in training mode with
     a cumulative average puts the statistics of real patches in place, so
-    the card-vs-CPU comparison below sees input-dependent outputs.
+    the card-vs-CPU comparison below sees input-dependent outputs. uint8
+    images are scaled to [0, 1]; float ones (a host preproc's output) are
+    taken as model-ready, as ``apply_u8`` takes them.
     """
     norms = [m for m in model.modules() if isinstance(m, torch.nn.BatchNorm2d)]
     for norm in norms:
@@ -597,7 +626,7 @@ def calibrate_batch_norm(model: ModelABC, images: np.ndarray) -> None:
         norm.momentum = None
     model.train()
     with torch.no_grad():
-        model(torch.from_numpy(images).to(model.device).float().div_(255.0))
+        model(model_ready(images).to(model.device))
     model.eval()
     for norm in norms:
         norm.momentum = 0.1
@@ -2381,6 +2410,304 @@ def phase_nucleus_zoo(slide: Path, tmp: Path, card: str) -> list[dict]:
     return rows
 
 
+# -- the patch-classifier zoo and feature extraction ------------------------------
+
+ZOO_BATCH = 64  # one batch at each registry input shape, and the engines' batch
+ZOO_SIZES = {"kather100k": (224, 0.5), "pcam": (96, 1.0)}  # registry patch side and mpp
+ZOO_PREDICT_MODEL = "densenet161-kather100k"
+ZOO_IDARS_MODEL = "resnet18-idars-msi"
+ZOO_CPU_PATCHES = 2  # patches held against the CPU
+ZOO_SOFTMAX_TOL = 1e-3
+# the checks against the CPU mean something only where the outputs depend on
+# the patch: the least std over patches of a probability, and of a feature
+# over the largest |feature|
+ZOO_MIN_SPREAD = 1e-3
+FEATURE_MIN_SPREAD = 1e-3
+# seeded layer-scale gammas start at 1e-5, so that the blocks hardly touch the
+# CLS token; the smoke sets them here, near a trained encoder's scale
+VIT_LAYER_SCALE = 0.5
+FEATURE_TOL = 1e-4  # features, card against the CPU, of their largest |feature|
+VIT_BATCH = 16
+
+
+def zoo_backbones() -> list[str]:
+    """The registry's classifier backbones, in registry order."""
+    seen = []
+    for cfg in PRETRAINED_MODELS.values():
+        if cfg["architecture"]["class"] == "vanilla.CNNModel" and cfg["architecture"]["kwargs"]["backbone"] not in seen:
+            seen.append(cfg["architecture"]["kwargs"]["backbone"])
+    return seen
+
+
+def grid_patches(slide: Path, side: int, mpp: float, n: int) -> tuple[np.ndarray, WSIPatchDataset]:
+    """The first ``n`` patches of the Otsu-masked ``side``^2 grid at ``mpp``, and the grid."""
+    dataset = WSIPatchDataset(slide, patch_input_shape=(side, side), stride_shape=(side, side), resolution=mpp, units="mpp")
+    return np.stack([dataset[i]["image"] for i in range(min(n, len(dataset)))]), dataset
+
+
+def on_cpu(model, batch: torch.Tensor):
+    """``model``'s forward on the CPU with a CPU copy of its parameters and
+    buffers (``torch.func.functional_call``): the same model, no second build."""
+    state = {k: v.cpu() for k, v in model.state_dict().items()}
+    with torch.inference_mode():
+        return torch.func.functional_call(model, state, (batch,))
+
+
+def held_probs(model, patches: np.ndarray, card: np.ndarray | None = None) -> tuple[float, float]:
+    """The first patches' softmax on the card (``card``, else computed here)
+    against the CPU (largest difference), and their logits' largest
+    difference over the largest |logit|."""
+    x = patches[:ZOO_CPU_PATCHES]
+    if card is None:
+        card = type(model).infer_batch(model, x)
+    staged = model_ready(x)
+    cpu_logits = on_cpu(model, staged)
+    with torch.inference_mode():
+        card_logits = model(staged.to(model.device)).cpu()
+    cpu = torch.softmax(cpu_logits.float(), dim=-1).numpy()
+    logit_rel = float((card_logits - cpu_logits).abs().max()) / max(float(cpu_logits.abs().max()), 1e-30)
+    return float(np.abs(card[:ZOO_CPU_PATCHES] - cpu).max()), logit_rel
+
+
+def zoo_forward(name: str, patches: np.ndarray) -> dict:
+    """A registry classifier on the card: seeded, batch norm calibrated, one
+    batch of ``ZOO_BATCH`` at its registry shape; the first patches against the CPU."""
+    model, ioconfig = get_pretrained_model(name, device=DEVICE)
+    check(tuple(ioconfig.patch_input_shape) == patches.shape[1:3], f"{name} input {ioconfig.patch_input_shape}")
+    calibrate_batch_norm(model, patches)
+    batch = torch.from_numpy(patches).to(DEVICE)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    probs = CNNModel.infer_batch_device(model, batch).cpu().numpy()
+    peak = int(torch.cuda.max_memory_allocated())
+    n_classes = model.num_classes
+    check(probs.shape == (len(patches), n_classes) and bool(np.isfinite(probs).all()), f"{name} probabilities")
+    forward_ms = time_ms(lambda: CNNModel.infer_batch_device(model, batch), 5)
+    cpu_err, logit_rel = held_probs(model, patches)
+    check(cpu_err <= ZOO_SOFTMAX_TOL, f"{name} card vs CPU softmax {cpu_err} > {ZOO_SOFTMAX_TOL}")
+    return {
+        "forward_ms_per_batch": forward_ms,
+        "patches_per_s": len(patches) / forward_ms * 1e3,
+        "peak_memory_bytes": peak,
+        "cpu_max_abs_diff": cpu_err,
+        "cpu_logit_rel_diff": logit_rel,
+        "prob_std_over_patches": float(probs.std(axis=0).max()),
+    }
+
+
+def zoo_predict(name: str, slide: Path, first: np.ndarray, expected: WSIPatchDataset) -> dict:
+    """``PatchPredictor(<registry name>)`` over the whole slide (Otsu mask,
+    kather100k ioconfig); counts, coordinates, rows and the CPU checked."""
+    model, ioconfig = get_pretrained_model(name, device=DEVICE)
+    host = np.stack([model.preproc_func(p) for p in first])
+    calibrate_batch_norm(model, host)
+    type(model).infer_batch(model, host[:ZOO_CPU_PATCHES])  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_all_counts()
+    t0 = time.perf_counter()
+    predictor = PatchPredictor(model=model, batch_size=ZOO_BATCH, verbose=False)
+    output = predictor.run([slide], patch_mode=False, ioconfig=ioconfig)[str(slide)]
+    seconds = time.perf_counter() - t0
+    counts = all_counts()
+    peak = int(torch.cuda.max_memory_allocated())
+    probs = output["probabilities"]
+    check(len(probs) == len(expected) == PREDICT_PATCHES, f"{name} patch count {len(probs)}")
+    check(np.array_equal(output["coordinates"], expected.inputs), f"{name} coordinates")
+    check(probs.shape == (len(expected), model.num_classes) and bool(np.isfinite(probs).all()), f"{name} shape")
+    row_err = float(np.abs(probs.sum(axis=1) - 1.0).max())
+    check(row_err <= 1e-4, f"{name} rows sum to 1 within {row_err}")
+    check(np.array_equal(output["predictions"], probs.argmax(axis=1)), f"{name} predictions")
+    # the run's first patches (the grid's, in order) against the CPU
+    cpu_err, logit_rel = held_probs(model, host, probs)
+    check(cpu_err <= ZOO_SOFTMAX_TOL, f"{name} card vs CPU softmax {cpu_err} > {ZOO_SOFTMAX_TOL}")
+    spread = float(probs.std(axis=0).max())
+    check(spread >= ZOO_MIN_SPREAD, f"{name} probabilities hardly depend on the patch: std {spread}")
+    return {
+        "model": name,
+        "seconds": seconds,
+        "patches": int(len(probs)),
+        "patches_per_s": len(probs) / seconds,
+        "peak_memory_bytes": peak,
+        "stages": predictor.stages,
+        "launches": counts,
+        "cpu_max_abs_diff": cpu_err,
+        "cpu_logit_rel_diff": logit_rel,
+        "prob_std_over_patches": spread,
+        "input_dtype": str(host.dtype),
+        "class_counts": np.bincount(output["predictions"], minlength=model.num_classes).tolist(),
+    }
+
+
+def phase_classifier_zoo(slide: Path, card: str) -> None:
+    """Every registry classifier backbone at full width, one batch at each of
+    its registry input shapes; then PatchPredictor over the A/B slide with
+    densenet161-kather100k and with an IDaRS entry (float host preproc)."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t_start = time.perf_counter()
+    patches = {ds: grid_patches(slide, side, mpp, ZOO_BATCH)[0] for ds, (side, mpp) in ZOO_SIZES.items()}
+    for ds, batch in patches.items():
+        check(len(batch) == ZOO_BATCH, f"{ds} grid has {len(batch)} patches")
+    rows = {}
+    for backbone in zoo_backbones():
+        rows[backbone] = {ds: zoo_forward(f"{backbone}-{ds}", batch) for ds, batch in patches.items()}
+        torch.cuda.empty_cache()
+    first, expected = grid_patches(slide, PATCH, 0.5, ZOO_BATCH)
+    runs = [zoo_predict(name, slide, first, expected) for name in (ZOO_PREDICT_MODEL, ZOO_IDARS_MODEL)]
+    check(runs[1]["input_dtype"] == "float32", "the IDaRS preproc gives float patches")
+    emit(
+        {
+            "phase": "zoo",
+            "seconds": time.perf_counter() - t_start,
+            "backbones": len(rows),
+            "forward": rows,
+            "predict": runs,
+            "card": card,
+        }
+    )
+
+
+class KeepingExtractor(DeepFeatureExtractor):
+    """The feature engine, keeping what it saves."""
+
+    def save_predictions(self, processed_predictions: dict, output_type: str, save_dir=None, output_file=None, **kwargs):
+        self.kept = processed_predictions
+        return super().save_predictions(processed_predictions, output_type, save_dir, output_file, **kwargs)
+
+
+def vit_gflop_per_patch(name: str, side: int = PATCH) -> float:
+    """Multiply-adds x 2 of a ``VIT_CONFIGS`` encoder on one side^2 patch:
+    the patch embedding, and per block the qkv and output projections, the
+    two attention products and the MLP (SwiGLU's packed fc1 is twice as wide)."""
+    cfg = VIT_CONFIGS[name]
+    p, dim = cfg["patch_size"], cfg["embed_dim"]
+    grid = -(-side // p)
+    tokens = grid * grid + 1 + cfg.get("reg_tokens", 0)
+    hidden = int(dim * cfg.get("mlp_ratio", 4.0))
+    mlp = (3 if cfg.get("swiglu") else 2) * dim * hidden
+    block = 2 * tokens * (4 * dim * dim + mlp) + 4 * tokens * tokens * dim
+    return (2 * p * p * 3 * dim * grid * grid + cfg["depth"] * block) / 1e9
+
+
+def temper_vit(model) -> None:
+    """Set a seeded ViT's layer-scale gammas to ``VIT_LAYER_SCALE``."""
+    with torch.no_grad():
+        for name, param in model.named_parameters():
+            if name.endswith(("ls1.gamma", "ls2.gamma")):
+                param.fill_(VIT_LAYER_SCALE)
+
+
+def feature_run(model, slide: Path, ioconfig, first: np.ndarray, expected: WSIPatchDataset, out: Path) -> dict:
+    """``DeepFeatureExtractor`` over the slide to zarr, read back equal, the
+    first patches against the CPU; the forward of one batch on the card."""
+    if any(isinstance(m, torch.nn.BatchNorm2d) for m in model.modules()):
+        calibrate_batch_norm(model, first)
+    temper_vit(model)
+    type(model).infer_batch(model, first[:ZOO_CPU_PATCHES])  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_all_counts()
+    t0 = time.perf_counter()
+    engine = KeepingExtractor(model=model, batch_size=ZOO_BATCH, verbose=False)
+    written = engine.run([slide], patch_mode=False, ioconfig=ioconfig, save_dir=out, output_type="zarr")[str(slide)]
+    seconds = time.perf_counter() - t0
+    counts = all_counts()
+    peak = int(torch.cuda.max_memory_allocated())
+    group = open_zarr(written)
+    features, coords = group["features"][:], group["coordinates"][:]
+    check(np.array_equal(features, engine.kept["features"]), "zarr features read back equal")
+    check(np.array_equal(coords, engine.kept["coordinates"]), "zarr coordinates read back equal")
+    check(features.shape == (len(expected), model.num_features), f"features shape {features.shape}")
+    check(np.array_equal(coords, expected.inputs), "feature coordinates equal the predictor's grid")
+    check(bool(np.isfinite(features).all()), "features finite")
+    cpu = on_cpu(model, torch.from_numpy(first[:ZOO_CPU_PATCHES]).float().div_(255.0)).numpy()
+    cpu_rel = float(np.abs(features[:ZOO_CPU_PATCHES] - cpu).max()) / max(float(np.abs(cpu).max()), 1e-30)
+    check(cpu_rel <= FEATURE_TOL, f"{model.backbone} features card vs CPU {cpu_rel} > {FEATURE_TOL}")
+    spread = float(features.std(axis=0).max()) / max(float(np.abs(features).max()), 1e-30)
+    check(spread >= FEATURE_MIN_SPREAD, f"{model.backbone} features hardly depend on the patch: {spread}")
+    on_card = torch.from_numpy(first).to(DEVICE)
+    forward_ms = time_ms(lambda: type(model).infer_batch_device(model, on_card), 3)
+    return {
+        "model": f"{type(model).__name__}({model.backbone})",
+        "seconds": seconds,
+        "patches": int(len(features)),
+        "features_per_s": len(features) / seconds,
+        "width": int(model.num_features),
+        "zarr_bytes": disk_bytes(written),
+        "peak_memory_bytes": peak,
+        "stages": engine.stages,
+        "launches": counts,
+        "cpu_relative_max_abs_diff": cpu_rel,
+        "feature_relative_std_over_patches": spread,
+        "forward_ms_per_batch": forward_ms,
+        "forward_batch": len(first),
+    }
+
+
+def vit_forward(name: str, batch: torch.Tensor, first: np.ndarray) -> dict:
+    """A ``VIT_CONFIGS`` encoder at full width on the card: one batch."""
+    torch.cuda.reset_peak_memory_stats()
+    model = TimmBackbone(name, device=DEVICE)
+    temper_vit(model)
+    feats = TimmBackbone.infer_batch_device(model, batch)
+    torch.cuda.synchronize()
+    peak = int(torch.cuda.max_memory_allocated())
+    width = VIT_CONFIGS[name]["embed_dim"]
+    check(tuple(feats.shape) == (len(batch), width), f"{name} features {tuple(feats.shape)}")
+    check(bool(torch.isfinite(feats).all()), f"{name} features finite")
+    forward_ms = time_ms(lambda: TimmBackbone.infer_batch_device(model, batch), 3)
+    gflop = vit_gflop_per_patch(name)
+    row = {
+        "shape": list(feats.shape),
+        "finite": True,
+        "parameters": sum(p.numel() for p in model.parameters()),
+        "forward_ms_per_batch": forward_ms,
+        "gflop_per_patch": gflop,
+        "tflop_per_s": gflop * len(batch) / forward_ms,
+        "peak_memory_bytes": peak,
+    }
+    if name == "H0-mini":  # registers and SwiGLU, held against the CPU too
+        card = TimmBackbone.infer_batch(model, first[:ZOO_CPU_PATCHES])
+        cpu = on_cpu(model, torch.from_numpy(first[:ZOO_CPU_PATCHES]).float().div_(255.0)).numpy()
+        row["cpu_relative_max_abs_diff"] = float(np.abs(card - cpu).max()) / float(np.abs(cpu).max())
+        check(row["cpu_relative_max_abs_diff"] <= FEATURE_TOL, f"H0-mini card vs CPU {row}")
+    del model, feats
+    torch.cuda.empty_cache()
+    return row
+
+
+def phase_features(slide: Path, tmp: Path, card: str) -> None:
+    """DeepFeatureExtractor over the A/B slide with CNNBackbone("resnet50"),
+    TimmBackbone("UNI") and TimmBackbone("efficientnet_b0"), each to zarr;
+    then every other VIT_CONFIGS encoder at full width on one batch."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t_start = time.perf_counter()
+    ioconfig = IOPatchPredictorConfig(**PRETRAINED_MODELS["resnet18-kather100k"]["ioconfig"]["kwargs"])
+    first, expected = grid_patches(slide, PATCH, 0.5, ZOO_BATCH)
+    runs = []
+    for cls, backbone in ((CNNBackbone, "resnet50"), (TimmBackbone, "UNI"), (TimmBackbone, "efficientnet_b0")):
+        model = cls(backbone, device=DEVICE)
+        runs.append(feature_run(model, slide, ioconfig, first, expected, tmp / f"features_{model.backbone}"))
+        if backbone in VIT_CONFIGS:
+            gflop = vit_gflop_per_patch(backbone)
+            runs[-1].update(gflop_per_patch=gflop, tflop_per_s=gflop * len(first) / runs[-1]["forward_ms_per_batch"])
+        del model
+        torch.cuda.empty_cache()
+    batch = torch.from_numpy(first[:VIT_BATCH]).to(DEVICE)
+    vits = {name: vit_forward(name, batch, first) for name in VIT_CONFIGS if name != "UNI"}
+    emit(
+        {
+            "phase": "features",
+            "seconds": time.perf_counter() - t_start,
+            "extract": runs,
+            "vit_configs": vits,
+            "card": card,
+        }
+    )
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; nothing was run.", file=sys.stderr)
@@ -2420,6 +2747,10 @@ def main() -> int:
         mark("detect")
         zoo = phase_nucleus_zoo(slide, Path(tmp), card)
         mark("nucleus_zoo")
+        phase_classifier_zoo(slide, card)
+        mark("zoo")
+        phase_features(slide, Path(tmp), card)
+        mark("features")
     # seconds since the start at the end of each group of phases
     emit({"phase": "timeline", "seconds_at_end": marks})
     # K2 to K4 run on phases C and D: their rows count both phases' launches

@@ -9,7 +9,9 @@ whole-slide nucleus instance segmentation, which build and load the host
 C++ libraries: the JPEG codec of the slide's tiles, the watershed) on the
 CPU on a tiny JPEG slide, and saves the results in every output type (the
 contour tracer's C++, sqlite3, the colour tables); then nucleus detection
-with SCCNN and HoVer-Net+'s layer post-processing.
+with SCCNN and HoVer-Net+'s layer post-processing; then the classifier zoo
+(MobileNetV3, an IDaRS entry) and feature extraction (DenseNet and
+EfficientNet features to zarr, a narrow ViT).
 """
 
 from __future__ import annotations
@@ -140,6 +142,32 @@ GUARDED_RUN = textwrap.dedent(
         cleaned = HoVerNetPlus._proc_ls(layers)
         assert set(np.unique(cleaned)) == {0, 1, 3}
         assert [v["type"] for v in HoVerNetPlus._get_layer_info(cleaned).values()] == [1, 1, 1, 3, 3]
+
+        # the classifier zoo (a non-ResNet backbone, an idars entry's float
+        # patches) and feature extraction (a CNN, EfficientNet and a narrow ViT
+        # encoder; the features saved to zarr)
+        from tiatoolbox_tpu_torch.models.architecture.vanilla import CNNBackbone
+        from tiatoolbox_tpu_torch.models.architecture.vit import TimmBackbone
+        from tiatoolbox_tpu_torch.models.engine import DeepFeatureExtractor
+        from tiatoolbox_tpu_torch.utils.zarrlite import open_zarr
+
+        zoo = PatchPredictor(model=CNNModel("mobilenet_v3_small", num_classes=2, device="cpu"), batch_size=4,
+                             verbose=False, device="cpu").run([slide], patch_mode=False, ioconfig=io)
+        assert zoo[str(slide)]["probabilities"].shape[1] == 2
+        idars, _ = get_pretrained_model("resnet18-idars-msi", device="cpu")
+        patches = np.stack([reader.read_rect((0, 0), (64, 64))] * 3)
+        assert PatchPredictor(model=idars, batch_size=2, verbose=False, device="cpu").run(
+            patches)["probabilities"].shape == (3, 2)
+        for extractor in (CNNBackbone("densenet121", device="cpu"), TimmBackbone("efficientnet_b0", device="cpu")):
+            written = DeepFeatureExtractor(extractor, batch_size=4, verbose=False, device="cpu").run(
+                [slide], patch_mode=False, ioconfig=io, save_dir=f"{tmp}/{extractor.backbone}", output_type="zarr")
+            group = open_zarr(written[str(slide)])
+            assert group["features"].shape == (len(group["coordinates"][:]), extractor.num_features)
+        from tiatoolbox_tpu_torch.models.architecture.vit import VisionTransformer
+
+        narrow = VisionTransformer(patch_size=8, embed_dim=32, depth=1, num_heads=2, reg_tokens=2, swiglu=True,
+                                   init_values=1e-5, img_size=64)
+        assert narrow(torch.zeros(1, 64, 64, 3)).shape == (1, 32)
 
     leaked = sorted(n for n in sys.modules if n.split(".")[0] in BLOCKED)
     assert not leaked, leaked

@@ -91,23 +91,40 @@ def resolve_device(device: str | torch.device | None = None) -> torch.device:
     return dev
 
 
-# Entries of ``tiatoolbox_tpu/data/pretrained_model.yaml``, copied by hand.
-PRETRAINED_MODELS: dict = {
-    "resnet18-kather100k": {
-        "architecture": {
-            "class": "vanilla.CNNModel",
-            "kwargs": {"backbone": "resnet18", "num_classes": 9},
-        },
-        "dataset": "kather100k",
+def _classifier_entry(backbone: str, num_classes: int, dataset: str, mpp: float, patch: int) -> dict:
+    """A ``vanilla.CNNModel`` registry entry (``pretrained_model.yaml:1-665``)."""
+    return {
+        "architecture": {"class": "vanilla.CNNModel", "kwargs": {"backbone": backbone, "num_classes": num_classes}},
+        "dataset": dataset,
         "ioconfig": {
             "class": "IOPatchPredictorConfig",
             "kwargs": {
-                "input_resolutions": [{"resolution": 0.5, "units": "mpp"}],
-                "patch_input_shape": [224, 224],
-                "stride_shape": [224, 224],
+                "input_resolutions": [{"resolution": mpp, "units": "mpp"}],
+                "patch_input_shape": [patch, patch],
+                "stride_shape": [patch, patch],
             },
         },
-    },
+    }
+
+
+# the registry's 19 classifier backbones, each trained on kather100k (9
+# classes, 224^2 at 0.5 mpp) and on pcam (2 classes, 96^2 at 1.0 mpp)
+_CLASSIFIER_BACKBONES = (
+    "alexnet", "densenet121", "densenet161", "densenet169", "densenet201", "googlenet", "inception_v3",
+    "mobilenet_v2", "mobilenet_v3_large", "mobilenet_v3_small", "resnet18", "resnet34", "resnet50",
+    "resnet101", "resnet152", "resnext50_32x4d", "resnext101_32x8d", "wide_resnet50_2", "wide_resnet101_2",
+)
+_IDARS_TARGETS = ("braf", "cimp", "cin", "hm", "msi", "tp53")
+
+# Entries of ``tiatoolbox_tpu/data/pretrained_model.yaml``, carried as a dict.
+PRETRAINED_MODELS: dict = {
+    **{f"{b}-kather100k": _classifier_entry(b, 9, "kather100k", 0.5, 224) for b in _CLASSIFIER_BACKBONES},
+    **{f"{b}-pcam": _classifier_entry(b, 2, "pcam", 1.0, 96) for b in _CLASSIFIER_BACKBONES},
+    # IDaRS (Bilal et al.): resnet18 at 0.5 mpp (its tumour model at 512^2),
+    # resnet34 at 1 mpp
+    **{f"resnet18-idars-{t}": _classifier_entry("resnet18", 2, "idars", 0.5, 224) for t in _IDARS_TARGETS},
+    "resnet18-idars-tumour": _classifier_entry("resnet18", 2, "idars", 0.5, 512),
+    **{f"resnet34-idars-{t}": _classifier_entry("resnet34", 2, "idars", 1, 224) for t in _IDARS_TARGETS},
     "fcn-tissue_mask": {
         "architecture": {
             "class": "unet.UNetModel",

@@ -2,7 +2,7 @@
 
 ``get_pretrained_model`` is the counterpart of
 ``tiatoolbox_tpu/models/architecture/__init__.py:89``: it builds a registry
-model (``vanilla.CNNModel``, ``unet.UNetModel``, ``hovernet.HoVerNet``,
+model (``vanilla.CNNModel`` over any of its 19 backbones, ``unet.UNetModel``, ``hovernet.HoVerNet``,
 ``hovernetplus.HoVerNetPlus``, ``micronet.MicroNet``, ``mapde.MapDe`` or
 ``sccnn.SCCNN``) and its ioconfig.
 Without ``pretrained_weights`` it looks for a local checkpoint first
@@ -41,22 +41,28 @@ def load_weights(model, path: str | Path) -> None:
     from tiatoolbox_tpu_torch.models.architecture.micronet import MicroNet
     from tiatoolbox_tpu_torch.models.architecture.sccnn import SCCNN
     from tiatoolbox_tpu_torch.models.architecture.unet import UNetModel
+    from tiatoolbox_tpu_torch.models.architecture.vanilla import CNNBackbone
+    from tiatoolbox_tpu_torch.models.architecture.vit import TimmBackbone, TimmModel
 
     path = Path(path)
     if path.suffix == ".npz":
         variables = weight_converter.load_flax_npz(path)
-        # MapDe is a MicroNet: the subclass first
+        # MapDe is a MicroNet and TimmModel a TimmBackbone: the subclass first
         for cls, convert in (
             (HoVerNet, weight_converter.flax_hovernet_to_torch),
             (UNetModel, weight_converter.flax_unet_to_torch),
             (MapDe, weight_converter.flax_mapde_to_torch),
             (MicroNet, weight_converter.flax_micronet_to_torch),
             (SCCNN, weight_converter.flax_sccnn_to_torch),
+            (CNNBackbone, lambda v: weight_converter.flax_cnn_backbone_to_torch(v, model.backbone)),
+            (TimmModel, lambda v: weight_converter.flax_timm_to_torch(v, classifier=True)),
+            (TimmBackbone, lambda v: weight_converter.flax_timm_to_torch(v, classifier=False)),
         ):
             if isinstance(model, cls):
                 break
         else:
-            convert = weight_converter.flax_resnet_to_torch
+            msg = f"No flax converter for {type(model).__name__}."
+            raise TypeError(msg)
         state = convert(variables)
     else:
         state = torch.load(path, map_location="cpu", weights_only=True)
@@ -108,3 +114,14 @@ def get_pretrained_model(
     io_cfg = cfg["ioconfig"]
     ioconfig = getattr(io_config, io_cfg["class"])(**io_cfg["kwargs"])
     return model, ioconfig
+
+
+# the patch-classifier zoo and the tile encoders
+from tiatoolbox_tpu_torch.models.architecture.efficientnet import (  # noqa: E402, F401
+    EfficientNetClassifier,
+    EfficientNetEncoder,
+    EfficientNetV2Encoder,
+)
+from tiatoolbox_tpu_torch.models.architecture.idars import IDaRS  # noqa: E402, F401
+from tiatoolbox_tpu_torch.models.architecture.vanilla import CNNBackbone, CNNModel  # noqa: E402, F401
+from tiatoolbox_tpu_torch.models.architecture.vit import TimmBackbone, TimmModel, VisionTransformer  # noqa: E402, F401

@@ -21,6 +21,17 @@ with torchvision names inside, ``classifier.*``; ``UNetModel``:
 reference ``.pth`` holds, less the fixed buffers the port computes (MapDe's
 ``dist_filter``, SCCNN's ``xv`` and ``yv``). ``load_flax_npz`` reads
 the JAX package's flattened ``.npz`` variables (``load_flax_npz`` :114).
+
+The patch-classifier zoo and the tile encoders have no torch -> flax
+converter in the JAX package beyond ``torch_vit_to_flax`` (:127-200), so
+their flax names are read from the flax modules: ``flax_cnn_backbone_to_torch``
+maps ``cnn_backbones.py``'s (``c0``, ``conv0``, ``db0_l0``, ``stem_conv``,
+``b1_0/dw_conv``, ``se1``, ``i3a/p2b_bn``, ``b1_p2b_bn``...) to torchvision's,
+``flax_efficientnet_to_torch`` ``efficientnet.py``'s (``stem_conv``,
+``s1_b0/expand_conv``...) to timm's, and ``flax_vit_to_torch``, the inverse
+of ``torch_vit_to_flax``, packs flax's ``query``, ``key`` and ``value``
+kernels into timm's ``qkv``; ``flax_timm_to_torch`` puts either encoder
+under ``feat_extract`` (with ``classifier`` for ``TimmModel``).
 """
 
 from __future__ import annotations
@@ -29,6 +40,9 @@ import re
 
 import numpy as np
 import torch
+
+from tiatoolbox_tpu_torch.models.architecture.cnn_backbones import _MBV2
+from tiatoolbox_tpu_torch.models.architecture.resnet import RESNET_CONFIGS
 
 
 def _resnet_names(prefix: str, rest) -> str:
@@ -196,6 +210,250 @@ def flax_sccnn_to_torch(variables: dict) -> dict[str, torch.Tensor]:
     """Convert flax ``SCCNN`` variables to an upstream-named ``state_dict``,
     without the fixed ``xv``/``yv`` grids."""
     return _convert(variables, lambda path: f"layer.{path[0]}.conv1.0")
+
+
+def _split_conv_bn(name: str) -> tuple[str, str]:
+    """``p2b_conv`` -> (``p2b``, ``conv``); ``p2b_bn`` -> (``p2b``, ``bn``); a bare
+    conv name (``b1_p2b``, ``dw``) -> (itself, ``conv``)."""
+    for suffix in ("_conv", "_bn"):
+        if name.endswith(suffix):
+            return name[: -len(suffix)], suffix[1:]
+    return name, "conv"
+
+
+_GOOGLENET_BRANCHES = {
+    "p1": "branch1", "p2a": "branch2.0", "p2b": "branch2.1", "p3a": "branch3.0", "p3b": "branch3.1", "p4": "branch4.1",
+}
+_GOOGLENET_STEM = {"stem1": "conv1", "stem2": "conv2", "stem3": "conv3"}
+_INCEPTION_STEM = {
+    "s1": "Conv2d_1a_3x3", "s2": "Conv2d_2a_3x3", "s3": "Conv2d_2b_3x3", "s4": "Conv2d_3b_1x1", "s5": "Conv2d_4a_3x3",
+}
+_INCEPTION_A = {
+    "p1": "branch1x1", "p2a": "branch5x5_1", "p2b": "branch5x5_2", "p3a": "branch3x3dbl_1",
+    "p3b": "branch3x3dbl_2", "p3c": "branch3x3dbl_3", "p4": "branch_pool",
+}
+_INCEPTION_C = {
+    "p1": "branch1x1", "p2a": "branch7x7_1", "p2b": "branch7x7_2", "p2c": "branch7x7_3",
+    **{f"p3{c}": f"branch7x7dbl_{i + 1}" for i, c in enumerate("abcde")}, "p4": "branch_pool",
+}
+_INCEPTION_E = {
+    "p1": "branch1x1", "p2a": "branch3x3_1", "p2b": "branch3x3_2a", "p2c": "branch3x3_2b", "p3a": "branch3x3dbl_1",
+    "p3b": "branch3x3dbl_2", "p3c": "branch3x3dbl_3a", "p3d": "branch3x3dbl_3b", "p4": "branch_pool",
+}
+_INCEPTION_BLOCKS = {
+    "a1": ("Mixed_5b", _INCEPTION_A), "a2": ("Mixed_5c", _INCEPTION_A), "a3": ("Mixed_5d", _INCEPTION_A),
+    "rA": ("Mixed_6a", {"1": "branch3x3", "2a": "branch3x3dbl_1", "2b": "branch3x3dbl_2", "2c": "branch3x3dbl_3"}),
+    "b1": ("Mixed_6b", _INCEPTION_C), "b2": ("Mixed_6c", _INCEPTION_C), "b3": ("Mixed_6d", _INCEPTION_C),
+    "b4": ("Mixed_6e", _INCEPTION_C),
+    "rB": ("Mixed_7a", {
+        "1a": "branch3x3_1", "1b": "branch3x3_2", "2a": "branch7x7x3_1", "2b": "branch7x7x3_2",
+        "2c": "branch7x7x3_3", "2d": "branch7x7x3_4",
+    }),
+    "c1": ("Mixed_7b", _INCEPTION_E), "c2": ("Mixed_7c", _INCEPTION_E),
+}
+
+
+def _alexnet_name(rest, params) -> str:  # noqa: ARG001
+    return f"features.{(0, 3, 6, 8, 10)[int(rest[0][1:])]}"
+
+
+def _densenet_name(rest, params) -> str:  # noqa: ARG001
+    name = rest[0]
+    fixed = {"conv0": "conv0", "bn0": "norm0", "bn_final": "norm5"}
+    if name in fixed:
+        return f"features.{fixed[name]}"
+    layer = re.fullmatch(r"db(\d+)_l(\d+)", name)
+    if layer:
+        part = {"bn1": "norm1", "conv1": "conv1", "bn2": "norm2", "conv2": "conv2"}[rest[1]]
+        return f"features.denseblock{int(layer.group(1)) + 1}.denselayer{int(layer.group(2)) + 1}.{part}"
+    trans = re.fullmatch(r"trans(\d+)_(bn|conv)", name)
+    return f"features.transition{int(trans.group(1)) + 1}.{'norm' if trans.group(2) == 'bn' else 'conv'}"
+
+
+def _mobilenet_v2_name(rest, params) -> str:
+    name = rest[0]
+    if name in ("stem_conv", "stem_bn"):
+        return f"features.0.{int(name == 'stem_bn')}"
+    if name in ("head_conv", "head_bn"):
+        return f"features.{1 + sum(n for _, _, n, _ in _MBV2)}.{int(name == 'head_bn')}"
+    stage, block = (int(v) for v in name[1:].split("_"))
+    o = int("expand_conv" in params[name])
+    part = {
+        "expand_conv": "0.0", "expand_bn": "0.1", "dw_conv": f"{o}.0", "dw_bn": f"{o}.1",
+        "project": f"{o + 1}", "project_bn": f"{o + 2}",
+    }[rest[1]]
+    return f"features.{1 + sum(n for _, _, n, _ in _MBV2[:stage]) + block}.conv.{part}"
+
+
+def _mobilenet_v3_name(rest, params) -> str:
+    name = rest[0]
+    blocks = sorted(int(k[1:]) for k in params if re.fullmatch(r"b\d+", k))
+    if name in ("stem", "stem_bn"):
+        return f"features.0.{int(name == 'stem_bn')}"
+    if name in ("head", "head_bn"):
+        return f"features.{len(blocks) + 1}.{int(name == 'head_bn')}"
+    kids = params[name]
+    o = int("expand" in kids)
+    se = int("se1" in kids)
+    part = {
+        "expand": "0.0", "expand_bn": "0.1", "dw": f"{o}.0", "dw_bn": f"{o}.1",
+        "se1": f"{o + 1}.fc1", "se2": f"{o + 1}.fc2", "project": f"{o + 1 + se}.0", "project_bn": f"{o + 1 + se}.1",
+    }[rest[1]]
+    return f"features.{int(name[1:]) + 1}.block.{part}"
+
+
+def _googlenet_name(rest, params) -> str:  # noqa: ARG001
+    if len(rest) == 1:  # stem1_conv ... stem3_bn
+        base, part = _split_conv_bn(rest[0])
+        return f"{_GOOGLENET_STEM[base]}.{part}"
+    base, part = _split_conv_bn(rest[1])
+    return f"inception{rest[0][1:]}.{_GOOGLENET_BRANCHES[base]}.{part}"
+
+
+def _inception_v3_name(rest, params) -> str:  # noqa: ARG001
+    base, part = _split_conv_bn(rest[0])
+    if base in _INCEPTION_STEM:
+        return f"{_INCEPTION_STEM[base]}.{part}"
+    block, branch = base.split("_", 1)
+    torch_block, branches = _INCEPTION_BLOCKS[block]
+    return f"{torch_block}.{branches[branch]}.{part}"
+
+
+_BACKBONE_NAMES = {
+    "alexnet": _alexnet_name,
+    "densenet": _densenet_name,
+    "mobilenet_v2": _mobilenet_v2_name,
+    "mobilenet_v3": _mobilenet_v3_name,
+    "googlenet": _googlenet_name,
+    "inception_v3": _inception_v3_name,
+}
+
+
+def flax_cnn_backbone_to_torch(
+    variables: dict,
+    backbone: str,
+    backbone_name: str = "backbone",
+    classifier_name: str = "classifier",
+) -> dict[str, torch.Tensor]:
+    """Convert flax ``CNNModel``/``CNNBackbone`` variables of any registry
+    backbone to the port's ``state_dict`` (``feat_extract.*`` with
+    torchvision's names, ``classifier.*``); the ResNets go through
+    ``flax_resnet_to_torch``."""
+    if backbone in RESNET_CONFIGS:
+        return flax_resnet_to_torch(variables, backbone_name, classifier_name)
+    family = next(f for f in _BACKBONE_NAMES if backbone.startswith(f))
+    name_of = _BACKBONE_NAMES[family]
+    params = variables["params"][backbone_name]
+
+    def module_path(path: tuple[str, ...]) -> str:
+        head, *rest = path
+        if head == classifier_name:
+            return "classifier"
+        return f"feat_extract.{name_of(rest, params)}"
+
+    return _convert(variables, module_path)
+
+
+_MBCONV_EXPAND = {
+    "expand_conv": "conv_pw", "expand_bn": "bn1", "dw_conv": "conv_dw", "dw_bn": "bn2",
+    "se_reduce": "se.conv_reduce", "se_expand": "se.conv_expand", "project_conv": "conv_pwl", "project_bn": "bn3",
+}
+_MBCONV_DS = {
+    "dw_conv": "conv_dw", "dw_bn": "bn1", "se_reduce": "se.conv_reduce", "se_expand": "se.conv_expand",
+    "project_conv": "conv_pw", "project_bn": "bn2",
+}
+_FUSED = {"expand_conv": "conv_exp", "expand_bn": "bn1", "project_conv": "conv_pwl", "project_bn": "bn2"}
+_CONV_BN_ACT = {"conv": "conv", "bn": "bn1"}
+_EFFICIENTNET_TOP = {
+    "stem_conv": "conv_stem", "stem_bn": "bn1", "head_conv": "conv_head", "head_bn": "bn2", "classifier": "classifier",
+}
+
+
+def flax_efficientnet_to_torch(variables: dict) -> dict[str, torch.Tensor]:
+    """Convert flax ``EfficientNetEncoder``, ``EfficientNetV2Encoder`` or
+    ``EfficientNetClassifier`` (its trunk under "encoder") variables to a
+    timm-named ``state_dict``."""
+    params = variables["params"]
+
+    def module_path(path: tuple[str, ...]) -> str:
+        at = ("encoder",) if path[0] == "encoder" else ()
+        head, *rest = path[len(at):]
+        if head in _EFFICIENTNET_TOP:
+            return _EFFICIENTNET_TOP[head]
+        stage, block = re.fullmatch(r"s(\d+)_b(\d+)", head).groups()
+        kids = (params["encoder"] if at else params)[head]
+        if "dw_conv" in kids:
+            table = _MBCONV_EXPAND if "expand_conv" in kids else _MBCONV_DS
+        else:
+            table = _FUSED if "expand_conv" in kids else _CONV_BN_ACT
+        return f"blocks.{stage}.{block}.{table[rest[0]]}"
+
+    return _convert(variables, module_path)
+
+
+def _t(value) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(value, dtype=np.float32))
+
+
+def flax_vit_to_torch(variables: dict) -> dict[str, torch.Tensor]:
+    """Convert flax ``VisionTransformer`` variables to a timm-named
+    ``state_dict``: the inverse of ``torch_vit_to_flax`` (JAX :127-200).
+
+    Flax's per-head ``query``/``key``/``value`` kernels ``[D, H, d]`` pack
+    into ``qkv.weight`` ``[3D, D]``, and ``out`` ``[H, d, D]`` becomes
+    ``proj.weight`` ``[D, D]``; only transposes and reshapes, so the
+    round trip is exact.
+    """
+    p = variables["params"]
+    kernel = np.asarray(p["patch_embed"]["kernel"])
+    state = {
+        "patch_embed.proj.weight": _t(kernel.transpose(3, 2, 0, 1)),
+        "patch_embed.proj.bias": _t(p["patch_embed"]["bias"]),
+        "cls_token": _t(p["cls_token"]),
+        "pos_embed": _t(p["pos_embed"]),
+        "norm.weight": _t(p["norm"]["scale"]),
+        "norm.bias": _t(p["norm"]["bias"]),
+    }
+    if "reg_tokens" in p:
+        state["reg_token"] = _t(p["reg_tokens"])
+    depth = sum(1 for k in p if re.fullmatch(r"block\d+", k))
+    for i in range(depth):
+        block, pre = p[f"block{i}"], f"blocks.{i}."
+        attn = block["attn"]
+        dim = np.asarray(attn["query"]["kernel"]).shape[0]
+        qkv = [np.asarray(attn[part]["kernel"]).reshape(dim, dim).T for part in ("query", "key", "value")]
+        state[pre + "attn.qkv.weight"] = _t(np.concatenate(qkv, axis=0))
+        state[pre + "attn.qkv.bias"] = _t(
+            np.concatenate([np.asarray(attn[part]["bias"]).reshape(dim) for part in ("query", "key", "value")])
+        )
+        state[pre + "attn.proj.weight"] = _t(np.asarray(attn["out"]["kernel"]).reshape(dim, dim).T)
+        state[pre + "attn.proj.bias"] = _t(attn["out"]["bias"])
+        for norm in ("norm1", "norm2"):
+            state[pre + f"{norm}.weight"] = _t(block[norm]["scale"])
+            state[pre + f"{norm}.bias"] = _t(block[norm]["bias"])
+        for fc in ("fc1", "fc2"):
+            state[pre + f"mlp.{fc}.weight"] = _t(np.asarray(block["mlp"][fc]["kernel"]).T)
+            state[pre + f"mlp.{fc}.bias"] = _t(block["mlp"][fc]["bias"])
+        for ls in ("ls1", "ls2"):
+            if ls in block:
+                state[pre + f"{ls}.gamma"] = _t(block[ls])
+    return state
+
+
+def flax_timm_to_torch(variables: dict, *, classifier: bool) -> dict[str, torch.Tensor]:
+    """Convert flax ``TimmBackbone`` (the encoder's variables) or, with
+    ``classifier``, ``TimmModel`` variables (``encoder`` and ``classifier``)
+    to the port's ``state_dict`` (``feat_extract.*``, ``classifier.*``)."""
+    encoder = variables
+    if classifier:
+        encoder = {c: tree["encoder"] for c, tree in variables.items() if "encoder" in tree}
+    convert = flax_vit_to_torch if "patch_embed" in encoder["params"] else flax_efficientnet_to_torch
+    state = {f"feat_extract.{k}": v for k, v in convert(encoder).items()}
+    if classifier:
+        head = variables["params"]["classifier"]
+        state["classifier.weight"] = _t(np.asarray(head["kernel"]).T)
+        state["classifier.bias"] = _t(head["bias"])
+    return state
 
 
 def _convert(variables: dict, module_path, transposed=lambda module: False) -> dict[str, torch.Tensor]:

@@ -13,3 +13,4 @@ from tiatoolbox_tpu_torch.models.engine.multi_task_segmentor import (  # noqa: F
     NucleusInstanceSegmentor,
 )
 from tiatoolbox_tpu_torch.models.engine.nucleus_detector import NucleusDetector  # noqa: F401, E402
+from tiatoolbox_tpu_torch.models.engine.deep_feature_extractor import DeepFeatureExtractor  # noqa: F401, E402
