@@ -85,7 +85,23 @@ temporary directory, and drives the port's entry points on them:
   equal, on the predictor's grid, its first patches against the CPU; then
   each other VIT_CONFIGS encoder at full width on one batch of 16 (H0-mini
   also against the CPU). No hand-written kernel is on these two phases'
-  path: their kernel counts are read and printed (all zero).
+  path: their kernel counts are read and printed (all zero);
+- "registry_tail", the registry entries ported last, each at full registry
+  width with seeded weights (batch norms calibrated on patches spread over
+  the slide, the output convolutions scaled so the first logits lie within
+  +-4): KongNet_CoNIC_1 through NucleusDetector.run over phase A/B's slide
+  (221 patches of 256^2 at stride 248, batch 16; the threshold from a
+  first run's map, the canvas stitched again with the plain K2 and K3, its
+  detections those of the plain map, its forward's TFLOP/s), one batch of
+  each other KongNet entry (the 512^2 mitosis detector, the wide decoder,
+  the 10-head entry; K2 and K3 held on its maps), GrandQC and EfficientUNet
+  through SemanticSegmentor.run over a 4096x3072 slide declared at 8 mpp
+  (their host preprocs: the per-patch feed; GrandQC's JPEG-80 round trip
+  held to tiatoolbox_tpu_torch/data/grandqc_jpeg_golden.npz; each model's
+  postproc on the fetched map), unet_tissue_mask_tsef on the region feed
+  over phase D's slide (K4, K2 and K3, each canvas pixel covered four
+  times), and both NuClick entries on one batch of 128^2 patches with
+  seeded clicks; every model's first patches against the CPU.
 
 Each phase prints one JSON line. The stain kernel is held against its plain
 PyTorch version on the card (main-path batch, all 2^24 RGB colours, ragged
@@ -105,7 +121,8 @@ bound (the normalise kernel also beside a device copy of its bytes). The
 classifier's, the U-Net's and HoVer-Net's first batch, and each nucleus
 model's first patches, are held against the same model on the CPU, and one bfloat16 batch of each
 segmentation model against float32. The script prints a "kernels" line
-(K2 to K5 also at each nucleus model's shapes, named ``kernel[model]``),
+(K2 to K5 also at each nucleus model's, KongNet's, the tissue masks' and
+the tsef U-Net's shapes, named ``kernel[model]``),
 the card's name and power limit, and last the result line
 {"ok": true, "device": {...}}. Any failed check raises, so the script exits
 non-zero; it also exits non-zero, printing no result, where CUDA is not
@@ -136,7 +153,10 @@ from tiatoolbox_tpu_torch.models.architecture.hovernet import HoVerNet  # noqa: 
 from tiatoolbox_tpu_torch.models.architecture.hovernet_checkpoint import (  # noqa: E402
     functional_hovernet_state_dict,
 )
+from tiatoolbox_tpu_torch.models.architecture.grandqc import GrandQCModel, jpeg_roundtrip  # noqa: E402
 from tiatoolbox_tpu_torch.models.architecture.hovernetplus import HoVerNetPlus  # noqa: E402
+from tiatoolbox_tpu_torch.models.architecture.kongnet import KongNet  # noqa: E402
+from tiatoolbox_tpu_torch.models.architecture.nuclick import NuClick  # noqa: E402
 from tiatoolbox_tpu_torch.models.architecture.unet import UNetModel  # noqa: E402
 from tiatoolbox_tpu_torch.models.architecture.vanilla import CNNBackbone, CNNModel  # noqa: E402
 from tiatoolbox_tpu_torch.models.architecture.vit import VIT_CONFIGS, TimmBackbone  # noqa: E402
@@ -179,6 +199,7 @@ JPEG_QUALITY = 90
 # holds the CPU build 1 dB above this floor
 JPEG_PSNR_FLOOR_DB = 38.0
 JPEG_GOLDEN = ROOT / "tiatoolbox_tpu_torch" / "data" / "jpeg_golden.npz"
+GRANDQC_GOLDEN = ROOT / "tiatoolbox_tpu_torch" / "data" / "grandqc_jpeg_golden.npz"
 # phase B keeps O(batch) on the card: 538,603,008 B at batch 64 on the deflate slide
 PREDICT_PEAK_LIMIT = 1 << 30
 # Published peaks of one H100 SXM (the port's records use these for bounds).
@@ -300,6 +321,20 @@ def check_jpeg_golden() -> dict:
         got = native.encode_jpeg(img, int(g["enc_quality"][i]))
         check(got == want, f"golden encode {name}: the stream differs from cv2's")
     return {"decode_cases": len(g["dec_names"]), "encode_cases": len(g["enc_names"])}
+
+
+def check_grandqc_golden() -> dict:
+    """GrandQC's JPEG-80 round trip (``grandqc.jpeg_roundtrip``, the port's
+    codec) against the golden set that scripts/make_grandqc_golden.py made
+    with OpenCV: the stream's bytes and the decoded pixels exact."""
+    g = np.load(GRANDQC_GOLDEN)
+    n = sum(1 for k in g.files if k.startswith("input_"))
+    for i in range(n):
+        image = g[f"input_{i}"]
+        stream = native.encode_jpeg(np.ascontiguousarray(image[..., ::-1]), int(g["quality"]))
+        check(stream == g[f"stream_{i}"].tobytes(), f"GrandQC golden {i}: the stream differs from cv2's")
+        check(np.array_equal(jpeg_roundtrip(image), g[f"output_{i}"]), f"GrandQC golden {i}: pixels differ")
+    return {"cases": n}
 
 
 def phase_jpeg(tmp: Path, card: str) -> Path:
@@ -2708,6 +2743,473 @@ def phase_features(slide: Path, tmp: Path, card: str) -> None:
     )
 
 
+# -- the registry's tail: KongNet, the tissue masks, the tsef U-Net, NuClick ------
+
+TAIL_KONGNET = "KongNet_CoNIC_1"  # on phase A/B's slide at 0.5 mpp: 17 x 13 patches of 256^2 at stride 248
+# one batch each: MIDOG at 512^2 on phase A/B's slide, the 0.25 mpp entries on phase D's
+TAIL_KONGNETS = ("KongNet_Det_MIDOG_1", "KongNet_MONKEY_1", "KongNet_PUMA_T1_3", "KongNet_PUMA_T2_3", "KongNet_PanNuke_1")
+TAIL_BATCH = 16
+# a 4096x3072 slide declared at 8 mpp holds 33 x 25 mm of tissue, a 40x
+# slide's: 9 x 7 patches of 512^2 at stride 480 at 8 mpp (EfficientUNet),
+# 12 x 9 at stride 256 at 10 mpp (GrandQC)
+TISSUE_SLIDE_WH = (4096, 3072)
+TISSUE_SLIDE_MPP = 8.0
+TISSUE_MODELS = ("grandqc_tissue_detection", "efficientunet-tissue_mask")
+TSEF_MODEL = "unet_tissue_mask_tsef"  # on phase D's slide at baseline: 13 x 9 patches of 1024^2 at stride 256
+NUCLICK_MODELS = ("nuclick_original-pannuke", "nuclick_light-pannuke")
+TAIL_CPU_TOL = 1e-3  # first-batch sigmoid / softmax maps, card against the CPU, absolute
+TAIL_CPU_PATCHES = 2
+
+
+def forward_gflop(model, batch: torch.Tensor) -> float:
+    """GFLOP of one patch's forward (2 per multiply-add of the convolutions
+    and matrix products, ``torch.utils.flop_counter``)."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    counter = FlopCounterMode(display=False)
+    with counter, torch.inference_mode():
+        model(batch[:1])
+    return counter.get_total_flops() / 1e9
+
+
+def forward_timing(model, infer, batch: torch.Tensor) -> dict:
+    """``infer(batch)``'s device time a batch, its GFLOP a patch and its TFLOP/s."""
+    ms = time_ms(lambda: infer(batch), 5)
+    gflop = forward_gflop(model, batch.float() if batch.dtype == torch.uint8 else batch)
+    return {
+        "forward_ms_per_batch": ms,
+        "batch": int(batch.shape[0]),
+        "gflop_per_patch": gflop,
+        "tflop_per_s": gflop * batch.shape[0] / ms,
+        "patches_per_s_forward": batch.shape[0] / ms * 1e3,
+    }
+
+
+def spread_patches(model, slide: Path, ioconfig, n: int) -> np.ndarray:
+    """``n`` grid patches evenly spaced over ``slide`` (through the model's own
+    preproc): the batch the seeded network's batch norms are calibrated on,
+    tissue and background alike, where the grid's first patches are the top rows."""
+    _, dataset = first_patches(model, slide, ioconfig, 1)
+    picks = np.linspace(0, len(dataset) - 1, n).round().astype(int)
+    return np.stack([dataset[int(i)]["image"] for i in picks])
+
+
+def temper_heads(model, patches: np.ndarray, heads) -> float:
+    """Scale the output convolutions so that ``patches``' logits lie within
+    +-4: the seeded network's reach tens, where the sigmoid is flat at 0 and 1
+    and a map's top quantile is a plateau. Returns the scale."""
+    with torch.inference_mode():
+        peak = float(model(torch.from_numpy(patches).to(model.device)).abs().max())
+    scale = 4.0 / max(peak, 1e-30)
+    with torch.no_grad():
+        for head in heads:
+            head.weight.mul_(scale)
+            head.bias.mul_(scale)
+    return scale
+
+
+def centre_logits(model, patches: np.ndarray, head, probability: float) -> float:
+    """Shift ``head``'s bias so that the median logit of ``patches`` is that of
+    ``probability``: a seeded EfficientUNet's sigmoid never reaches the
+    registry's 0.95 otherwise, and its mask would be empty. Returns the shift."""
+    with torch.inference_mode():
+        logits = model(torch.from_numpy(patches).to(model.device)).float()
+    shift = float(np.log(probability / (1 - probability)) - logits.median())
+    with torch.no_grad():
+        head.bias.add_(shift)
+    return shift
+
+
+def kongnet_maps_on_cpu(model, patches: np.ndarray) -> np.ndarray:
+    """The KongNet's target sigmoids for ``patches`` on the CPU (``on_cpu``)."""
+    logits = on_cpu(model, torch.from_numpy(patches)).float()
+    return torch.sigmoid(logits[..., model.target_channels]).numpy()
+
+
+def hold_canvas_kernels(maps: torch.Tensor, stride: int, what: str) -> float:
+    """K2 then K3 against their plain versions, bit for bit, on a batch's maps
+    laid on a square grid at ``stride``; returns the largest difference."""
+    n, ph, pw, n_ch = maps.shape
+    side = int(np.ceil(np.sqrt(n)))
+    pos = np.array([[(i // side) * stride, (i % side) * stride] for i in range(n)], np.int32)
+    hw = (int(pos[:, 0].max()) + ph, int(pos[:, 1].max()) + pw)
+    ok = np.ones(n, bool)
+
+    def zeros(ch: int) -> torch.Tensor:
+        return torch.zeros((*hw, ch), device=DEVICE)
+
+    got = canvas_ops.scatter_accumulate(zeros(n_ch), zeros(1), maps, pos, ok)
+    want = canvas_ops.scatter_accumulate_reference(zeros(n_ch), zeros(1), maps, pos, ok)
+    return max(
+        held_bitwise(got[0], want[0], f"{what} scatter canvas"),
+        held_bitwise(got[1], want[1], f"{what} scatter count"),
+        held_bitwise(
+            canvas_ops.normalize_rows(*got, 0, hw[0], hw[1]),
+            canvas_ops.normalize_rows_reference(*want, 0, hw[0], hw[1]),
+            f"{what} normalised map",
+        ),
+    )
+
+
+def release(*models) -> None:
+    for model in models:
+        model.to("cpu")
+    torch.cuda.empty_cache()
+
+
+def tail_kongnet(slide: Path, card: str, gen: torch.Generator) -> list[dict]:
+    """KongNet_CoNIC_1 through ``NucleusDetector.run`` over phase A/B's slide:
+    a first run for the threshold, then the timed run; the canvas stitched
+    again with the plain K2 and K3, its detections those of the plain map,
+    the first patches against the CPU."""
+    model, ioconfig = get_pretrained_model(TAIL_KONGNET, device=DEVICE)
+    first, dataset = first_patches(model, slide, ioconfig, TAIL_BATCH)
+    spread = spread_patches(model, slide, ioconfig, TAIL_BATCH)
+    calibrate_batch_norm(model, spread)
+    head_scale = temper_heads(model, spread, [head[0] for head in model.heads])
+    batch = torch.from_numpy(first).to(DEVICE)
+    KongNet.infer_batch_device(model, batch)  # warm-up: cuDNN picks its algorithms
+    engine = CanvasKeepingDetector(model, batch_size=TAIL_BATCH, verbose=False)
+    n_ch = len(model.target_channels)
+    recorder = CanvasRecorder(-(-len(dataset) // TAIL_BATCH), (TAIL_BATCH, *ioconfig.patch_output_shape, n_ch))
+    # the first run only gives the map: no sigmoid exceeds 1, so it finds no peaks
+    _, _, calib_seconds, _, _ = zoo_run(engine, slide, ioconfig, recorder, "device-canvas", threshold_abs=1.0)
+    # the seeded network's sigmoid saturates at 1.0 on the zero-padded edge
+    # patches: the threshold is taken among the values below that
+    kept = engine.kept_canvas
+    threshold = float(np.quantile(kept[kept < 1.0], DETECT_PEAK_QUANTILE))
+    del kept
+    found, counts, seconds, peak, summary = zoo_run(
+        engine, slide, ioconfig, recorder, "device-canvas", threshold_abs=threshold
+    )
+    check_launched(counts, ("scatter_accumulate", "normalize_rows"), TAIL_KONGNET)
+    canvas = engine.kept_canvas
+    h, w = canvas.shape[:2]
+    check(canvas.shape == (SLIDE_WH[1], SLIDE_WH[0], n_ch) and bool(np.isfinite(canvas).all()), f"map {canvas.shape}")
+    n_found = len(found["coordinates"])
+    check(n_found > 0 and set(np.unique(found["types"])) <= set(range(n_ch)), f"{TAIL_KONGNET} detections")
+    scatter_err, plain_c, plain_n = restitch_canvas(recorder)
+    plain_map = canvas_ops.normalize_rows_reference(plain_c, plain_n, 0, h, w).cpu().numpy()
+    del plain_c, plain_n
+    map_err = held_bitwise(torch.from_numpy(canvas), torch.from_numpy(plain_map), "kernel-normalised map == plain map")
+    plain_found = engine.post_process_wsi({"probabilities": plain_map})
+    for key in ("coordinates", "scores", "types"):
+        check(np.array_equal(found[key], plain_found[key]), f"{TAIL_KONGNET} detections of the plain map: {key}")
+    card_first = recorder.calls[0][0][:TAIL_CPU_PATCHES].numpy()
+    cpu_err = float(np.abs(card_first - kongnet_maps_on_cpu(model, first[:TAIL_CPU_PATCHES])).max())
+    check(cpu_err <= TAIL_CPU_TOL, f"{TAIL_KONGNET} card vs CPU maps {cpu_err} > {TAIL_CPU_TOL}")
+    timing = forward_timing(model, lambda b: KongNet.infer_batch_device(model, b), batch)
+    scatter = check_scatter(recorder, gen, ragged=False)
+    normalize = check_normalize(recorder.canvas, h, w)
+    scatter["max_abs_err"] = max(scatter["max_abs_err"], scatter_err)
+    normalize["max_abs_err"] = max(normalize["max_abs_err"], map_err)
+    n_patches = sum(int(np.count_nonzero(valid)) for *_, valid in recorder.calls)
+    measured = {"scatter_accumulate": scatter, "normalize_rows": normalize}
+    emit(
+        {
+            "phase": "registry_tail",
+            "model": TAIL_KONGNET,
+            "path": summary["path"],
+            "slide_wh": [w, h],
+            "seconds": seconds,
+            "first_run_seconds": calib_seconds,
+            "patches": n_patches,
+            "patches_per_s": n_patches / seconds,
+            "threshold_abs": threshold,
+            "saturated_share": float((canvas == 1.0).mean()),
+            "head_scale": head_scale,
+            "detections": n_found,
+            "detections_per_s": n_found / seconds,
+            "detections_per_type": np.bincount(found["types"], minlength=n_ch).tolist(),
+            **timing,
+            "peak_memory_bytes": peak,
+            "launches": counts,
+            "stages": {k: v for k, v in summary.items() if isinstance(v, dict)},
+            "cpu_max_abs_diff": cpu_err,
+            "restitch_scatter_max_abs_err": scatter_err,
+            "restitch_normalize_max_abs_err": map_err,
+            "kernels": measured,
+            "card": card,
+        }
+    )
+    del recorder, engine
+    release(model)
+    return zoo_rows(TAIL_KONGNET, counts, measured)
+
+
+def tail_kongnet_batches(slide: Path, slide_quarter: Path, card: str) -> None:
+    """One batch of each other KongNet entry at its registry shape: timed,
+    its first patch against the CPU, K2 and K3 held on its maps."""
+    for name in TAIL_KONGNETS:
+        model, ioconfig = get_pretrained_model(name, device=DEVICE)
+        mpp = ioconfig.highest_input_resolution["resolution"]
+        patches = spread_patches(model, slide if mpp == 0.5 else slide_quarter, ioconfig, TAIL_BATCH)
+        calibrate_batch_norm(model, patches)
+        temper_heads(model, patches, [head[0] for head in model.heads])
+        batch = torch.from_numpy(patches).to(DEVICE)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        maps = KongNet.infer_batch_device(model, batch)
+        peak = int(torch.cuda.max_memory_allocated())
+        check(tuple(maps.shape) == (TAIL_BATCH, *ioconfig.patch_output_shape, len(model.target_channels)), name)
+        check(bool(torch.isfinite(maps).all()), f"{name} maps finite")
+        cpu_err = float(np.abs(maps[:1].cpu().numpy() - kongnet_maps_on_cpu(model, patches[:1])).max())
+        check(cpu_err <= TAIL_CPU_TOL, f"{name} card vs CPU maps {cpu_err} > {TAIL_CPU_TOL}")
+        stride = int(ioconfig.stride_shape[0])
+        canvas_err = hold_canvas_kernels(maps, stride, name)
+        emit(
+            {
+                "phase": "registry_tail",
+                "model": name,
+                "heads": len(model.heads),
+                "wide_decoder": model.decoders[0].blocks[4].conv2[0].out_channels == 32,
+                "patch": list(ioconfig.patch_input_shape),
+                **forward_timing(model, lambda b: KongNet.infer_batch_device(model, b), batch),
+                "peak_memory_bytes": peak,
+                "map_std": float(maps.std()),
+                "cpu_max_abs_diff": cpu_err,
+                "canvas_kernels_max_abs_err": canvas_err,
+                "card": card,
+            }
+        )
+        release(model)
+
+
+def tissue_cpu_maps(model, patches: np.ndarray) -> np.ndarray:
+    """A tissue model's probabilities for ``patches`` on the CPU."""
+    logits = on_cpu(model, torch.from_numpy(patches)).float()
+    if isinstance(model, GrandQCModel):
+        return torch.softmax(logits, dim=-1).numpy()
+    return torch.sigmoid(logits).numpy()
+
+
+def tail_tissue(name: str, slide: Path, card: str, gen: torch.Generator) -> list[dict]:
+    """A tissue model through ``SemanticSegmentor.run`` (per-patch feed: its
+    host preproc), its canvas stitched again with the plain versions, its
+    ``postproc`` on the fetched map, its first patches against the CPU."""
+    model, ioconfig = get_pretrained_model(name, device=DEVICE)
+    first, dataset = first_patches(model, slide, ioconfig, TAIL_BATCH)
+    spread = spread_patches(model, slide, ioconfig, TAIL_BATCH)
+    calibrate_batch_norm(model, spread)
+    temper_heads(model, spread, [model.segmentation_head[0]])
+    if not isinstance(model, GrandQCModel):  # half the mask above EfficientUNet's threshold
+        centre_logits(model, spread, model.segmentation_head[0], model.threshold)
+    batch = torch.from_numpy(first).to(DEVICE)
+    type(model).infer_batch_device(model, batch)  # warm-up
+    n_ch = model.num_output_channels if isinstance(model, GrandQCModel) else 1
+    engine = SemanticSegmentor(model, batch_size=TAIL_BATCH, verbose=False)
+    recorder = CanvasRecorder(-(-len(dataset) // TAIL_BATCH), (TAIL_BATCH, *ioconfig.patch_output_shape, n_ch))
+    result, counts, seconds, peak, summary = zoo_run(engine, slide, ioconfig, recorder, "device-canvas")
+    check_launched(counts, ("scatter_accumulate", "normalize_rows"), name)
+    probs = result["probabilities"]
+    h, w = probs.shape[:2]
+    want_w, want_h = WSIReader.open(slide).slide_dimensions(ioconfig.highest_input_resolution["resolution"], "mpp")
+    check(probs.shape == (want_h, want_w, n_ch) and bool(np.isfinite(probs).all()), f"{name} map {probs.shape}")
+    restitch = restitch_with_plain_versions(recorder, probs)
+    t0 = time.perf_counter()
+    mask = model.postproc(probs)
+    postproc_seconds = time.perf_counter() - t0
+    check(mask.shape == (h, w), f"{name} mask {mask.shape}")
+    card_first = recorder.calls[0][0][:TAIL_CPU_PATCHES].numpy()
+    cpu_err = float(np.abs(card_first - tissue_cpu_maps(model, first[:TAIL_CPU_PATCHES])).max())
+    check(cpu_err <= TAIL_CPU_TOL, f"{name} card vs CPU maps {cpu_err} > {TAIL_CPU_TOL}")
+    timing = forward_timing(model, lambda b: type(model).infer_batch_device(model, b), batch)
+    scatter = check_scatter(recorder, gen, ragged=False)
+    normalize = check_normalize(recorder.canvas, h, w)
+    scatter["max_abs_err"] = max(scatter["max_abs_err"], restitch["scatter_max_abs_err"])
+    normalize["max_abs_err"] = max(normalize["max_abs_err"], restitch["normalize_max_abs_err"])
+    n_patches = sum(int(np.count_nonzero(valid)) for *_, valid in recorder.calls)
+    measured = {"scatter_accumulate": scatter, "normalize_rows": normalize}
+    emit(
+        {
+            "phase": "registry_tail",
+            "model": name,
+            "path": summary["path"],
+            "canvas_wh": [w, h],
+            "seconds": seconds,
+            "patches": n_patches,
+            "patches_per_s": n_patches / seconds,
+            **timing,
+            "peak_memory_bytes": peak,
+            "mask_area_share": float(np.asarray(mask).astype(bool).mean()),
+            "mask_pixels": int(np.count_nonzero(mask)),
+            "postproc_seconds": postproc_seconds,
+            "launches": counts,
+            "stages": {k: v for k, v in summary.items() if isinstance(v, dict)},
+            "cpu_max_abs_diff": cpu_err,
+            "restitch": restitch,
+            "kernels": measured,
+            "card": card,
+        }
+    )
+    del recorder, engine
+    release(model)
+    return zoo_rows(name, counts, measured)
+
+
+def tail_tsef(slide_quarter: Path, card: str, gen: torch.Generator) -> list[dict]:
+    """unet_tissue_mask_tsef on the region feed over phase D's slide (1024^2
+    in, 512^2 out, stride 256: each canvas pixel covered four times), K4, K2
+    and K3 held against their plain versions, one patch against the CPU."""
+    model, ioconfig = get_pretrained_model(TSEF_MODEL, device=DEVICE)
+    first, dataset = first_patches(model, slide_quarter, ioconfig, TAIL_BATCH)
+    temper_random_weights(model)
+    calibrate_batch_norm(model, spread_patches(model, slide_quarter, ioconfig, TAIL_BATCH))
+    UNetModel.infer_batch_device(model, first[:2])  # warm-up
+    plan = region_ops.BandPlan.build(np.asarray(dataset.inputs), dataset.patch_input_shape, dataset.stride_shape)
+    n_slots = -(-len(dataset) // TAIL_BATCH) + len(plan.bands)
+    n_ch = model.num_output_channels
+    engine = SemanticSegmentor(model, batch_size=TAIL_BATCH, verbose=False)
+    recorder = CanvasRecorder(n_slots, (TAIL_BATCH, *ioconfig.patch_output_shape, n_ch))
+    result, counts, seconds, peak, summary = zoo_run(
+        engine, slide_quarter, ioconfig, recorder, "device-canvas+region-feed"
+    )
+    check_launched(counts, ("scatter_accumulate", "normalize_rows", "extract_patches"), TSEF_MODEL)
+    probs, preds = result["probabilities"], result["predictions"]
+    w, h = INST_SLIDE_WH
+    check(probs.shape == (h, w, n_ch) and bool(np.isfinite(probs).all()), f"tsef map {probs.shape}")
+    covered = probs.sum(axis=-1) > 0
+    row_err = float(np.abs(probs.sum(axis=-1)[covered] - 1.0).max())
+    check(row_err <= 1e-5, f"tsef covered pixels sum to 1 within {row_err}")
+    restitch = restitch_with_plain_versions(recorder, probs)
+    check(restitch["max_count"] == 4.0, f"tsef overlap {restitch['max_count']}")
+    x = model_ready(first[:1])
+    with torch.inference_mode():
+        card_logits = model(x.to(DEVICE)).float().cpu()
+    cpu_logits = on_cpu(model, x).float()
+    cpu_err = float((torch.softmax(card_logits, -1) - torch.softmax(cpu_logits, -1)).abs().max())
+    check(cpu_err <= TAIL_CPU_TOL, f"tsef card vs CPU softmax {cpu_err} > {TAIL_CPU_TOL}")
+    timing = forward_timing(model, lambda b: UNetModel.infer_batch_device(model, b), torch.from_numpy(first).to(DEVICE))
+    scatter = check_scatter(recorder, gen, ragged=False)
+    normalize = check_normalize(recorder.canvas, h, w)
+    extract = check_extract(slide_quarter, dataset, plan, TAIL_BATCH)
+    scatter["max_abs_err"] = max(scatter["max_abs_err"], restitch["scatter_max_abs_err"])
+    normalize["max_abs_err"] = max(normalize["max_abs_err"], restitch["normalize_max_abs_err"])
+    n_patches = sum(int(np.count_nonzero(valid)) for *_, valid in recorder.calls)
+    measured = {"scatter_accumulate": scatter, "normalize_rows": normalize, "extract_patches": extract}
+    emit(
+        {
+            "phase": "registry_tail",
+            "model": TSEF_MODEL,
+            "path": summary["path"],
+            "slide_wh": [w, h],
+            "seconds": seconds,
+            "patches": n_patches,
+            "patches_per_s": n_patches / seconds,
+            **timing,
+            "peak_memory_bytes": peak,
+            "n_bands": summary.get("n_bands"),
+            "class_counts": np.bincount(preds.ravel(), minlength=n_ch).tolist(),
+            "launches": counts,
+            "stages": {k: v for k, v in summary.items() if isinstance(v, dict)},
+            "cpu_softmax_max_abs_diff": cpu_err,
+            "restitch": restitch,
+            "kernels": measured,
+            "card": card,
+        }
+    )
+    del recorder, engine
+    release(model)
+    return zoo_rows(TSEF_MODEL, counts, measured)
+
+
+def click_inputs(patches: np.ndarray, seed: int) -> tuple[np.ndarray, np.ndarray]:
+    """NuClick's 5-channel input in [0, 1] (RGB / 255, a seeded inclusion click
+    and two exclusion clicks a patch) and the inclusion maps."""
+    n, h, w = patches.shape[:3]
+    rng = np.random.default_rng(seed)
+    points = rng.integers(8, [h - 8, w - 8], (n, 3, 2))
+    inc = np.zeros((n, h, w), np.float32)
+    exc = np.zeros((n, h, w), np.float32)
+    idx = np.arange(n)
+    inc[idx, points[:, 0, 0], points[:, 0, 1]] = 1
+    for j in (1, 2):
+        exc[idx, points[:, j, 0], points[:, j, 1]] = 1
+    rgb = patches.astype(np.float32) / 255
+    return np.concatenate([rgb, inc[..., None], exc[..., None]], axis=-1), inc
+
+
+def tail_nuclick(slide: Path, card: str) -> None:
+    """Both NuClick entries on one batch of 128^2 patches of phase A/B's slide
+    (baseline 0.25) with seeded clicks: timed, against the CPU, then ``postproc``."""
+    for name in NUCLICK_MODELS:
+        model, ioconfig = get_pretrained_model(name, device=DEVICE)
+        patches, _ = first_patches(model, slide, ioconfig, TAIL_BATCH)
+        x01, inc = click_inputs(patches, seed=23)
+        calibrate_batch_norm(model, x01)
+        light = isinstance(model, UNetModel)
+        # the U-Net divides its wire by 255, NuClick takes [0, 1]
+        batch = torch.from_numpy(x01 * 255 if light else x01).to(DEVICE)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        out = type(model).infer_batch_device(model, batch)
+        peak = int(torch.cuda.max_memory_allocated())
+        check(bool(torch.isfinite(out).all()), f"{name} output finite")
+        with torch.inference_mode():
+            card_logits = model(torch.from_numpy(x01[:TAIL_CPU_PATCHES]).to(DEVICE)).float().cpu()
+        cpu_logits = on_cpu(model, torch.from_numpy(x01[:TAIL_CPU_PATCHES])).float()
+        logit_rel = float((card_logits - cpu_logits).abs().max()) / max(float(cpu_logits.abs().max()), 1e-30)
+        cpu_err = float((torch.sigmoid(card_logits) - torch.sigmoid(cpu_logits)).abs().max())
+        check(cpu_err <= TAIL_CPU_TOL, f"{name} card vs CPU sigmoid of the logits {cpu_err} > {TAIL_CPU_TOL}")
+        host = out.cpu().numpy()
+        t0 = time.perf_counter()
+        if light:
+            masks = UNetModel.postproc(host)
+        else:
+            masks = NuClick.postproc(host, nuc_points=inc, do_reconstruction=True)
+        postproc_seconds = time.perf_counter() - t0
+        emit(
+            {
+                "phase": "registry_tail",
+                "model": name,
+                "output_shape": list(host.shape),
+                **forward_timing(model, lambda b: type(model).infer_batch_device(model, b), batch),
+                "peak_memory_bytes": peak,
+                "cpu_sigmoid_max_abs_diff": cpu_err,
+                "cpu_logit_rel_diff": logit_rel,
+                "postproc_seconds": postproc_seconds,
+                "mask_pixels_per_patch": float(np.asarray(masks).reshape(len(masks), -1).sum(axis=1).mean()),
+                "card": card,
+            }
+        )
+        release(model)
+
+
+def phase_registry_tail(slide: Path, tmp: Path, card: str) -> list[dict]:
+    """The registry entries ported last, at full registry width: KongNet on the
+    detector, GrandQC and EfficientUNet on the semantic engine, the tsef U-Net
+    on the region feed, NuClick on one batch. Returns the K2-K4 rows at their shapes."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t_start = time.perf_counter()
+    gen = torch.Generator(device=DEVICE).manual_seed(29)
+    slide_quarter = tmp / "nuclei.tiff"  # phase D's, 0.25 mpp
+    check(slide_quarter.exists(), "phase D's slide")
+    golden = check_grandqc_golden()
+    rows = tail_kongnet(slide, card, gen)
+    tail_kongnet_batches(slide, slide_quarter, card)
+    t0 = time.perf_counter()
+    tissue_slide = make_synthetic_slide(
+        tmp / "tissue.tiff", size=TISSUE_SLIDE_WH, mpp=TISSUE_SLIDE_MPP, objective_power=1.25, seed=61,
+        compression="deflate",
+    )
+    tissue_slide_seconds = time.perf_counter() - t0
+    for name in TISSUE_MODELS:
+        rows += tail_tissue(name, tissue_slide, card, gen)
+    rows += tail_tsef(slide_quarter, card, gen)
+    tail_nuclick(slide, card)
+    emit(
+        {
+            "phase": "registry_tail",
+            "seconds": time.perf_counter() - t_start,
+            "tissue_slide_seconds": tissue_slide_seconds,
+            "grandqc_golden": golden,
+            "card": card,
+        }
+    )
+    return rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; nothing was run.", file=sys.stderr)
@@ -2751,6 +3253,8 @@ def main() -> int:
         mark("zoo")
         phase_features(slide, Path(tmp), card)
         mark("features")
+        tail = phase_registry_tail(slide, Path(tmp), card)
+        mark("registry_tail")
     # seconds since the start at the end of each group of phases
     emit({"phase": "timeline", "seconds_at_end": marks})
     # K2 to K4 run on phases C and D: their rows count both phases' launches
@@ -2758,7 +3262,7 @@ def main() -> int:
     for row in segment:
         row["launches"] += held[row["name"]]["launches"]
         row["max_abs_err"] = max(row["max_abs_err"], held[row["name"]]["max_abs_err"])
-    print(json.dumps({"kernels": [stain, *segment, *instance, *detect, *zoo]}), flush=True)
+    print(json.dumps({"kernels": [stain, *segment, *instance, *detect, *zoo, *tail]}), flush=True)
     print(card, flush=True)
     print(
         json.dumps(

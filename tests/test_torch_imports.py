@@ -11,7 +11,9 @@ CPU on a tiny JPEG slide, and saves the results in every output type (the
 contour tracer's C++, sqlite3, the colour tables); then nucleus detection
 with SCCNN and HoVer-Net+'s layer post-processing; then the classifier zoo
 (MobileNetV3, an IDaRS entry) and feature extraction (DenseNet and
-EfficientNet features to zarr, a narrow ViT).
+EfficientNet features to zarr, a narrow ViT); then the registry's tail
+(KongNet on the detector, GrandQC's JPEG round trip and EfficientUNet's
+morphology on the semantic engine, NuClick with a click).
 """
 
 from __future__ import annotations
@@ -168,6 +170,36 @@ GUARDED_RUN = textwrap.dedent(
         narrow = VisionTransformer(patch_size=8, embed_dim=32, depth=1, num_heads=2, reg_tokens=2, swiglu=True,
                                    init_values=1e-5, img_size=64)
         assert narrow(torch.zeros(1, 64, 64, 3)).shape == (1, 32)
+
+        # the registry's tail: KongNet (V2-S) on the detector, GrandQC's JPEG
+        # round trip and EfficientUNet's ellipse morphology on the semantic
+        # engine, NuClick's clicks
+        from tiatoolbox_tpu_torch.models.architecture.efficientunet_tissue_mask_model import (
+            EfficientUNetTissueMaskModel,
+        )
+        from tiatoolbox_tpu_torch.models.architecture.grandqc import GrandQCModel
+        from tiatoolbox_tpu_torch.models.architecture.kongnet import KongNet
+        from tiatoolbox_tpu_torch.models.architecture.nuclick import NuClick
+
+        kong = KongNet(2, [3, 3], [2, 5], 3, 0.0, variant="efficientnetv2_s", device="cpu")
+        found = NucleusDetector(kong, batch_size=4, verbose=False, device="cpu").run(
+            [small], patch_mode=False, auto_get_mask=False, ioconfig=IOSegmentorConfig(
+                input_resolutions=[{"units": "mpp", "resolution": 0.5}],
+                output_resolutions=[{"units": "mpp", "resolution": 0.5}],
+                patch_input_shape=(64, 64), stride_shape=(56, 56)))[str(small)]
+        assert set(np.unique(found["types"])) <= {0, 1}
+        for tissue in (GrandQCModel(device="cpu"), EfficientUNetTissueMaskModel(device="cpu")):
+            tio = IOSegmentorConfig(input_resolutions=[{"units": "mpp", "resolution": 2.0}],
+                                    output_resolutions=[{"units": "mpp", "resolution": 2.0}],
+                                    patch_input_shape=(64, 64), stride_shape=(48, 48))
+            probs = SemanticSegmentor(tissue, batch_size=4, verbose=False, device="cpu").run(
+                [slide], patch_mode=False, ioconfig=tio, auto_get_mask=False)[str(slide)]["probabilities"]
+            assert tissue.postproc(probs).shape == probs.shape[:2]
+        clicks = np.zeros((1, 64, 64, 5), np.float32)
+        clicks[0, 30, 30, 3] = 1
+        nuclick = NuClick(device="cpu")
+        masks = NuClick.infer_batch(nuclick, clicks)
+        assert NuClick.postproc(masks, nuc_points=clicks[..., 3], do_reconstruction=True).shape == (1, 64, 64)
 
     leaked = sorted(n for n in sys.modules if n.split(".")[0] in BLOCKED)
     assert not leaked, leaked

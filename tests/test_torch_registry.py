@@ -1,11 +1,12 @@
 """The port's pretrained registry against the JAX package's, and the IDaRS path.
 
-Every entry of ``PRETRAINED_MODELS`` must equal the JAX registry's
+``PRETRAINED_MODELS`` must hold every one of the JAX registry's 74 entries
 (``tiatoolbox_tpu/data/pretrained_model.yaml``, read through the JAX
-package): architecture class and kwargs, dataset and ioconfig. Every one of
-the 51 ``vanilla.CNNModel`` entries builds on the CPU with its backbone's
-feature width and its class count (a forward at the registry's input shape
-for the small backbones only). ``idars_preproc`` must equal JAX's bit for
+package), each equal to JAX's: architecture class and kwargs, dataset and
+ioconfig. Every one of the 51 ``vanilla.CNNModel`` entries builds on the
+CPU with its backbone's feature width and its class count (a forward at the
+registry's input shape for the small backbones only), and so does each of
+the 11 entries of KongNet, the tissue masks and NuClick. ``idars_preproc`` must equal JAX's bit for
 bit, and an idars entry's float patches run through the port's engine as
 through JAX's (probabilities within 1e-4, float32).
 """
@@ -51,9 +52,10 @@ def jax_registry() -> dict:
 
 
 def test_every_classifier_of_the_jax_registry_is_served(jax_registry) -> None:
+    """All 74 entries of the JAX yaml are served, the 51 classifiers among them."""
     jax_classifiers = sorted(k for k, v in jax_registry.items() if v["architecture"]["class"] == "vanilla.CNNModel")
     assert CLASSIFIERS == jax_classifiers and len(CLASSIFIERS) == 51
-    assert len(PRETRAINED_MODELS) == 63
+    assert sorted(PRETRAINED_MODELS) == sorted(jax_registry) and len(PRETRAINED_MODELS) == 74
 
 
 @pytest.mark.parametrize("name", sorted(PRETRAINED_MODELS))
@@ -82,6 +84,48 @@ def test_classifier_entry_builds_on_the_cpu(name: str) -> None:
         probs = CNNModel.infer_batch(model, batch)
         assert probs.shape == (1, kwargs["num_classes"])
         np.testing.assert_allclose(probs.sum(axis=1), 1.0, atol=1e-5)
+
+
+# the entries served since the tissue masks, KongNet and NuClick were ported
+REGISTRY_TAIL = {
+    **{
+        name: ("KongNet", "IOSegmentorConfig")
+        for name in (
+            "KongNet_CoNIC_1", "KongNet_Det_MIDOG_1", "KongNet_MONKEY_1", "KongNet_PUMA_T1_3",
+            "KongNet_PUMA_T2_3", "KongNet_PanNuke_1",
+        )
+    },
+    "efficientunet-tissue_mask": ("EfficientUNetTissueMaskModel", "IOSegmentorConfig"),
+    "grandqc_tissue_detection": ("GrandQCModel", "IOSegmentorConfig"),
+    "nuclick_light-pannuke": ("UNetModel", "IOSegmentorConfig"),
+    "nuclick_original-pannuke": ("NuClick", "IOSegmentorConfig"),
+    "unet_tissue_mask_tsef": ("UNetModel", "IOSegmentorConfig"),
+}
+
+
+@pytest.mark.parametrize("name", sorted(REGISTRY_TAIL))
+def test_registry_tail_entry_builds_on_the_cpu(name: str) -> None:
+    """Each entry builds on the CPU as its class with its registry kwargs, and
+    its ioconfig with the registry's shapes, resolutions and units."""
+    cls, io_cls = REGISTRY_TAIL[name]
+    cfg = PRETRAINED_MODELS[name]
+    model, ioconfig = get_pretrained_model(name, device="cpu")
+    assert type(model).__name__ == cls and model.device.type == "cpu"
+    assert type(ioconfig).__name__ == io_cls
+    io_kwargs = cfg["ioconfig"]["kwargs"]
+    assert list(ioconfig.patch_input_shape) == io_kwargs["patch_input_shape"]
+    assert list(ioconfig.patch_output_shape) == io_kwargs["patch_output_shape"]
+    assert list(ioconfig.stride_shape) == io_kwargs.get("stride_shape", io_kwargs["patch_input_shape"])
+    assert ioconfig.highest_input_resolution == io_kwargs["input_resolutions"][0]
+    kwargs = cfg["architecture"]["kwargs"]
+    if cls == "KongNet":
+        assert len(model.heads) == kwargs["num_heads"] and model.target_channels == kwargs["target_channels"]
+        assert model.decoders[0].blocks[4].conv2[0].out_channels == (32 if kwargs["wide_decoder"] else 16)
+        assert model.class_dict == kwargs["class_dict"] and len(model.class_dict) == len(kwargs["target_channels"])
+        assert model.encoder.model.variant == "efficientnetv2_l"
+    elif cls == "UNetModel":
+        assert model.num_input_channels == kwargs["num_input_channels"]
+        assert model.clf.out_channels == kwargs["num_output_channels"]
 
 
 def test_idars_preproc_equals_jax_bit_for_bit() -> None:

@@ -327,3 +327,123 @@ PRETRAINED_MODELS.update(
         ),
     }
 )
+
+
+def _kongnet_entry(
+    class_dict: dict, min_distance: int, heads: int, targets: list, mpp: float, patch: int, stride: int,
+    *, channels_per_head: int = 3, threshold: float = 0.5, wide: bool = False,
+) -> dict:
+    """A ``kongnet.KongNet`` registry entry (``pretrained_model.yaml:1-301``), saved at baseline."""
+    ioconfig = _segmentor_ioconfig(mpp, patch, patch, stride, tile=None)
+    ioconfig["kwargs"]["save_resolution"] = {"resolution": 1.0, "units": "baseline"}
+    return {
+        "architecture": {
+            "class": "kongnet.KongNet",
+            "kwargs": {
+                "class_dict": class_dict,
+                "min_distance": min_distance,
+                "num_channels_per_head": [channels_per_head] * heads,
+                "num_heads": heads,
+                "target_channels": targets,
+                "threshold_abs": threshold,
+                "tile_shape": [2048, 2048],
+                "wide_decoder": wide,
+            },
+        },
+        "ioconfig": ioconfig,
+    }
+
+
+def _baseline_ioconfig(resolution: float, patch: int, out: int, stride: int | None, save: float) -> dict:
+    """An ``IOSegmentorConfig`` in baseline units, ``ignore_index`` 0."""
+    res = {"resolution": resolution, "units": "baseline"}
+    kwargs = {
+        "ignore_index": 0,
+        "input_resolutions": [dict(res)],
+        "output_resolutions": [dict(res)],
+        "patch_input_shape": [patch, patch],
+        "patch_output_shape": [out, out],
+        "save_resolution": {"resolution": save, "units": "baseline"},
+    }
+    if stride is not None:
+        kwargs["stride_shape"] = [stride, stride]
+    return {"class": "IOSegmentorConfig", "kwargs": kwargs}
+
+
+_PUMA_T2_CLASSES = (
+    "Tumour_Cell", "Lymphocyte", "Plasma_Cell", "Histiocyte", "Melanophage", "Neutrophil", "Stroma_Cell",
+    "Epithelial_Cell", "Endothelial_Cell", "Apoptotic_Cell",
+)
+
+# ``pretrained_model.yaml:1-301`` (KongNet), :502 (efficientunet-tissue_mask),
+# :635 (grandqc_tissue_detection), :1144 and :1180 (nuclick_*) and :1822
+# (unet_tissue_mask_tsef)
+PRETRAINED_MODELS.update(
+    {
+        "KongNet_CoNIC_1": _kongnet_entry(
+            dict(enumerate(("Neutrophil", "Epithelial", "Lymphocyte", "Plasma", "Eosinophil", "Connective"))),
+            5, 6, [2, 5, 8, 11, 14, 17], 0.5, 256, 248,
+        ),
+        "KongNet_Det_MIDOG_1": _kongnet_entry(
+            {0: "Mitotic_Figure"}, 21, 1, [0], 0.5, 512, 492, channels_per_head=1, threshold=0.99
+        ),
+        "KongNet_MONKEY_1": _kongnet_entry(
+            dict(enumerate(("Overall_Inflammatory", "Lymphocyte", "Monocyte"))), 11, 3, [2, 5, 8], 0.25, 256, 224,
+            wide=True,
+        ),
+        "KongNet_PUMA_T1_3": _kongnet_entry(
+            dict(enumerate(("Tumour_Cell", "Lymphocyte", "Other_Cell"))), 13, 3, [2, 5, 8], 0.25, 256, 224
+        ),
+        "KongNet_PUMA_T2_3": _kongnet_entry(
+            dict(enumerate(_PUMA_T2_CLASSES)), 13, 10, list(range(2, 30, 3)), 0.25, 256, 224
+        ),
+        "KongNet_PanNuke_1": _kongnet_entry(
+            dict(enumerate(("Neoplastic", "Inflammatory", "Connective", "Dead", "Epithelial"))),
+            11, 6, [5, 8, 11, 14, 17], 0.25, 256, 240,
+        ),
+        "efficientunet-tissue_mask": {
+            "architecture": {
+                "class": "efficientunet_tissue_mask_model.EfficientUNetTissueMaskModel",
+                "kwargs": {"num_output_channels": 1, "threshold": 0.95},
+            },
+            "ioconfig": _segmentor_ioconfig(8.0, 512, 512, 480, tile=None),
+        },
+        "grandqc_tissue_detection": {
+            "architecture": {
+                "class": "grandqc.GrandQCModel",
+                "kwargs": {"class_dict": {0: "Background", 1: "Tissue"}, "num_output_channels": 2},
+            },
+            "ioconfig": _segmentor_ioconfig(10.0, 512, 512, 256, tile=None, ignore_index=0),
+        },
+        "nuclick_light-pannuke": {
+            "architecture": {
+                "class": "unet.UNetModel",
+                "kwargs": {
+                    "decoder_block": [3, 3],
+                    "encoder": "unet",
+                    "encoder_levels": [32, 64, 128, 256],
+                    "num_input_channels": 5,
+                    "num_output_channels": 1,
+                    "skip_type": "add",
+                },
+            },
+            "ioconfig": _baseline_ioconfig(0.25, 128, 128, None, 1.0),
+        },
+        "nuclick_original-pannuke": {
+            "architecture": {"class": "nuclick.NuClick", "kwargs": {"num_input_channels": 5, "num_output_channels": 1}},
+            "ioconfig": _baseline_ioconfig(0.25, 128, 128, None, 1.0),
+        },
+        "unet_tissue_mask_tsef": {
+            "architecture": {
+                "class": "unet.UNetModel",
+                "kwargs": {
+                    "decoder_block": [3, 3],
+                    "encoder": "resnet50",
+                    "num_input_channels": 3,
+                    "num_output_channels": 3,
+                },
+            },
+            "ioconfig": _baseline_ioconfig(1.0, 1024, 512, 256, 1.0),
+        },
+    }
+)

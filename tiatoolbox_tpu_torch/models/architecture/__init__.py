@@ -3,8 +3,10 @@
 ``get_pretrained_model`` is the counterpart of
 ``tiatoolbox_tpu/models/architecture/__init__.py:89``: it builds a registry
 model (``vanilla.CNNModel`` over any of its 19 backbones, ``unet.UNetModel``, ``hovernet.HoVerNet``,
-``hovernetplus.HoVerNetPlus``, ``micronet.MicroNet``, ``mapde.MapDe`` or
-``sccnn.SCCNN``) and its ioconfig.
+``hovernetplus.HoVerNetPlus``, ``micronet.MicroNet``, ``mapde.MapDe``,
+``sccnn.SCCNN``, ``kongnet.KongNet``, ``grandqc.GrandQCModel``,
+``efficientunet_tissue_mask_model.EfficientUNetTissueMaskModel`` or
+``nuclick.NuClick``) and its ioconfig: every entry of the JAX registry.
 Without ``pretrained_weights`` it looks for a local checkpoint first
 (``fetch_pretrained_weights``, :21-43), in the JAX package's order: flax
 ``.npz``, then torch ``.pth`` and ``.tar`` ``state_dict``s. It never
@@ -15,6 +17,7 @@ initialisation.
 from __future__ import annotations
 
 import importlib
+import re
 from pathlib import Path
 
 import torch
@@ -33,12 +36,31 @@ def fetch_pretrained_weights(model_name: str) -> Path | None:
     return None
 
 
+def unwrap_checkpoint(checkpoint: dict) -> dict:
+    """The ``state_dict`` inside a torch checkpoint: HoVer-Net's ``"desc"``,
+    a ``"state_dict"`` and KongNet's ``"model"`` wrappers are taken off in
+    that order (``weight_converter.py:291-300``)."""
+    if "desc" in checkpoint:
+        checkpoint = checkpoint["desc"]
+    if "state_dict" in checkpoint:
+        checkpoint = checkpoint["state_dict"]
+    if isinstance(checkpoint.get("model"), dict):
+        checkpoint = checkpoint["model"]
+    return checkpoint
+
+
 def load_weights(model, path: str | Path) -> None:
     """Load a flax ``.npz`` (through the converter) or a torch ``state_dict`` into ``model``."""
     from tiatoolbox_tpu_torch.models.architecture import weight_converter
+    from tiatoolbox_tpu_torch.models.architecture.efficientunet_tissue_mask_model import (
+        EfficientUNetTissueMaskModel,
+    )
+    from tiatoolbox_tpu_torch.models.architecture.grandqc import GrandQCModel
     from tiatoolbox_tpu_torch.models.architecture.hovernet import HoVerNet
+    from tiatoolbox_tpu_torch.models.architecture.kongnet import KongNet
     from tiatoolbox_tpu_torch.models.architecture.mapde import MapDe
     from tiatoolbox_tpu_torch.models.architecture.micronet import MicroNet
+    from tiatoolbox_tpu_torch.models.architecture.nuclick import NuClick
     from tiatoolbox_tpu_torch.models.architecture.sccnn import SCCNN
     from tiatoolbox_tpu_torch.models.architecture.unet import UNetModel
     from tiatoolbox_tpu_torch.models.architecture.vanilla import CNNBackbone
@@ -54,6 +76,10 @@ def load_weights(model, path: str | Path) -> None:
             (MapDe, weight_converter.flax_mapde_to_torch),
             (MicroNet, weight_converter.flax_micronet_to_torch),
             (SCCNN, weight_converter.flax_sccnn_to_torch),
+            (KongNet, weight_converter.flax_kongnet_to_torch),
+            (GrandQCModel, weight_converter.flax_grandqc_to_torch),
+            (EfficientUNetTissueMaskModel, weight_converter.flax_efficientunet_to_torch),
+            (NuClick, weight_converter.flax_nuclick_to_torch),
             (CNNBackbone, lambda v: weight_converter.flax_cnn_backbone_to_torch(v, model.backbone)),
             (TimmModel, lambda v: weight_converter.flax_timm_to_torch(v, classifier=True)),
             (TimmBackbone, lambda v: weight_converter.flax_timm_to_torch(v, classifier=False)),
@@ -65,13 +91,17 @@ def load_weights(model, path: str | Path) -> None:
             raise TypeError(msg)
         state = convert(variables)
     else:
-        state = torch.load(path, map_location="cpu", weights_only=True)
-        if "state_dict" in state:
-            state = state["state_dict"]
+        state = unwrap_checkpoint(torch.load(path, map_location="cpu", weights_only=True))
         # fixed tables of the reference models, which the port computes: the
         # UNet's nearest-upsample matrix, MapDe's distance cone, SCCNN's grids
         for key in ("upsample2x.unpool_mat", "dist_filter", "xv", "yv"):
             state.pop(key, None)
+        # modules an upstream checkpoint may hold that no forward runs: the
+        # timm encoder's classifier head (GrandQC) and the SCSE before the
+        # last KongNet decoder block, which has no skip to attend over
+        unused = re.compile(r"encoder\.(conv_head|bn2)\.|decoders\.\d+\.blocks\.4\.attention1\.")
+        if isinstance(model, (GrandQCModel, KongNet)):
+            state = {k: v for k, v in state.items() if not unused.match(k)}
     model.load_state_dict(state)
 
 

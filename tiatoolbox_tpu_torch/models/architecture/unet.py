@@ -27,6 +27,7 @@ from torch import nn
 from tiatoolbox_tpu_torch import resolve_device
 from tiatoolbox_tpu_torch.models.architecture.resnet import ResNet, init_resnet_weights
 from tiatoolbox_tpu_torch.models.architecture.utils import (
+    argmax_last_axis,
     centre_crop,
     resize_bilinear,
     upsample2x,
@@ -177,10 +178,17 @@ class UNetModel(ModelABC):
             x = block(x)
         return self.clf(x).permute(0, 2, 3, 1)
 
+    @staticmethod
+    def postproc(image):
+        """The class map: argmax over the last axis (``unet.py:219``)."""
+        return argmax_last_axis(image)
+
     @classmethod
     @torch.inference_mode()
     def infer_batch_device(cls, model: "UNetModel", batch_data, device=None) -> torch.Tensor:
-        """uint8 NHWC batch -> float32 probabilities ``[N, H/2, W/2, C]`` on the device.
+        """NHWC batch (uint8, or a float wire of any channel count) -> float32
+        probabilities ``[N, H/2, W/2, C]`` on the device; the wire is divided
+        by 255, as JAX's ``_UNet`` divides any input (``unet.py:140``).
 
         The softmax runs in float32 whatever the compute dtype, as the JAX
         program does (``logits.astype(jnp.float32)``).

@@ -32,6 +32,13 @@ maps ``cnn_backbones.py``'s (``c0``, ``conv0``, ``db0_l0``, ``stem_conv``,
 of ``torch_vit_to_flax``, packs flax's ``query``, ``key`` and ``value``
 kernels into timm's ``qkv``; ``flax_timm_to_torch`` puts either encoder
 under ``feat_extract`` (with ``classifier`` for ``TimmModel``).
+
+The registry's last models have JAX converters again, and the port has
+their inverses: ``flax_kongnet_to_torch`` (``torch_kongnet_to_flax``
+:798-909; the encoder under ``encoder.model`` with timm's names),
+``flax_grandqc_to_torch`` (:719-797), ``flax_efficientunet_to_torch``
+(:640-716; ``efficientnet_pytorch``'s names) and ``flax_nuclick_to_torch``
+(:555-628; its transpose convolutions flipped back as MicroNet's).
 """
 
 from __future__ import annotations
@@ -369,6 +376,21 @@ _EFFICIENTNET_TOP = {
 }
 
 
+def _timm_efficientnet_name(path, params: dict) -> str:
+    """timm's name of a flax EfficientNet module path (``stem_conv``,
+    ``s1_b0/expand_conv``...) in the encoder whose params are ``params``."""
+    head, *rest = path
+    if head in _EFFICIENTNET_TOP:
+        return _EFFICIENTNET_TOP[head]
+    stage, block = re.fullmatch(r"s(\d+)_b(\d+)", head).groups()
+    kids = params[head]
+    if "dw_conv" in kids:
+        table = _MBCONV_EXPAND if "expand_conv" in kids else _MBCONV_DS
+    else:
+        table = _FUSED if "expand_conv" in kids else _CONV_BN_ACT
+    return f"blocks.{stage}.{block}.{table[rest[0]]}"
+
+
 def flax_efficientnet_to_torch(variables: dict) -> dict[str, torch.Tensor]:
     """Convert flax ``EfficientNetEncoder``, ``EfficientNetV2Encoder`` or
     ``EfficientNetClassifier`` (its trunk under "encoder") variables to a
@@ -376,17 +398,9 @@ def flax_efficientnet_to_torch(variables: dict) -> dict[str, torch.Tensor]:
     params = variables["params"]
 
     def module_path(path: tuple[str, ...]) -> str:
-        at = ("encoder",) if path[0] == "encoder" else ()
-        head, *rest = path[len(at):]
-        if head in _EFFICIENTNET_TOP:
-            return _EFFICIENTNET_TOP[head]
-        stage, block = re.fullmatch(r"s(\d+)_b(\d+)", head).groups()
-        kids = (params["encoder"] if at else params)[head]
-        if "dw_conv" in kids:
-            table = _MBCONV_EXPAND if "expand_conv" in kids else _MBCONV_DS
-        else:
-            table = _FUSED if "expand_conv" in kids else _CONV_BN_ACT
-        return f"blocks.{stage}.{block}.{table[rest[0]]}"
+        if path[0] == "encoder":
+            return _timm_efficientnet_name(path[1:], params["encoder"])
+        return _timm_efficientnet_name(path, params)
 
     return _convert(variables, module_path)
 
@@ -454,6 +468,131 @@ def flax_timm_to_torch(variables: dict, *, classifier: bool) -> dict[str, torch.
         state["classifier.weight"] = _t(np.asarray(head["kernel"]).T)
         state["classifier.bias"] = _t(head["bias"])
     return state
+
+
+_SCSE = {"cse_reduce": "cSE.1", "cse_expand": "cSE.3", "sse": "sSE.0"}
+
+
+def _seq_index(leaf_module: str) -> str:
+    """Index of a flax ``conv``/``bn`` pair's member in upstream's
+    ``Sequential(conv, bn, act)``."""
+    return "0" if leaf_module == "conv" else "1"
+
+
+def flax_kongnet_to_torch(variables: dict) -> dict[str, torch.Tensor]:
+    """Convert flax ``KongNet`` variables to an upstream-named ``state_dict``:
+    the inverse of ``torch_kongnet_to_flax`` (JAX :798-909). The encoder goes
+    under ``encoder.model`` with timm's names; ``decoder{i}/center`` to
+    ``decoders.i.center.attention.attention``, ``block{j}/up_conv{c}`` to
+    ``blocks.j.up.conv{c}``, ``att{k}`` to ``attention{k}.attention``, the SCSE
+    convs ``cse_reduce``/``cse_expand``/``sse`` to ``cSE.1``/``cSE.3``/``sSE.0``,
+    and ``head{i}`` to ``heads.i.0``."""
+    params = variables["params"]
+
+    def module_path(path: tuple[str, ...]) -> str:
+        head, *rest = path
+        if head == "encoder":
+            return "encoder.model." + _timm_efficientnet_name(rest, params["encoder"])
+        if head.startswith("head"):
+            return f"heads.{head[4:]}.0"
+        dec = f"decoders.{head[len('decoder'):]}"
+        if rest[0] == "center":
+            return f"{dec}.center.attention.attention.{_SCSE[rest[1]]}"
+        block, part = f"{dec}.blocks.{rest[0][len('block'):]}", rest[1]
+        if part in ("att1", "att2"):
+            return f"{block}.attention{part[-1]}.attention.{_SCSE[rest[2]]}"
+        if part.startswith("up_"):
+            return f"{block}.up.{part[3:]}.{_seq_index(rest[2])}"
+        return f"{block}.{part}.{_seq_index(rest[2])}"
+
+    return _convert(variables, module_path)
+
+
+def _unet_block_name(block: str, layer: str) -> str:
+    """Upstream name of a flax decoder block's ``conv{i}``/``bn{i}``:
+    ``{block}.conv{i + 1}.{0 or 1}``."""
+    kind, idx = re.fullmatch(r"(conv|bn)(\d)", layer).groups()
+    return f"{block}.conv{int(idx) + 1}.{_seq_index(kind)}"
+
+
+def flax_grandqc_to_torch(variables: dict) -> dict[str, torch.Tensor]:
+    """Convert flax ``GrandQCModel`` variables to an upstream-named
+    ``state_dict``: the inverse of ``torch_grandqc_to_flax`` (JAX :719-797)."""
+    params = variables["params"]
+
+    def module_path(path: tuple[str, ...]) -> str:
+        head, *rest = path
+        if head == "encoder":
+            return "encoder." + _timm_efficientnet_name(rest, params["encoder"])
+        if head == "head":
+            return "segmentation_head.0"
+        return _unet_block_name(f"decoder.blocks.{rest[0]}", rest[1])
+
+    return _convert(variables, module_path)
+
+
+_EFFICIENTNET_PYTORCH_BLOCK = {
+    "expand_conv": "_expand_conv", "expand_bn": "_bn0", "dw_conv": "_depthwise_conv", "dw_bn": "_bn1",
+    "se_reduce": "_se_reduce", "se_expand": "_se_expand", "project_conv": "_project_conv", "project_bn": "_bn2",
+}
+# the flat index of each B0 stage's first block (``_B0_BLOCK_MAP``, JAX :641-647)
+_B0_STAGE_START = np.cumsum([0, 1, 2, 2, 3, 3, 4])
+
+
+def flax_efficientunet_to_torch(variables: dict) -> dict[str, torch.Tensor]:
+    """Convert flax ``EfficientUNetTissueMaskModel`` variables to an upstream
+    (``efficientnet_pytorch``) named ``state_dict``: the inverse of
+    ``torch_efficientunet_to_flax`` (JAX :640-716). The flax model has no
+    ``_conv_head``/``_bn1``, which the checkpoint holds and the forward does
+    not use: they come out as zeros and an identity batch norm."""
+
+    def module_path(path: tuple[str, ...]) -> str:
+        head, *rest = path
+        if head == "encoder":
+            if rest[0] in ("stem_conv", "stem_bn"):
+                return "encoder._conv_stem" if rest[0] == "stem_conv" else "encoder._bn0"
+            stage, block = (int(v) for v in re.fullmatch(r"s(\d+)_b(\d+)", rest[0]).groups())
+            return f"encoder._blocks.{_B0_STAGE_START[stage] + block}.{_EFFICIENTNET_PYTORCH_BLOCK[rest[1]]}"
+        if head == "head":
+            return "segmentation_head.0"
+        return _unet_block_name(f"decoder.blocks.{head[3:]}", rest[0])
+
+    state = _convert(variables, module_path)
+    width = state["encoder._blocks.15._bn2.weight"].shape[0]
+    state["encoder._conv_head.weight"] = torch.zeros(1280, width, 1, 1)
+    state["encoder._bn1.weight"] = torch.ones(1280)
+    state["encoder._bn1.bias"] = torch.zeros(1280)
+    state["encoder._bn1.running_mean"] = torch.zeros(1280)
+    state["encoder._bn1.running_var"] = torch.ones(1280)
+    state["encoder._bn1.num_batches_tracked"] = torch.tensor(0)
+    return state
+
+
+def _nuclick_module_path(path: tuple[str, ...]) -> str:
+    """Upstream NuClick name of a flax module path (``torch_nuclick_to_flax``)."""
+    head, *rest = path
+    if head.startswith("ct"):
+        return f"conv_transpose_{head[2:]}"
+    conv_block = re.fullmatch(r"cb(\d)(?:_(\d))?", head)
+    if conv_block:
+        block = f"conv_block_{conv_block.group(1)}"
+        if conv_block.group(2) is not None:
+            block += f".{conv_block.group(2)}"
+        return f"{block}.conv_bn_relu.{_seq_index(rest[0])}"
+    if head.startswith("ms"):
+        block = f"multiscale_block_{head[2:]}.conv_block_{int(rest[0][1:]) + 1}"
+    else:  # rb{k}, or rb{k}_{m} in a sequence; c1 / c2
+        number, member = re.fullmatch(r"rb(\d+)(?:_(\d+))?", head).groups()
+        block = f"residual_block_{number}" + (f".{member}" if member is not None else "")
+        block += f".conv_block_{rest[0][1:]}"
+    return f"{block}.conv_bn_relu.{_seq_index(rest[1])}"
+
+
+def flax_nuclick_to_torch(variables: dict) -> dict[str, torch.Tensor]:
+    """Convert flax ``NuClick`` variables to an upstream-named ``state_dict``:
+    the inverse of ``torch_nuclick_to_flax`` (JAX :555-628); the transpose
+    convolutions' kernels are flipped back as MicroNet's are."""
+    return _convert(variables, _nuclick_module_path, transposed=lambda module: module.startswith("conv_transpose"))
 
 
 def _convert(variables: dict, module_path, transposed=lambda module: False) -> dict[str, torch.Tensor]:
