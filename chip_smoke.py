@@ -101,7 +101,23 @@ temporary directory, and drives the port's entry points on them:
   postproc on the fetched map), unet_tissue_mask_tsef on the region feed
   over phase D's slide (K4, K2 and K3, each canvas pixel covered four
   times), and both NuClick entries on one batch of 128^2 patches with
-  seeded clicks; every model's first patches against the CPU.
+  seeded clicks; every model's first patches against the CPU;
+- "stain_ext", phase A's stain API completed, over phase A's patches and
+  batches: get_normalizer("reinhard") and ("vahadane") fitted on a seeded
+  512x512 H&E target, then transform_tiles over every batch (Reinhard on
+  the host with the port's OpenCV-exact LAB; Vahadane through the stain
+  kernel), and augment_tiles with a seeded torch.Generator on every batch
+  (the stain augmentation kernel, K7), held against its plain version (the
+  first batch, all 2^24 colours, ragged and misaligned inputs) and timed;
+- "readers", the slide readers on the port's own codecs: the level 0 of
+  phase A's slide written as a two-level MIRAX tree and a JPEG-tiled TIFF
+  (the same Q 90 tile bytes), a JPEG-baseline DICOM instance, a native
+  DICOM instance, an NGFF zarr (zlib) and an fsspec reference JSON over
+  phase A's deflate TIFF; each reader's full level-0 read equals the TIFF
+  holding the same pixels bit for bit (the JPEG TIFF for MIRAX and the JPEG
+  DICOM, the deflate TIFF for the rest), then PatchPredictor (resnet18,
+  kather100k ioconfig, batch 64) over the MIRAX and the JPEG DICOM slide
+  through WSIReader.open gives the predictions of the JPEG TIFF.
 
 Each phase prints one JSON line. The stain kernel is held against its plain
 PyTorch version on the card (main-path batch, all 2^24 RGB colours, ragged
@@ -133,6 +149,7 @@ from __future__ import annotations
 
 import json
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -147,7 +164,12 @@ import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
 from tiatoolbox_tpu_torch import PRETRAINED_MODELS, _build, native  # noqa: E402
-from tiatoolbox_tpu_torch.data.synth import make_synthetic_slide, synthetic_he_patch  # noqa: E402
+from tiatoolbox_tpu_torch.data.synth import (  # noqa: E402
+    make_synthetic_dicom,
+    make_synthetic_slide,
+    synthetic_he_patch,
+    write_synthetic_mrxs,
+)
 from tiatoolbox_tpu_torch.models.architecture import get_pretrained_model  # noqa: E402
 from tiatoolbox_tpu_torch.models.architecture.hovernet import HoVerNet  # noqa: E402
 from tiatoolbox_tpu_torch.models.architecture.hovernet_checkpoint import (  # noqa: E402
@@ -174,17 +196,27 @@ from tiatoolbox_tpu_torch.ops import canvas as canvas_ops  # noqa: E402
 from tiatoolbox_tpu_torch.ops import hv_energy as energy_ops  # noqa: E402
 from tiatoolbox_tpu_torch.ops import region as region_ops  # noqa: E402
 from tiatoolbox_tpu_torch.ops.stain import (  # noqa: E402
+    stain_augment,
+    stain_augment_reference,
     stain_transform,
     stain_transform_reference,
 )
 from tiatoolbox_tpu_torch.parallel import BatchLoader  # noqa: E402
 from tiatoolbox_tpu_torch.tools.patchextraction import get_patch_extractor  # noqa: E402
+from tiatoolbox_tpu_torch.tools.stainaugment import augment_tiles  # noqa: E402
 from tiatoolbox_tpu_torch.tools.stainnorm import get_normalizer  # noqa: E402
 from tiatoolbox_tpu_torch.annotation.storage import SQLiteStore  # noqa: E402
 from tiatoolbox_tpu_torch.models.engine.engine_abc import OUTPUT_SUFFIXES  # noqa: E402
-from tiatoolbox_tpu_torch.utils.zarrlite import open_zarr  # noqa: E402
+from tiatoolbox_tpu_torch.utils.tiff_to_fsspec import tiff_to_fsspec  # noqa: E402
+from tiatoolbox_tpu_torch.utils.zarrlite import ZarrGroup, open_zarr  # noqa: E402
 from tiatoolbox_tpu_torch.wsicore import tiffio  # noqa: E402
-from tiatoolbox_tpu_torch.wsicore.wsireader import WSIReader  # noqa: E402
+from tiatoolbox_tpu_torch.wsicore.store_reader import FsspecJsonWSIReader  # noqa: E402
+from tiatoolbox_tpu_torch.wsicore.wsireader import (  # noqa: E402
+    DICOMWSIReader,
+    MIRAXWSIReader,
+    NGFFWSIReader,
+    WSIReader,
+)
 
 BATCH = 64
 PATCH = 224
@@ -3210,6 +3242,298 @@ def phase_registry_tail(slide: Path, tmp: Path, card: str) -> list[dict]:
     return rows
 
 
+# -- phase A's stain API completed: Reinhard, Vahadane, stain augmentation --------
+
+# K7 reads 3 bytes and writes 3 a pixel, as K1, and does 2 more float32
+# operations a stain (the factor and the offset) than K1's scale
+AUGMENT_OPS_PER_PIX = STAIN_OPS_PER_PIX + 2
+AUGMENT_SIGMAS = (0.4, 0.2)
+
+
+def held_augment(tiles: torch.Tensor, args, what: str) -> tuple[int, float]:
+    """K7 on ``tiles`` against its plain version with the same factors: max
+    abs difference and identical share; fails past 1 level or under 99.9 %."""
+    got = stain_augment(tiles, *args)
+    want = stain_augment_reference(tiles, *args)
+    check(got.shape == want.shape, f"{what}: shape {tuple(got.shape)}")
+    diff = (got.int() - want.int()).abs()
+    max_err = int(diff.max())
+    identical = float((diff == 0).double().mean())
+    check(max_err <= 1, f"K7 {what}: kernel vs plain max abs diff {max_err} > 1")
+    check(identical >= 0.999, f"K7 {what}: kernel vs plain identical share {identical} < 0.999")
+    return max_err, identical
+
+
+def augment_args(stains: np.ndarray, n: int, gen: torch.Generator) -> tuple:
+    """K7's arguments for ``n`` tiles: projection, stains, factors, offsets."""
+    sigma1, sigma2 = AUGMENT_SIGMAS
+    s = len(stains)
+    alpha = torch.rand((n, s), generator=gen, device=DEVICE) * (2 * sigma1) + (1 - sigma1)
+    beta = torch.rand((n, s), generator=gen, device=DEVICE) * (2 * sigma2) - sigma2
+    proj = np.linalg.pinv(stains.T).T.astype(np.float32)
+    return proj, stains.astype(np.float32), alpha, beta
+
+
+def phase_stain_ext(slide: Path) -> dict:
+    t0 = time.perf_counter()
+    dataset = WSIPatchDataset(
+        slide,
+        patch_input_shape=(PATCH, PATCH),
+        stride_shape=(PATCH, PATCH),
+        resolution=0.5,
+        units="mpp",
+        auto_get_mask=False,
+    )
+    loader = BatchLoader(dataset, batch_size=BATCH, num_workers=8)
+    target = synthetic_he_patch((512, 512), seed=5)
+    thumbnail = WSIReader.open(slide).slide_thumbnail()
+    seconds: dict[str, float] = {}
+
+    t = time.perf_counter()
+    reinhard = get_normalizer("reinhard")
+    reinhard.fit(target)
+    seconds["reinhard_fit"] = time.perf_counter() - t
+    t = time.perf_counter()
+    vahadane = get_normalizer("vahadane")
+    vahadane.fit(target)
+    constants = vahadane.prepare_tile_transform(thumbnail)
+    seconds["vahadane_fit"] = time.perf_counter() - t
+    stains = vahadane.stain_matrix_target
+
+    # main path, counted from zero: Reinhard on the host, Vahadane through
+    # K1, augmentation through K7 with a seeded generator
+    gen = torch.Generator(device=DEVICE).manual_seed(16)
+    stain_transform.launches = 0
+    stain_augment.launches = 0
+    seconds.update(reinhard_transform=0.0, vahadane_transform=0.0, augment=0.0)
+    first = None
+    n_patches = 0
+    pinned = DEVICE == "cuda"
+    for batch in loader.iter_staged(lambda host: torch.as_tensor(host).to(DEVICE, non_blocking=True), pin_memory=pinned):
+        tiles = batch["image"]
+        t = time.perf_counter()
+        host = tiles.cpu().numpy()
+        reinhard_out = reinhard.transform_tiles(host)
+        seconds["reinhard_transform"] += time.perf_counter() - t
+        t = time.perf_counter()
+        vahadane_out = vahadane.transform_tiles(tiles, constants)
+        torch.cuda.synchronize()
+        seconds["vahadane_transform"] += time.perf_counter() - t
+        t = time.perf_counter()
+        augmented = augment_tiles(tiles, stains, generator=gen)
+        torch.cuda.synchronize()
+        seconds["augment"] += time.perf_counter() - t
+        if first is None:
+            first = (tiles.clone(), reinhard_out, vahadane_out, augmented)
+        n_patches += batch["n_valid"]
+    k1_launches, k7_launches = stain_transform.launches, stain_augment.launches
+    check(k7_launches == len(loader) and k7_launches > 0, f"K7 launches {k7_launches}")
+    check(k1_launches == len(loader), f"K1 launches in Vahadane's transform {k1_launches}")
+    tiles, reinhard_out, vahadane_out, augmented = first
+    check(reinhard_out.shape == tuple(tiles.shape) and reinhard_out.dtype == np.uint8, "Reinhard output")
+    check(tuple(vahadane_out.shape) == tuple(tiles.shape), "Vahadane output shape")
+    check(tuple(augmented.shape) == (BATCH, PATCH, PATCH, 3), "augmented shape")
+    check(bool((augmented != tiles).any()), "augmentation changed nothing")
+
+    # K7 against its plain version on the card: the main path's batch with
+    # its own factors, every colour, ragged and misaligned inputs
+    main_args = augment_args(stains, len(tiles), torch.Generator(device=DEVICE).manual_seed(16))
+    max_err, identical = held_augment(tiles, main_args, "main path batch")
+    colours = all_colours().reshape(256, 256, 256, 3)
+    sweep = held_augment(colours, augment_args(stains, 256, gen), "2^24 colours")
+    ragged = {}
+    for name, case in ragged_cases(tiles).items():
+        view = case if case.ndim == 4 else case.reshape(case.shape[0], 1, 1, 3)
+        ragged[name] = held_augment(view, augment_args(stains, view.shape[0], gen), name)
+    hed = np.vstack([stains, np.cross(stains[0], stains[1])[None] / np.linalg.norm(np.cross(stains[0], stains[1]))])
+    three = held_augment(tiles, augment_args(np.abs(hed), len(tiles), gen), "3 stains")
+    torch.cuda.synchronize()
+
+    copies = [tiles.clone() for _ in range(8)]
+    turn = iter(range(1 << 30))
+    kernel_ms = time_ms(lambda: stain_augment(copies[next(turn) % 8], *main_args), 50)
+    plain_ms = time_ms(lambda: stain_augment_reference(copies[next(turn) % 8], *main_args), 20)
+    n_pix = tiles.numel() // 3
+    bytes_s = STAIN_BYTES_PER_PIX * n_pix / HBM_BYTES_PER_S
+    ops_s = AUGMENT_OPS_PER_PIX * n_pix / FP32_OPS_PER_S
+    bound_ms = max(bytes_s, ops_s) * 1e3
+    max_abs = max(max_err, sweep[0], three[0], *(e for e, _ in ragged.values()))
+    row = {
+        "name": "stain_augment",
+        "route": "cuda",
+        "source": "tiatoolbox_tpu_torch/csrc/stain.cu",
+        "replaces": "tiatoolbox_tpu/tools/stainaugment.py:129",
+        "launches": k7_launches,
+        "max_abs_err": max_abs,
+        "ms": kernel_ms,
+        "plain_ms": plain_ms,
+        "bound_ms": bound_ms,
+        "bound_by": "bytes" if bytes_s >= ops_s else "operations",
+        "library_ms": None,
+    }
+    emit(
+        {
+            "phase": "stain_ext",
+            "seconds": time.perf_counter() - t0,
+            "patches": n_patches,
+            "batches": len(loader),
+            "stage_seconds": seconds,
+            "reinhard_ms_per_patch": seconds["reinhard_transform"] / max(n_patches, 1) * 1e3,
+            "vahadane_stain_matrix": np.asarray(stains).round(6).tolist(),
+            "k1_launches": k1_launches,
+            "k7_launches": k7_launches,
+            "k7_max_abs_err": max_err,
+            "k7_identical_share": identical,
+            "k7_sweep_max_abs_err_and_identical_share": sweep,
+            "k7_3_stains_max_abs_err_and_identical_share": three,
+            "k7_ragged_max_abs_err_and_identical_share": ragged,
+            "k7_ms": kernel_ms,
+            "k7_gb_per_s": STAIN_BYTES_PER_PIX * n_pix / kernel_ms / 1e6,
+            "k7_share_of_bound": bound_ms / kernel_ms,
+            "k7_plain_ms": plain_ms,
+            "k7_bound_ms": bound_ms,
+            "batch_shape": list(tiles.shape),
+        }
+    )
+    return row
+
+
+# -- the slide readers on the port's own codecs ---------------------------------
+
+READER_TILE = 256
+
+
+def aperio_description(wh: tuple[int, int], codec: str) -> str:
+    w, h = wh
+    return (
+        f"Aperio Image Library v0.0.0\n{w}x{h} [0,0 {w}x{h}] ({READER_TILE}x{READER_TILE})"
+        f" {codec}|AppMag = 20|MPP = 0.5"
+    )
+
+
+def timed_read(reader: WSIReader, wh: tuple[int, int]) -> tuple[np.ndarray, float]:
+    t = time.perf_counter()
+    region = reader.read_rect((0, 0), wh, resolution=0, units="level")
+    return region, time.perf_counter() - t
+
+
+def predictor_run(model: CNNModel, slide: Path, ioconfig, mask) -> tuple[dict, float]:
+    t = time.perf_counter()
+    predictor = PatchPredictor(model=model, batch_size=BATCH, verbose=False)
+    out = predictor.run([slide], masks=[mask], patch_mode=False, ioconfig=ioconfig)[str(slide)]
+    return out, time.perf_counter() - t
+
+
+def phase_readers(slide: Path, tmp: Path, card: str) -> None:
+    t0 = time.perf_counter()
+    root = tmp / "readers"
+    root.mkdir()
+    deflate = WSIReader.open(slide)
+    wh = tuple(int(v) for v in deflate.info.slide_dimensions)
+    half_wh = tuple(int(v) for v in deflate.info.level_dimensions[1])
+    base = deflate.read_rect((0, 0), wh, resolution=0, units="level")
+    half = deflate.read_rect((0, 0), half_wh, resolution=1, units="level")
+    grid = (wh[0] // READER_TILE, wh[1] // READER_TILE)
+    check(grid[0] * READER_TILE == wh[0] and grid[1] * READER_TILE == wh[1], "whole tiles")
+
+    t = time.perf_counter()
+    jpeg_tiff = root / "jpeg.tiff"
+    tiffio.TiffPyramidWriter(
+        jpeg_tiff, tile_size=READER_TILE, description=aperio_description(wh, f"JPEG/RGB Q={JPEG_QUALITY}"),
+        mpp=(0.5, 0.5), compression="jpeg", jpeg_quality=JPEG_QUALITY,
+    ).write([base, half])
+    mrxs = write_synthetic_mrxs(
+        root / "slide", grid_nx=grid[0], grid_ny=grid[1], tile=READER_TILE, n_levels=2, mpp=0.5,
+        level_images=[base, half], jpeg_quality=JPEG_QUALITY,
+    )
+    jpeg_dcm = make_synthetic_dicom(
+        root / "jpeg.dcm", frame_size=READER_TILE, mpp=0.5, image=base, compression="jpeg",
+        jpeg_quality=JPEG_QUALITY, offset_table=True,
+    )
+    native_dcm = make_synthetic_dicom(root / "native.dcm", frame_size=READER_TILE, mpp=0.5, image=base)
+    group = ZarrGroup.create(root / "slide.zarr")
+    group.from_array("0", base, chunks=(READER_TILE, READER_TILE, 3))
+    group.from_array("1", half, chunks=(READER_TILE, READER_TILE, 3))
+    axes = [
+        {"name": "y", "type": "space", "unit": "micrometer"},
+        {"name": "x", "type": "space", "unit": "micrometer"},
+        {"name": "c", "type": "channel"},
+    ]
+    datasets = [
+        {"path": str(i), "coordinateTransformations": [{"type": "scale", "scale": [0.5 * 2**i, 0.5 * 2**i, 1.0]}]}
+        for i in range(2)
+    ]
+    group.attrs = {"multiscales": [{"version": "0.4", "axes": axes, "datasets": datasets}]}
+    tiff_to_fsspec(slide, str(slide), root / "refs.json")
+    write_seconds = time.perf_counter() - t
+
+    jpeg_reader = WSIReader.open(jpeg_tiff)
+    jpeg_base, jpeg_seconds = timed_read(jpeg_reader, wh)
+    readers = {
+        "mirax": (WSIReader.open(mrxs), MIRAXWSIReader, jpeg_base),
+        "dicom_jpeg": (WSIReader.open(jpeg_dcm), DICOMWSIReader, jpeg_base),
+        "dicom_native": (WSIReader.open(native_dcm), DICOMWSIReader, base),
+        "ngff": (WSIReader.open(root / "slide.zarr"), NGFFWSIReader, base),
+        "fsspec": (FsspecJsonWSIReader(root / "refs.json"), FsspecJsonWSIReader, base),
+    }
+    mpix = wh[0] * wh[1] / 1e6
+    rates = {"tiff_jpeg": mpix / jpeg_seconds}
+    for name, (reader, cls, want) in readers.items():
+        check(isinstance(reader, cls), f"{name} opened as {type(reader).__name__}")
+        check(tuple(reader.info.slide_dimensions) == wh, f"{name} dimensions {reader.info.slide_dimensions}")
+        got, sec = timed_read(reader, wh)
+        check(got.shape == want.shape and np.array_equal(got, want), f"{name} level 0 is not the TIFF's, bit for bit")
+        rates[name] = mpix / sec
+    check(np.array_equal(readers["mirax"][0].read_rect((0, 0), half_wh, resolution=1, units="level"),
+                         jpeg_reader.read_rect((0, 0), half_wh, resolution=1, units="level")), "mirax level 1")
+
+    # PatchPredictor through WSIReader.open over the JPEG TIFF, the MIRAX and
+    # the JPEG DICOM slide, each with phase B's tissue mask (the DICOM
+    # instance has one level, so its own thumbnail would differ)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    ioconfig = IOPatchPredictorConfig(**PRETRAINED_MODELS["resnet18-kather100k"]["ioconfig"]["kwargs"])
+    mask = deflate.tissue_mask()
+    model = CNNModel("resnet18", num_classes=9, seed=0)
+    corners = [((i // 4) * PATCH, (i % 4) * PATCH) for i in range(8)]
+    calibrate_batch_norm(model, np.stack([jpeg_base[y : y + PATCH, x : x + PATCH] for y, x in corners]))
+    runs = {}
+    for name, path in (("tiff_jpeg", jpeg_tiff), ("mirax", mrxs), ("dicom_jpeg", jpeg_dcm)):
+        out, sec = predictor_run(model, path, ioconfig, mask)
+        runs[name] = (out, sec)
+    want = runs["tiff_jpeg"][0]
+    n = len(want["probabilities"])
+    check(n == PREDICT_PATCHES, f"readers phase kept {n} patches, not {PREDICT_PATCHES}")
+    prob_err = {}
+    for name in ("mirax", "dicom_jpeg"):
+        got = runs[name][0]
+        check(np.array_equal(got["coordinates"], want["coordinates"]), f"{name} patch coordinates")
+        check(np.array_equal(got["predictions"], want["predictions"]), f"{name} predictions")
+        prob_err[name] = float(np.abs(got["probabilities"] - want["probabilities"]).max())
+        check(prob_err[name] <= 1e-6, f"{name} probabilities differ by {prob_err[name]}")
+    emit(
+        {
+            "phase": "readers",
+            "seconds": time.perf_counter() - t0,
+            "write_seconds": write_seconds,
+            "level0_mpix": mpix,
+            "read_mpix_per_s": rates,
+            "patches": n,
+            "patches_per_s": {k: n / v[1] for k, v in runs.items()},
+            "run_seconds": {k: v[1] for k, v in runs.items()},
+            "prob_max_abs_diff": prob_err,
+            "file_bytes": {
+                "tiff_jpeg": jpeg_tiff.stat().st_size,
+                "mirax_data": sum(f.stat().st_size for f in (root / "slide").iterdir()),
+                "dicom_jpeg": jpeg_dcm.stat().st_size,
+                "dicom_native": native_dcm.stat().st_size,
+            },
+            "card": card,
+        }
+    )
+    shutil.rmtree(root)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; nothing was run.", file=sys.stderr)
@@ -3255,6 +3579,10 @@ def main() -> int:
         mark("features")
         tail = phase_registry_tail(slide, Path(tmp), card)
         mark("registry_tail")
+        augment = phase_stain_ext(slide)
+        mark("stain_ext")
+        phase_readers(slide, Path(tmp), card)
+        mark("readers")
     # seconds since the start at the end of each group of phases
     emit({"phase": "timeline", "seconds_at_end": marks})
     # K2 to K4 run on phases C and D: their rows count both phases' launches
@@ -3262,7 +3590,7 @@ def main() -> int:
     for row in segment:
         row["launches"] += held[row["name"]]["launches"]
         row["max_abs_err"] = max(row["max_abs_err"], held[row["name"]]["max_abs_err"])
-    print(json.dumps({"kernels": [stain, *segment, *instance, *detect, *zoo, *tail]}), flush=True)
+    print(json.dumps({"kernels": [stain, *segment, *instance, *detect, *zoo, *tail, augment]}), flush=True)
     print(card, flush=True)
     print(
         json.dumps(

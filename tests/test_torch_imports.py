@@ -1,7 +1,8 @@
 """The port runs where only torch, numpy and scipy are installed.
 
 A subprocess installs a ``sys.meta_path`` finder that refuses jax, flax,
-cv2, yaml, PIL, pandas, tqdm, psutil and the JAX package, imports every
+cv2, yaml, PIL, pandas, tqdm, psutil, sklearn, fsspec, matplotlib and the
+JAX package, imports every
 module of ``tiatoolbox_tpu_torch`` and ``chip_smoke``, and runs the slices
 (stain transform, bench config 2's mask and sliding-window extraction,
 whole-slide patch classification, whole-slide semantic segmentation and
@@ -13,7 +14,10 @@ with SCCNN and HoVer-Net+'s layer post-processing; then the classifier zoo
 (MobileNetV3, an IDaRS entry) and feature extraction (DenseNet and
 EfficientNet features to zarr, a narrow ViT); then the registry's tail
 (KongNet on the detector, GrandQC's JPEG round trip and EfficientUNet's
-morphology on the semantic engine, NuClick with a click).
+morphology on the semantic engine, NuClick with a click); then the stain
+API's Reinhard and Vahadane normalisers and stain augmentation, and the
+readers on the port's own codecs (MIRAX, JPEG DICOM, NGFF, an fsspec
+reference, a PNG slide).
 """
 
 from __future__ import annotations
@@ -32,7 +36,7 @@ GUARDED_RUN = textwrap.dedent(
     from importlib.abc import MetaPathFinder
 
     BLOCKED = {"jax", "jaxlib", "flax", "cv2", "yaml", "PIL", "pandas", "tqdm",
-               "psutil", "tiatoolbox_tpu"}
+               "psutil", "sklearn", "fsspec", "matplotlib", "tiatoolbox_tpu"}
 
     class Refuse(MetaPathFinder):
         def find_spec(self, name, path=None, target=None):
@@ -201,6 +205,50 @@ GUARDED_RUN = textwrap.dedent(
         masks = NuClick.infer_batch(nuclick, clicks)
         assert NuClick.postproc(masks, nuc_points=clicks[..., 3], do_reconstruction=True).shape == (1, 64, 64)
 
+        # the stain API: Reinhard, Vahadane (the numpy dictionary learning),
+        # stain augmentation (K7's plain version on the CPU)
+        from tiatoolbox_tpu_torch.tools.stainaugment import StainAugmentor, augment_tiles
+
+        patch = synthetic_he_patch((96, 96), seed=4)
+        for name in ("reinhard", "vahadane"):
+            stain_norm = get_normalizer(name)
+            stain_norm.fit(patch)
+            assert np.asarray(stain_norm.transform_tiles(tiles[:1], device="cpu")).shape == (1, 64, 64, 3)
+        augmented = augment_tiles(tiles, stain_norm.stain_matrix_target, torch.Generator().manual_seed(0),
+                                  device="cpu")
+        assert augmented.shape == tiles.shape
+        assert StainAugmentor("macenko", always_apply=True)(patch)["image"].shape == patch.shape
+
+        # the readers on the port's own codecs
+        from tiatoolbox_tpu_torch import native
+        from tiatoolbox_tpu_torch.data.synth import make_synthetic_dicom, write_synthetic_mrxs
+        from tiatoolbox_tpu_torch.utils.tiff_to_fsspec import tiff_to_fsspec
+        from tiatoolbox_tpu_torch.utils.zarrlite import ZarrGroup
+        from tiatoolbox_tpu_torch.wsicore.store_reader import FsspecJsonWSIReader
+
+        image = reader.read_rect((0, 0), (256, 256))
+        mrxs = write_synthetic_mrxs(f"{tmp}/m", grid_nx=4, grid_ny=4, tile=64, n_levels=1, level_images=[image])
+        dcm = make_synthetic_dicom(f"{tmp}/d.dcm", image=image, frame_size=64, compression="jpeg")
+        group = ZarrGroup.create(f"{tmp}/n.zarr")
+        group.from_array("0", image)
+        group.attrs = {"multiscales": [{"version": "0.4", "datasets": [{"path": "0"}]}]}
+        deflate = make_synthetic_slide(f"{tmp}/deflate.tiff", size=(256, 256), compression="deflate")
+        tiff_to_fsspec(deflate, str(deflate), f"{tmp}/refs.json")
+        import struct, zlib
+
+        def chunk(kind, body):
+            return struct.pack(">I", len(body)) + kind + body + struct.pack(">I", zlib.crc32(kind + body))
+
+        rows = b"".join(b"\\x00" + image[y].tobytes() for y in range(256))
+        with open(f"{tmp}/flat.png", "wb") as fh:
+            fh.write(b"\\x89PNG\\r\\n\\x1a\\n" + chunk(b"IHDR", struct.pack(">IIBBBBB", 256, 256, 8, 2, 0, 0, 0))
+                     + chunk(b"IDAT", zlib.compress(rows)) + chunk(b"IEND", b""))
+        assert np.array_equal(WSIReader.open(f"{tmp}/flat.png").read_rect((0, 0), (256, 256)), image)
+        assert native.decode_jpeg(native.encode_jpeg(image, 95)).shape == image.shape
+        for path in (mrxs, dcm, f"{tmp}/n.zarr"):
+            assert WSIReader.open(path).read_rect((0, 0), (256, 256)).shape == (256, 256, 3)
+        assert FsspecJsonWSIReader(f"{tmp}/refs.json").read_rect((0, 0), (256, 256)).shape == (256, 256, 3)
+
     leaked = sorted(n for n in sys.modules if n.split(".")[0] in BLOCKED)
     assert not leaked, leaked
     print("GUARDED_OK", len(names))
@@ -226,7 +274,9 @@ def test_port_imports_and_runs_without_jax_cv2_or_yaml() -> None:
 def test_no_top_level_import_of_refused_packages() -> None:
     import re
 
-    pattern = re.compile(r"^\s*(import|from) (jax|flax|cv2|yaml|PIL|tiatoolbox_tpu)\b", re.M)
+    pattern = re.compile(
+        r"^\s*(import|from) (jax|flax|cv2|yaml|PIL|sklearn|fsspec|matplotlib|tiatoolbox_tpu)\b", re.M
+    )
     sources = [REPO / "chip_smoke.py", *sorted((REPO / "tiatoolbox_tpu_torch").rglob("*.py"))]
     offenders = [str(p) for p in sources if pattern.search(p.read_text())]
     assert not offenders

@@ -193,6 +193,8 @@ def test_decoder_refuses_unsupported_codings(name: str, match: str) -> None:
     with pytest.raises(native.JpegDecodeError, match=match) as info:
         native.decode_jpeg_batch([base, stream], 32, 32)
     assert info.value.index == 1
+    # a coding libjpeg-turbo decodes is a missing feature; no SOI is no JPEG
+    assert info.value.unsupported == (name != "not_jpeg")
 
 
 def test_batch_threads_agree_and_crop_pad() -> None:

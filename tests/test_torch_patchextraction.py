@@ -143,7 +143,12 @@ def test_points_extractor_matches_jax(slide, tmp_path, source) -> None:
 
 
 def test_unknown_method_and_bad_tables_raise(slide) -> None:
-    with pytest.raises(port_pe.MethodNotSupportedError):
+    from tiatoolbox_tpu_torch.utils import exceptions as port_exceptions
+
+    # the port's one MethodNotSupportedError, as JAX's extractor raises its
+    # utils.exceptions class
+    assert port_pe.MethodNotSupportedError is port_exceptions.MethodNotSupportedError
+    with pytest.raises(port_exceptions.MethodNotSupportedError, match="fixedwindow method"):
         port_pe.get_patch_extractor("fixedwindow", input_img=slide, patch_size=8)
     with pytest.raises(ValueError, match="x, y"):
         port_misc.read_locations(np.zeros((3, 4)))

@@ -1130,6 +1130,26 @@ int32_t jpeg_header(const uint8_t* data, uint64_t size, int32_t* hwc) {
 
 const char* jpeg_status_message(int32_t code) { return status_message(code); }
 
+// 1 when a status refuses a feature this decoder lacks and libjpeg-turbo
+// decodes (progressive or arithmetic coding, 12-bit or lossless frames, a
+// baseline image over several scans, other sampling factors or component
+// counts); 0 for success and for a stream libjpeg-turbo rejects as well
+// (a corrupt or truncated stream, or an unknown marker: JERR_UNKNOWN_MARKER).
+int32_t jpeg_status_unsupported(int32_t code) {
+    switch (code) {
+        case kProgressive:
+        case kArithmetic:
+        case kPrecision:
+        case kLossless:
+        case kMultiScan:
+        case kSampling:
+        case kComponents:
+            return 1;
+        default:
+            return 0;
+    }
+}
+
 // Decode n streams (stream i is data[offsets[i], offsets[i] + sizes[i]))
 // into out, [n, tile_h, tile_w, out_ch] uint8 and zeroed by the caller,
 // on min(n_threads, n) threads. status[i] gets stream i's code. Returns the

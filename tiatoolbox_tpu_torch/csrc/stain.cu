@@ -39,6 +39,22 @@
 //
 // Tensor cores have no role: the per-pixel products are 3x2 and 2x3.
 // Built without --use_fast_math, so logf/expf are the accurate versions.
+//
+// The second entry, stain_augment_u8, replaces the device program
+// augment_tiles_jax (tiatoolbox_tpu/tools/stainaugment.py:129-154): the same
+// pixel pipeline with S = 2 or 3 stains and a factor and an offset per tile
+// and stain,
+//
+//   c[j]   = (sum_k od[k] * P[k][j]) * alpha[t][j] + beta[t][j]
+//   out[k] = uint8(clip(255 * exp(-sum_j c[j] * M[j][k]), 0, 255))
+//
+// where t is the pixel's tile, pixel_index / (H * W), counted in pixels (a
+// tile's H * W * 3 bytes need not be a multiple of 16). It keeps K1's design
+// (the shared OD table, the saturate and round-toward-zero conversion, the
+// 512-pixel warp steps through shared memory, the persistent grid). alpha
+// and beta come as two small float32 device arrays read from global memory:
+// a lane reads its tile's values once and again only where its 16 pixels
+// cross into the next tile.
 
 #include <atomic>
 #include <cstdint>
@@ -156,9 +172,137 @@ stain_transform_kernel(const uint8_t* __restrict__ in, uint8_t* __restrict__ out
     }
 }
 
-// SM count times resident blocks per SM, once per device.
-static cudaError_t persistent_blocks(int* blocks) {
-    static std::atomic<int> cached[kMaxDevices];
+// -- stain augmentation (S stains, per-tile factors) ----------------------------
+
+struct AugmentCoefs {
+    float p[9];  // P, 3xS row-major: OD -> concentrations
+    float m[9];  // M, Sx3 row-major: stain matrix
+};
+
+template <int S>
+__device__ __forceinline__ void load_tile(const float* alpha, const float* beta, int64_t t,
+                                          float a[S], float b[S]) {
+#pragma unroll
+    for (int j = 0; j < S; ++j) {
+        a[j] = alpha[S * t + j];
+        b[j] = beta[S * t + j];
+    }
+}
+
+template <int S>
+__device__ __forceinline__ void augment_pixel(const float* od, uint32_t r, uint32_t g, uint32_t b,
+                                              const AugmentCoefs& c, const float a[S],
+                                              const float off[S], uint32_t o[3]) {
+    const float od_r = od[r];
+    const float od_g = od[g];
+    const float od_b = od[b];
+    float conc[S];
+#pragma unroll
+    for (int j = 0; j < S; ++j) {
+        conc[j] = (od_r * c.p[j] + od_g * c.p[S + j] + od_b * c.p[2 * S + j]) * a[j] + off[j];
+    }
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+        float sum = 0.0f;
+#pragma unroll
+        for (int j = 0; j < S; ++j) {
+            sum += conc[j] * c.m[3 * j + k];
+        }
+        const float val = 255.0f * __saturatef(expf(-sum));
+        o[k] = __float_as_uint(__fadd_rz(val, 8388608.0f));
+    }
+}
+
+// Pixels [0, 512 * n_steps) in 16-byte vectors, the rest one to a thread, as
+// stain_transform_kernel; tile_pix = H * W.
+template <int S>
+__global__ void __launch_bounds__(kThreads)
+stain_augment_kernel(const uint8_t* __restrict__ in, uint8_t* __restrict__ out,
+                     int64_t n_steps, int64_t n_pix, int64_t tile_pix,
+                     const float* __restrict__ alpha, const float* __restrict__ beta,
+                     AugmentCoefs c) {
+    __shared__ float od[256];
+    __shared__ uint4 staged[kThreads / 32][3 * 32];
+    for (int v = threadIdx.x; v < 256; v += blockDim.x) {
+        od[v] = optical_density(v);
+    }
+    __syncthreads();
+
+    const uint32_t lane = threadIdx.x % 32;
+    uint4* buf = staged[threadIdx.x / 32];
+    const int64_t first = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+    const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
+    const uint4* in4 = reinterpret_cast<const uint4*>(in);
+    uint4* out4 = reinterpret_cast<uint4*>(out);
+    float a[S];
+    float b[S];
+    for (int64_t step = first / 32; step < n_steps; step += stride / 32) {
+        const uint4* src = in4 + 96 * step;
+        const uint4 x0 = __ldcs(src + lane);
+        const uint4 x1 = __ldcs(src + 32 + lane);
+        const uint4 x2 = __ldcs(src + 64 + lane);
+        __syncwarp();
+        buf[lane] = x0;
+        buf[32 + lane] = x1;
+        buf[64 + lane] = x2;
+        __syncwarp();
+
+        const int64_t p0 = kWarpPixels * step + kLanePixels * lane;
+        int64_t t = p0 / tile_pix;
+        // the lane's first pixel of the next tile, counted from p0 (16: none)
+        int cross = static_cast<int>(min((t + 1) * tile_pix - p0, int64_t{kLanePixels}));
+        load_tile<S>(alpha, beta, t, a, b);
+        uint4* words = buf + 3 * lane;
+        const uint4 wa = words[0];
+        const uint4 wb = words[1];
+        const uint4 wd = words[2];
+        const uint32_t w[12] = {wa.x, wa.y, wa.z, wa.w, wb.x, wb.y,
+                                wb.z, wb.w, wd.x, wd.y, wd.z, wd.w};
+        uint32_t o[12] = {};
+#pragma unroll
+        for (int q = 0; q < kLanePixels; ++q) {
+            if (q == cross) {
+                ++t;
+                cross = static_cast<int>(min(cross + tile_pix, int64_t{kLanePixels}));
+                load_tile<S>(alpha, beta, t, a, b);
+            }
+            uint32_t v[3];
+#pragma unroll
+            for (int k = 0; k < 3; ++k) {
+                const int byte = 3 * q + k;
+                v[k] = (w[byte / 4] >> (8 * (byte % 4))) & 0xFFu;
+            }
+            uint32_t r[3];
+            augment_pixel<S>(od, v[0], v[1], v[2], c, a, b, r);
+#pragma unroll
+            for (int k = 0; k < 3; ++k) {
+                const int byte = 3 * q + k;
+                o[byte / 4] |= (r[k] & 0xFFu) << (8 * (byte % 4));
+            }
+        }
+        words[0] = make_uint4(o[0], o[1], o[2], o[3]);
+        words[1] = make_uint4(o[4], o[5], o[6], o[7]);
+        words[2] = make_uint4(o[8], o[9], o[10], o[11]);
+        __syncwarp();
+        uint4* dst = out4 + 96 * step;
+        __stcs(dst + lane, buf[lane]);
+        __stcs(dst + 32 + lane, buf[32 + lane]);
+        __stcs(dst + 64 + lane, buf[64 + lane]);
+    }
+
+    for (int64_t i = kWarpPixels * n_steps + first; i < n_pix; i += stride) {
+        load_tile<S>(alpha, beta, i / tile_pix, a, b);
+        const int64_t at = 3 * i;
+        uint32_t r[3];
+        augment_pixel<S>(od, in[at], in[at + 1], in[at + 2], c, a, b, r);
+        out[at] = static_cast<uint8_t>(r[0]);
+        out[at + 1] = static_cast<uint8_t>(r[1]);
+        out[at + 2] = static_cast<uint8_t>(r[2]);
+    }
+}
+
+// SM count times resident blocks per SM of `kernel`, once per device.
+static cudaError_t persistent_blocks(const void* kernel, std::atomic<int>* cached, int* blocks) {
     int device = 0;
     cudaError_t err = cudaGetDevice(&device);
     if (err != cudaSuccess) {
@@ -174,8 +318,7 @@ static cudaError_t persistent_blocks(int* blocks) {
     int per_sm = 0;
     err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, device);
     if (err == cudaSuccess) {
-        err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, stain_transform_kernel,
-                                                            kThreads, 0);
+        err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, 0);
     }
     if (err != cudaSuccess) {
         return err;
@@ -192,8 +335,10 @@ extern "C" int stain_transform_u8(const uint8_t* in, uint8_t* out, int64_t n_pix
     if (n_pix <= 0) {
         return static_cast<int>(cudaSuccess);
     }
+    static std::atomic<int> cached[kMaxDevices];
     int cap = 0;
-    const cudaError_t err = persistent_blocks(&cap);
+    const cudaError_t err =
+        persistent_blocks(reinterpret_cast<const void*>(stain_transform_kernel), cached, &cap);
     if (err != cudaSuccess) {
         return static_cast<int>(err);
     }
@@ -206,6 +351,50 @@ extern "C" int stain_transform_u8(const uint8_t* in, uint8_t* out, int64_t n_pix
     const int blocks = static_cast<int>(wanted < cap ? wanted : cap);
     stain_transform_kernel<<<blocks, kThreads, 0, s>>>(in, out, n_steps, n_pix, c);
     return static_cast<int>(cudaGetLastError());
+}
+
+template <int S>
+static int launch_augment(const uint8_t* in, uint8_t* out, int64_t n_pix, int64_t tile_pix,
+                          const float* alpha, const float* beta, const AugmentCoefs& c,
+                          cudaStream_t s) {
+    static std::atomic<int> cached[kMaxDevices];
+    int cap = 0;
+    const cudaError_t err =
+        persistent_blocks(reinterpret_cast<const void*>(stain_augment_kernel<S>), cached, &cap);
+    if (err != cudaSuccess) {
+        return static_cast<int>(err);
+    }
+    const bool aligned =
+        ((reinterpret_cast<uintptr_t>(in) | reinterpret_cast<uintptr_t>(out)) & 15u) == 0;
+    const int64_t n_steps = aligned ? n_pix / kWarpPixels : 0;
+    const int64_t n_scalar = n_pix - kWarpPixels * n_steps;
+    const int64_t threads = 32 * n_steps > n_scalar ? 32 * n_steps : n_scalar;
+    const int64_t wanted = (threads + kThreads - 1) / kThreads;
+    const int blocks = static_cast<int>(wanted < cap ? wanted : cap);
+    stain_augment_kernel<S><<<blocks, kThreads, 0, s>>>(in, out, n_steps, n_pix, tile_pix, alpha,
+                                                        beta, c);
+    return static_cast<int>(cudaGetLastError());
+}
+
+// n_stains is 2 or 3; alpha and beta are [n_pix / tile_pix, n_stains] float32
+// on the device. Returns a cudaError_t, or cudaErrorInvalidValue for another
+// stain count or a tile size that does not divide the pixels.
+extern "C" int stain_augment_u8(const uint8_t* in, uint8_t* out, int64_t n_pix, int64_t tile_pix,
+                                int n_stains, const float* alpha, const float* beta,
+                                AugmentCoefs c, cudaStream_t s) {
+    if (n_pix <= 0) {
+        return static_cast<int>(cudaSuccess);
+    }
+    if (tile_pix <= 0 || n_pix % tile_pix != 0) {
+        return static_cast<int>(cudaErrorInvalidValue);
+    }
+    if (n_stains == 2) {
+        return launch_augment<2>(in, out, n_pix, tile_pix, alpha, beta, c, s);
+    }
+    if (n_stains == 3) {
+        return launch_augment<3>(in, out, n_pix, tile_pix, alpha, beta, c, s);
+    }
+    return static_cast<int>(cudaErrorInvalidValue);
 }
 
 extern "C" const char* stain_error_string(int code) {

@@ -27,6 +27,8 @@ back to another decoder.
 - ``csrc/lzw.cpp``: ``lzw_decode`` and ``packbits_decode`` (JAX :192-219),
   ``None`` on a malformed stream or an overflow, so that the caller decodes
   with the pure-Python decoders as JAX's reader does.
+- ``csrc/png.cpp``: ``png_unfilter``, the five PNG row filters undone, for
+  the port's PNG decoder (``utils/imagecodec.py``).
 """
 
 from __future__ import annotations
@@ -44,6 +46,7 @@ JPEG_DECODER = "jpegdec.cpp"
 JPEG_ENCODER = "jpegenc.cpp"
 TIFF_CODECS = "lzw.cpp"
 CONTOURS = "contours.cpp"
+PNG = "png.cpp"
 # JAX's batch decoder takes min(cpu_count, n, 16) threads (its __init__.py:168-169)
 MAX_DECODE_THREADS = 16
 
@@ -192,6 +195,8 @@ def _jpeg_decoder() -> ctypes.CDLL:
     lib.jpeg_header.restype = i32
     lib.jpeg_status_message.argtypes = [i32]
     lib.jpeg_status_message.restype = ctypes.c_char_p
+    lib.jpeg_status_unsupported.argtypes = [i32]
+    lib.jpeg_status_unsupported.restype = i32
     lib.jpeg_decode_batch.argtypes = [ctypes.c_char_p, ptr, ptr, i32, ptr, i32, i32, i32, i32, ptr]
     lib.jpeg_decode_batch.restype = i32
     return lib
@@ -216,16 +221,21 @@ def _tiff_codecs() -> ctypes.CDLL:
 
 
 class JpegDecodeError(ValueError):
-    """A JPEG stream the decoder refused; ``index`` is its place in the batch."""
+    """A JPEG stream the decoder refused; ``index`` is its place in the batch
+    and ``unsupported`` says whether the decoder lacks a feature that
+    libjpeg-turbo has (``csrc/jpegdec.cpp`` ``jpeg_status_unsupported``),
+    rather than the stream being corrupt."""
 
-    def __init__(self, index: int, reason: str) -> None:
+    def __init__(self, index: int, reason: str, *, unsupported: bool = False) -> None:
         super().__init__(f"JPEG decode failed for stream {index}: {reason}")
         self.index = index
         self.reason = reason
+        self.unsupported = unsupported
 
 
 def _jpeg_error(lib: ctypes.CDLL, index: int, code: int) -> JpegDecodeError:
-    return JpegDecodeError(index, lib.jpeg_status_message(code).decode())
+    reason = lib.jpeg_status_message(code).decode()
+    return JpegDecodeError(index, reason, unsupported=bool(lib.jpeg_status_unsupported(code)))
 
 
 def decode_jpeg_batch(
@@ -322,3 +332,25 @@ def lzw_decode(data: bytes, expected: int) -> bytes | None:
 def packbits_decode(data: bytes, expected: int) -> bytes | None:
     """PackBits into at most ``expected`` bytes; ``None`` on an overflow."""
     return _tiff_decode(_tiff_codecs().packbits_decode, data, expected)
+
+
+@functools.cache
+def _png() -> ctypes.CDLL:
+    lib = _build.load(PNG)
+    lib.png_unfilter.argtypes = [ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int32, ctypes.c_void_p]
+    lib.png_unfilter.restype = ctypes.c_int
+    return lib
+
+
+def png_unfilter(raw: np.ndarray, rows: int, row_bytes: int, bpp: int) -> np.ndarray | None:
+    """Undo the row filters of ``rows`` PNG rows (a filter byte and
+    ``row_bytes`` bytes each) with ``bpp`` bytes a pixel; ``None`` for an
+    unknown filter type."""
+    raw = np.ascontiguousarray(raw, np.uint8)
+    if raw.size != rows * (row_bytes + 1):
+        msg = f"png_unfilter: {raw.size} bytes for {rows} rows of {row_bytes} + 1."
+        raise ValueError(msg)
+    out = np.empty((rows, row_bytes), np.uint8)
+    if _png().png_unfilter(_ptr(raw), rows, row_bytes, max(int(bpp), 1), _ptr(out)) != 0:
+        return None
+    return out

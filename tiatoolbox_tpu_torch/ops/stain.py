@@ -10,6 +10,12 @@ On a CUDA tensor it launches the hand-written kernel in ``csrc/stain.cu``
 tensor it runs ``stain_transform_reference``, the plain PyTorch version of
 ``stain.py:35-56``. A CUDA tensor never falls back to the plain version: the
 kernel launches or the call raises.
+
+``stain_augment`` is the same pipeline with 2 or 3 stains and a factor and
+an offset per tile and stain: the second entry of ``csrc/stain.cu``, which
+replaces the device program ``augment_tiles_jax``
+(``tiatoolbox_tpu/tools/stainaugment.py:129-154``); its plain version is
+``stain_augment_reference``.
 """
 
 from __future__ import annotations
@@ -45,6 +51,12 @@ def _as_f32(values, shape: tuple[int, ...]) -> np.ndarray:
     return arr.reshape(shape)
 
 
+class AugmentCoefs(ctypes.Structure):
+    """The augmentation kernel's by-value coefficient struct (``csrc/stain.cu``)."""
+
+    _fields_ = [("p", ctypes.c_float * 9), ("m", ctypes.c_float * 9)]
+
+
 @functools.cache
 def _library() -> ctypes.CDLL:
     """The built kernel library, its argument types set once per process."""
@@ -58,6 +70,19 @@ def _library() -> ctypes.CDLL:
         ctypes.c_void_p,
     ]
     fn.restype = ctypes.c_int
+    aug = lib.stain_augment_u8
+    aug.argtypes = [
+        ctypes.c_void_p,
+        ctypes.c_void_p,
+        ctypes.c_int64,
+        ctypes.c_int64,
+        ctypes.c_int,
+        ctypes.c_void_p,
+        ctypes.c_void_p,
+        AugmentCoefs,
+        ctypes.c_void_p,
+    ]
+    aug.restype = ctypes.c_int
     lib.stain_error_string.argtypes = [ctypes.c_int]
     lib.stain_error_string.restype = ctypes.c_char_p
     return lib
@@ -147,3 +172,116 @@ def stain_transform(
 
 
 stain_transform.launches = 0
+
+
+def _check_u8_rgb(tiles, name: str) -> None:
+    if not isinstance(tiles, torch.Tensor):
+        msg = f"tiles must be a torch.Tensor, got {type(tiles).__name__}."
+        raise TypeError(msg)
+    if tiles.dtype != torch.uint8:
+        msg = f"tiles must be uint8, got {tiles.dtype}."
+        raise ValueError(msg)
+    if tiles.ndim < 2 or tiles.shape[-1] != 3:
+        msg = f"{name}: tiles must be [N, ..., 3], got shape {tuple(tiles.shape)}."
+        raise ValueError(msg)
+
+
+def _augment_factors(values, n: int, s: int, dev: torch.device, name: str) -> torch.Tensor:
+    if isinstance(values, torch.Tensor):
+        t = values.to(torch.float32)
+    else:
+        t = torch.from_numpy(np.array(values, dtype=np.float32))
+    if t.numel() != n * s:
+        msg = f"{name} must hold {n} x {s} values (tiles x stains), got shape {tuple(t.shape)}."
+        raise ValueError(msg)
+    return t.reshape(n, s).to(dev).contiguous()
+
+
+def stain_augment_reference(tiles: torch.Tensor, conc_proj, stains, alpha, beta) -> torch.Tensor:
+    """Plain PyTorch stain augmentation in float32 (``stainaugment.py:151-154``).
+
+    Args:
+        tiles: uint8 tensor ``[N, ..., 3]``.
+        conc_proj: float32 ``[3, S]`` projection OD -> concentrations.
+        stains: float32 ``[S, 3]`` stain matrix.
+        alpha: float32 ``[N, S]`` concentration factor of each tile and stain.
+        beta: float32 ``[N, S]`` concentration offset of each tile and stain.
+
+    Returns:
+        uint8 tensor of the same shape, on the same device.
+    """
+    _check_u8_rgb(tiles, "stain_augment_reference")
+    dev = tiles.device
+    m = _as_f32(stains, np.shape(stains))
+    s = m.shape[0]
+    proj = torch.from_numpy(_as_f32(conc_proj, (3, s))).to(dev)
+    n = tiles.shape[0]
+    view = (n,) + (1,) * (tiles.ndim - 2) + (s,)
+    a = _augment_factors(alpha, n, s, dev, "alpha").reshape(view)
+    b = _augment_factors(beta, n, s, dev, "beta").reshape(view)
+    x = tiles.to(torch.float32).clamp_min_(1.0)
+    od = torch.clamp_min(-torch.log(x / 255.0), 1e-6)
+    conc = (od @ proj) * a + b
+    out = 255.0 * torch.exp(-(conc @ torch.from_numpy(m).to(dev)))
+    return out.clamp_(0.0, 255.0).to(torch.uint8)
+
+
+def stain_augment(tiles: torch.Tensor, conc_proj, stains, alpha, beta) -> torch.Tensor:
+    """Rescale and shift each tile's stain concentrations and rebuild its RGB.
+
+    A CPU tensor goes to ``stain_augment_reference``. A CUDA tensor must be
+    contiguous; the kernel runs on the current stream and the result is a
+    new tensor. ``stain_augment.launches`` counts kernel launches.
+
+    Args:
+        tiles: uint8 tensor ``[N, ..., 3]``; the pixels of ``tiles[i]`` take
+            ``alpha[i]`` and ``beta[i]``.
+        conc_proj: float32 ``[3, S]``, S = 2 or 3.
+        stains: float32 ``[S, 3]``.
+        alpha: float32 ``[N, S]`` (an array, or a tensor on any device).
+        beta: float32 ``[N, S]``.
+
+    Raises:
+        TypeError / ValueError: wrong type, dtype, shape, stain count or layout.
+        RuntimeError: the kernel failed to build or to launch.
+    """
+    _check_u8_rgb(tiles, "stain_augment")
+    m = _as_f32(stains, np.shape(stains))
+    if m.ndim != 2 or m.shape[0] not in (2, 3) or m.shape[1] != 3:
+        msg = f"stains must be [2, 3] or [3, 3], got shape {m.shape}."
+        raise ValueError(msg)
+    if tiles.device.type == "cpu":
+        return stain_augment_reference(tiles, conc_proj, m, alpha, beta)
+    if tiles.device.type != "cuda":
+        msg = f"stain_augment runs on cpu or cuda tensors, got {tiles.device}."
+        raise ValueError(msg)
+    if not tiles.is_contiguous():
+        msg = "tiles must be contiguous."
+        raise ValueError(msg)
+    s = m.shape[0]
+    n = tiles.shape[0]
+    a = _augment_factors(alpha, n, s, tiles.device, "alpha")
+    b = _augment_factors(beta, n, s, tiles.device, "beta")
+    p = np.zeros(9, np.float32)
+    p[: 3 * s] = _as_f32(conc_proj, (3 * s,))
+    mm = np.zeros(9, np.float32)
+    mm[: 3 * s] = m.reshape(-1)
+    coefs = AugmentCoefs((ctypes.c_float * 9)(*p), (ctypes.c_float * 9)(*mm))
+    out = torch.empty_like(tiles)
+    n_pix = tiles.numel() // 3
+    if n_pix == 0:
+        return out
+    lib = _library()
+    with torch.cuda.device(tiles.device):
+        stream = torch.cuda.current_stream(tiles.device).cuda_stream
+        code = lib.stain_augment_u8(
+            tiles.data_ptr(), out.data_ptr(), n_pix, n_pix // n, s, a.data_ptr(), b.data_ptr(), coefs, stream
+        )
+    if code != 0:
+        msg = f"stain_augment_u8 failed: {lib.stain_error_string(code).decode()}"
+        raise RuntimeError(msg)
+    stain_augment.launches += 1
+    return out
+
+
+stain_augment.launches = 0

@@ -21,11 +21,8 @@ import numpy as np
 
 from tiatoolbox_tpu_torch import logger, native
 from tiatoolbox_tpu_torch.utils import misc
+from tiatoolbox_tpu_torch.utils.exceptions import MethodNotSupportedError
 from tiatoolbox_tpu_torch.wsicore import wsireader
-
-
-class MethodNotSupportedError(Exception):
-    """An extraction method the port does not know."""
 
 
 class ExtractorParams(dict):

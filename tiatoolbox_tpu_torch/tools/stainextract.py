@@ -1,15 +1,19 @@
 """Stain-matrix extraction (counterpart of ``tiatoolbox_tpu/tools/stainextract.py``).
 
-``CustomExtractor`` (:43), ``RuifrokExtractor`` (:56) and
-``MacenkoExtractor`` (:66), copied: estimation runs once per image in
-float64 on the host. The per-tile application of the matrices is the
-kernel in ``tiatoolbox_tpu_torch.ops.stain``.
+``CustomExtractor`` (:43), ``RuifrokExtractor`` (:56), ``MacenkoExtractor``
+(:66) and ``VahadaneExtractor`` (:104-138), with ``dl_output_for_h_and_e``
+(:36-40), copied: estimation runs once per image in float64 on the host.
+Vahadane's dictionary learning is the port's numpy copy of scikit-learn's
+(``tools/_dict_learning.py``). The per-tile application of the matrices is
+the kernel in ``tiatoolbox_tpu_torch.ops.stain``.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
+from tiatoolbox_tpu_torch import logger
+from tiatoolbox_tpu_torch.tools._dict_learning import dict_learning
 from tiatoolbox_tpu_torch.utils.misc import get_luminosity_tissue_mask
 from tiatoolbox_tpu_torch.utils.transforms import rgb2od
 
@@ -30,6 +34,13 @@ def h_and_e_in_right_order(v1: np.ndarray, v2: np.ndarray) -> np.ndarray:
     if v1[0] > v2[0]:
         return np.array([v1, v2])
     return np.array([v2, v1])
+
+
+def dl_output_for_h_and_e(dictionary: np.ndarray) -> np.ndarray:
+    """Order dictionary-learning atoms with H first."""
+    if dictionary[0, 0] < dictionary[1, 0]:
+        return dictionary[[1, 0], :]
+    return dictionary
 
 
 class CustomExtractor:
@@ -91,3 +102,37 @@ class MacenkoExtractor:
         v2 = eigen_vectors @ np.array([np.cos(max_phi), np.sin(max_phi)])
         he = h_and_e_in_right_order(v1, v2)
         return he / np.linalg.norm(he, axis=1)[:, None]
+
+
+class VahadaneExtractor:
+    """Vahadane (2016) sparse-NMF stain estimation (dictionary learning).
+
+    Args:
+        luminosity_threshold: LAB-luminosity tissue-selection threshold.
+        regularizer: The Lasso penalty of the dictionary learning.
+    """
+
+    def __init__(
+        self,
+        luminosity_threshold: float = 0.8,
+        regularizer: float = 0.1,
+    ) -> None:
+        logger.warning(
+            "Vahadane stain extraction results depend on the dictionary "
+            "learning implementation and may be unstable across library "
+            "versions; consider Macenko for reproducibility.",
+        )
+        self.__luminosity_threshold = luminosity_threshold
+        self.__regularizer = regularizer
+
+    def get_stain_matrix(self, img: np.ndarray) -> np.ndarray:
+        img = img.astype("uint8")
+        tissue_mask = get_luminosity_tissue_mask(
+            img, threshold=self.__luminosity_threshold
+        ).reshape((-1,))
+        img_od = rgb2od(img).reshape((-1, 3))[tissue_mask]
+        # DictionaryLearning(n_components=2, alpha=regularizer, max_iter=3,
+        # transform_max_iter=1000, positive_dict=True).fit_transform
+        dictionary = dict_learning(img_od.T, self.__regularizer)[0].T
+        dictionary = dl_output_for_h_and_e(dictionary)
+        return dictionary / np.linalg.norm(dictionary, axis=1)[:, None]

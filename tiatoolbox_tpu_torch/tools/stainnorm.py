@@ -1,11 +1,16 @@
 """Stain normalisation (counterpart of ``tiatoolbox_tpu/tools/stainnorm.py``).
 
-``StainNormalizer`` (:26-120) with its Custom, Ruifrok and Macenko
-subclasses, and ``get_normalizer``. ``fit``, ``transform`` and
+``StainNormalizer`` (:26-120) with its Custom, Ruifrok, Macenko and
+Vahadane (:146-151) subclasses, ``ReinhardNormalizer`` (:154-206) and
+``get_normalizer`` (:209-237). ``fit``, ``transform`` and
 ``prepare_tile_transform`` are host float64 code, copied. ``transform_tiles``
 applies the fitted transform to a uint8 tile batch on the device through
 the port's stain kernel (``tiatoolbox_tpu_torch.ops.stain``).
-Vahadane and Reinhard are not ported yet.
+
+Reinhard works on the host, as JAX's does: ``lab_split`` and ``merge_back``
+use the port's bit-exact copies of OpenCV's 8-bit ``COLOR_RGB2LAB`` and
+``COLOR_LAB2RGB`` (``utils/misc.py``), and ``cv2.meanStdDev`` becomes the
+float64 mean and population standard deviation of the float32 channel.
 """
 
 from __future__ import annotations
@@ -21,7 +26,10 @@ from tiatoolbox_tpu_torch.tools.stainextract import (
     CustomExtractor,
     MacenkoExtractor,
     RuifrokExtractor,
+    VahadaneExtractor,
 )
+from tiatoolbox_tpu_torch.utils.exceptions import MethodNotSupportedError
+from tiatoolbox_tpu_torch.utils.misc import lab2rgb_u8, rgb2lab_u8
 from tiatoolbox_tpu_torch.utils.transforms import od2rgb, rgb2od
 
 
@@ -160,26 +168,93 @@ class MacenkoNormalizer(StainNormalizer):
         self.extractor = MacenkoExtractor()
 
 
+class VahadaneNormalizer(StainNormalizer):
+    """Vahadane sparse-NMF normalizer."""
+
+    def __init__(self) -> None:
+        super().__init__()
+        self.extractor = VahadaneExtractor()
+
+
+class ReinhardNormalizer(StainNormalizer):
+    """Reinhard LAB mean/std matching (JAX ``stainnorm.py:154-206``)."""
+
+    def __init__(self) -> None:
+        super().__init__()
+        self.target_means: tuple | None = None
+        self.target_stds: tuple | None = None
+
+    def fit(self, target: np.ndarray) -> None:
+        means, stds = self.get_mean_std(target)
+        self.target_means = means
+        self.target_stds = stds
+
+    def transform(self, img: np.ndarray) -> np.ndarray:
+        chan1, chan2, chan3 = self.lab_split(img)
+        means, stds = self.get_mean_std(img)
+        norm1 = ((chan1 - means[0]) * (self.target_stds[0] / stds[0])) + self.target_means[0]
+        norm2 = ((chan2 - means[1]) * (self.target_stds[1] / stds[1])) + self.target_means[1]
+        norm3 = ((chan3 - means[2]) * (self.target_stds[2] / stds[2])) + self.target_means[2]
+        return self.merge_back(norm1, norm2, norm3)
+
+    def transform_tiles(self, tiles, constants: dict | None = None, device=None) -> np.ndarray:  # noqa: ARG002
+        """Per-tile Reinhard on the host (the LAB conversions are OpenCV-exact)."""
+        return np.stack([self.transform(np.asarray(t)) for t in tiles])
+
+    @staticmethod
+    def lab_split(img: np.ndarray) -> tuple:
+        lab = rgb2lab_u8(img.astype("uint8")).astype(np.float32)
+        chan1, chan2, chan3 = (lab[..., k].copy() for k in range(3))
+        chan1 /= 2.55
+        chan2 -= 128.0
+        chan3 -= 128.0
+        return chan1, chan2, chan3
+
+    @staticmethod
+    def merge_back(chan1, chan2, chan3) -> np.ndarray:
+        chan1 *= 2.55
+        chan2 += 128.0
+        chan3 += 128.0
+        merged = np.stack([chan1, chan2, chan3], axis=-1)
+        # float -> uint8 truncates toward zero, as numpy's astype does after the clip
+        return lab2rgb_u8(np.clip(merged, 0, 255).astype(np.uint8))
+
+    def get_mean_std(self, img: np.ndarray) -> tuple:
+        chan1, chan2, chan3 = self.lab_split(img.astype("uint8"))
+        means = tuple(float(np.mean(c, dtype=np.float64)) for c in (chan1, chan2, chan3))
+        stds = tuple(float(np.std(c, dtype=np.float64)) for c in (chan1, chan2, chan3))
+        return means, stds
+
+
 def get_normalizer(
     method_name: str, stain_matrix: np.ndarray | None = None
 ) -> StainNormalizer:
-    """Stain normalizer by name: "custom", "ruifrok" or "macenko".
+    """Stain normalizer by name: "reinhard", "custom", "ruifrok", "macenko"
+    or "vahadane".
 
     Args:
         method_name: Normalizer name.
         stain_matrix: Only for "custom"; ndarray or path to .csv/.npy.
+
+    Raises:
+        MethodNotSupportedError: an unknown name, as JAX's raises.
+        ValueError: ``stain_matrix`` given for another name than "custom",
+            or missing for "custom".
     """
     name = method_name.lower()
-    if name not in ("ruifrok", "macenko", "custom"):
-        msg = f"Stain normalizer {method_name!r} is not supported by the port."
-        raise ValueError(msg)
+    if name not in ("reinhard", "ruifrok", "macenko", "vahadane", "custom"):
+        raise MethodNotSupportedError
     if stain_matrix is not None and name != "custom":
         msg = '`stain_matrix` is only defined when using `method_name`="custom".'
         raise ValueError(msg)
+    if name == "reinhard":
+        return ReinhardNormalizer()
     if name == "ruifrok":
         return RuifrokNormalizer()
     if name == "macenko":
         return MacenkoNormalizer()
+    if name == "vahadane":
+        return VahadaneNormalizer()
     if stain_matrix is None:
         msg = '`stain_matrix` is None when using `method_name`="custom".'
         raise ValueError(msg)

@@ -7,6 +7,13 @@ cube-root table, 12-bit luminance coefficients, 15-bit L descale): it
 equals ``cv2.cvtColor(img, cv2.COLOR_RGB2LAB)[..., 0]`` for every one of
 the 2**24 RGB colours.
 
+``rgb2lab_u8`` and ``lab2rgb_u8`` extend those tables to OpenCV's whole
+8-bit ``COLOR_RGB2LAB`` and ``COLOR_LAB2RGB`` (the latter OpenCV's integer
+path: L and a/b lookup tables, 14-bit fixed-point XYZ, a 4096-entry inverse
+gamma table), for ``ReinhardNormalizer``; ``imread`` (:41-60) reads
+``.npy``, PNG, JPEG and BMP through the port's own codecs
+(``utils/imagecodec.py``).
+
 ``get_bounding_box`` (:165) is the box of a mask's nonzero pixels.
 
 ``read_locations`` (:193) reads point annotations from an ndarray, ``.npy``,
@@ -22,8 +29,39 @@ from pathlib import Path
 
 import numpy as np
 
+from tiatoolbox_tpu_torch.utils.exceptions import FileNotSupportedError
+from tiatoolbox_tpu_torch.utils.imagecodec import imdecode
+
 # mpp of a 40x objective; power <-> mpp as 10 / x (``misc.py:97-122``).
 _COMMON_POWERS = (1, 1.25, 2, 2.5, 4, 5, 10, 20, 40, 60, 90, 100)
+
+
+def imread(image_path, as_uint8: bool = True) -> np.ndarray:
+    """Read an image file to an RGB(A) numpy array (JAX ``misc.py:41-60``).
+
+    ``.npy`` arrays load as they are; PNG, JPEG and BMP files decode through
+    the port's codecs (``utils/imagecodec.py``) as ``cv2.imread(path,
+    IMREAD_UNCHANGED)`` would, in RGB(A) order. With ``as_uint8`` a
+    non-uint8 image is clipped to 0..255 and cast, as JAX does.
+
+    Raises:
+        FileNotFoundError: no such file.
+        FileNotSupportedError: a file the port cannot decode.
+    """
+    image_path = Path(image_path)
+    if not image_path.is_file():
+        msg = f"Could not find image file: {image_path}"
+        raise FileNotFoundError(msg)
+    if image_path.suffix == ".npy":
+        image = np.load(str(image_path))
+    else:
+        image = imdecode(image_path.read_bytes(), "unchanged")
+        if image is None:
+            msg = f"Unable to decode image: {image_path}"
+            raise FileNotSupportedError(msg)
+    if as_uint8 and image.dtype != np.uint8:
+        image = np.clip(image, 0, 255).astype(np.uint8)
+    return image
 
 
 def objective_power2mpp(objective_power) -> float | np.ndarray:
@@ -67,9 +105,15 @@ def _lab_tables() -> tuple[np.ndarray, np.ndarray]:
         values <= 0.04045, values / 12.92, ((values + 0.055) / 1.055) ** 2.4
     )
     gamma_tab = np.rint(255.0 * 8 * linear).astype(np.int64)
-    x = np.arange(256 * 3 // 2 * 8, dtype=np.float64) / (255.0 * 8)
-    cbrt = np.where(x < 216.0 / 24389.0, x * (841.0 / 108.0) + 16.0 / 116.0, np.cbrt(x))
-    cbrt_tab = np.rint(32768.0 * cbrt).astype(np.int64)
+    # the cube-root table in float32, as OpenCV's softfloat builds it (in
+    # float64, 3 of its 3072 entries round the other way)
+    f32 = np.float32
+    x = f32(1) / f32(255 * 8) * np.arange(256 * 3 // 2 * 8).astype(f32)
+    linear_part = (
+        x.astype(np.float64) * float(f32(841) / f32(108)) + float(f32(16) / f32(116))
+    ).astype(f32)
+    cbrt = np.where(x < f32(216) / f32(24389), linear_part, np.cbrt(x))
+    cbrt_tab = np.rint(f32(32768) * cbrt).astype(np.int64)
     return gamma_tab, cbrt_tab
 
 
@@ -84,6 +128,96 @@ def lab_luminosity_u8(img: np.ndarray) -> np.ndarray:
     f_y = _CBRT_TAB[(y + (1 << 11)) >> 12]
     lum = (296 * f_y - 1336934 + (1 << 14)) >> 15
     return np.clip(lum, 0, 255).astype(np.uint8)
+
+
+# sRGB -> XYZ (D65) and back, and the D65 white point, as OpenCV's color_lab.cpp has them
+_SRGB2XYZ = np.array(
+    [[0.412453, 0.357580, 0.180423], [0.212671, 0.715160, 0.072169], [0.019334, 0.119193, 0.950227]]
+)
+_XYZ2SRGB = np.array(
+    [[3.240479, -1.53715, -0.498535], [-0.969256, 1.875991, 0.041556], [0.055648, -0.204043, 1.057311]]
+)
+_D65 = np.array([0.950456, 1.0, 1.088754])
+# RGB -> XYZ over the white point, in 12-bit fixed point (row Y is _Y_COEFS)
+_LAB_COEFS = np.rint(4096 * _SRGB2XYZ / _D65[:, None]).astype(np.int64)
+
+
+def rgb2lab_u8(img: np.ndarray) -> np.ndarray:
+    """8-bit CIE LAB of a uint8 RGB image, bit-exact to OpenCV's ``COLOR_RGB2LAB``.
+
+    L is scaled to 0..255 and a, b are offset by 128, as OpenCV stores them.
+    """
+    rgb = np.asarray(img, np.uint8)
+    lin = [_GAMMA_TAB[rgb[..., k]] for k in range(3)]
+    f_x, f_y, f_z = (
+        _CBRT_TAB[(sum(lin[k] * int(row[k]) for k in range(3)) + (1 << 11)) >> 12]
+        for row in _LAB_COEFS
+    )
+    lab = np.empty((*rgb.shape[:-1], 3), np.int64)
+    lab[..., 0] = (296 * f_y - 1336934 + (1 << 14)) >> 15
+    lab[..., 1] = (500 * (f_x - f_y) + (128 << 15) + (1 << 14)) >> 15
+    lab[..., 2] = (200 * (f_y - f_z) + (128 << 15) + (1 << 14)) >> 15
+    return np.clip(lab, 0, 255).astype(np.uint8)
+
+
+_LAB_BASE = 1 << 14
+_MIN_AB = -8145
+
+
+def _inv_lab_tables() -> tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
+    """OpenCV's ``initLabTabs`` tables of the 8-bit LAB -> RGB path.
+
+    The float ones are computed in float32 as OpenCV's ``softfloat``
+    does; the gamma curve in float64 with float32 constants.
+    """
+    f32 = np.float32
+    base = f32(_LAB_BASE)
+    ell = np.arange(256)
+    low = ell <= 20
+    y_low = np.rint((ell * _LAB_BASE * 20 * 9).astype(f32) / f32(17 * 29 * 29 * 29))
+    ify_low = np.rint(base * (f32(16) / f32(116) + (ell * 5).astype(f32) / f32(3 * 17 * 29)))
+    fy = (ell * 100 * _LAB_BASE).astype(f32) / f32(255 * 116) + f32(16 * _LAB_BASE) / f32(116)
+    y_high = np.rint(fy * fy * fy / f32(_LAB_BASE * _LAB_BASE))
+    y_tab = np.where(low, y_low, y_high).astype(np.int64)
+    ify_tab = np.where(low, ify_low, np.rint(fy)).astype(np.int64)
+    i = np.arange(_MIN_AB, _LAB_BASE * 9 // 4 + _MIN_AB, dtype=np.int64)
+    # C integer division truncates toward zero
+    lin_part = np.trunc(i * 108 / 841).astype(np.int64) - (_LAB_BASE * 16 // 116 * 108 // 841)
+    cube_part = (i * i // _LAB_BASE) * i // _LAB_BASE
+    xz_tab = np.where(i <= 3390, lin_part, cube_part)
+    x = (np.arange(4096, dtype=f32) * (f32(1) / f32(4096))).astype(np.float64)
+    threshold = float(f32(7827) / f32(2500000))
+    low_scale = float(f32(55) / f32(1000))
+    power = float(f32(12) / f32(5))
+    gamma = np.where(
+        x <= threshold,
+        x * float(f32(1292) / f32(100)),
+        (1.0 + low_scale) * np.power(x, 1.0 / power) - low_scale,
+    ).astype(f32)
+    inv_gamma_tab = np.rint(f32(255) * gamma).astype(np.int64)
+    return y_tab, ify_tab, xz_tab, inv_gamma_tab
+
+
+_Y_TAB, _IFY_TAB, _XZ_TAB, _INV_GAMMA_TAB = _inv_lab_tables()
+# XYZ -> RGB times the white point, in 12-bit fixed point
+_INV_LAB_COEFS = np.rint(4096 * _XYZ2SRGB * _D65[None, :]).astype(np.int64)
+
+
+def lab2rgb_u8(img: np.ndarray) -> np.ndarray:
+    """uint8 RGB of an 8-bit CIE LAB image, as OpenCV's ``COLOR_LAB2RGB`` computes it."""
+    lab = np.asarray(img, np.uint8).astype(np.int64)
+    ell, a, b = lab[..., 0], lab[..., 1], lab[..., 2]
+    y = _Y_TAB[ell]
+    ify = _IFY_TAB[ell]
+    adiv = ((5 * a * 53687 + (1 << 7)) >> 13) - 128 * _LAB_BASE // 500
+    bdiv = ((b * 41943 + (1 << 4)) >> 9) - 128 * _LAB_BASE // 200 + 1
+    x = _XZ_TAB[ify + adiv - _MIN_AB]
+    z = _XZ_TAB[ify - bdiv - _MIN_AB]
+    out = np.empty((*lab.shape[:-1], 3), np.uint8)
+    for k, (c0, c1, c2) in enumerate(_INV_LAB_COEFS):
+        v = (c0 * x + c1 * y + c2 * z + (1 << 13)) >> 14
+        out[..., k] = _INV_GAMMA_TAB[np.clip(v, 0, 4095)]
+    return out
 
 
 def rgb2gray_u8(img: np.ndarray) -> np.ndarray:

@@ -432,7 +432,10 @@ class TiffFile:
             if arr.shape[2] == 1 and spp == 3:
                 arr = np.repeat(arr, 3, axis=2)
         elif comp in (COMPRESSION_APERIO_J2K_YCBCR, COMPRESSION_APERIO_J2K_RGB):
-            msg = f"JPEG 2000 TIFF tiles are not supported (compression {comp})."
+            msg = (
+                f"JPEG 2000 TIFF tiles are not supported (compression {comp}); the port's own "
+                "JPEG 2000 decoder is ROADMAP.md section 1 item 2."
+            )
             raise ValueError(msg)
         else:
             if comp == COMPRESSION_NONE:

@@ -2,14 +2,29 @@
 
 ``WSIReader`` keeps the resolution algebra and the template ``read_rect``
 (:414) / ``read_bounds`` (:479) over an in-bounds level read, plus
-``slide_thumbnail`` and ``tissue_mask`` (:534). Concrete readers:
+``read_region``, ``slide_thumbnail`` and ``tissue_mask`` (:534), and the
+read-time post-processing ``post_proc`` (:115-146; ``"auto"`` composites
+multiplex TIFF and array slides to RGB through
+``utils.postproc_defs.MultichannelToRGB``). ``WSIReader.open`` (:60-113)
+dispatches on the input as JAX's does. Concrete readers:
 
-- ``VirtualWSIReader`` (:616): an ndarray as a slide, with virtual scaling;
-- ``TIFFWSIReader`` (:783): tiled pyramidal TIFF through the port's ``tiffio``,
-  with ``prefetch_bounds`` (:977-986), which decodes the JPEG tiles of many
-  bounds in one threaded native batch.
+- ``VirtualWSIReader`` (:616): an ndarray, ``.npy`` or flat image (PNG, JPEG,
+  BMP through the port's ``utils.misc.imread``) as a slide, with virtual
+  scaling;
+- ``TIFFWSIReader`` (:783): tiled pyramidal TIFF through the port's
+  ``tiffio``, with the channel colours of multiplex slides from
+  ScanColorTable, FilterColors or OME-XML (:800-946), and
+  ``prefetch_bounds`` (:977-986), which decodes the JPEG tiles of many
+  bounds in one threaded native batch;
+- ``MIRAXWSIReader`` (:989, ``wsicore/mirax.py``), ``DICOMWSIReader``
+  (:1211, ``wsicore/dicom.py``), ``ZarrWSIReader`` (:1252, on the port's
+  ``utils/zarrlite.py``) and ``NGFFWSIReader`` (:1295);
+- ``FsspecJsonWSIReader`` in ``wsicore/store_reader.py``.
 
-Reads return RGB as stored: multiplex post-processing is not ported.
+JPEG 2000 (``.jp2``, JAX's ``JP2WSIReader`` :1032) waits for the port's own
+decoder (``ROADMAP.md`` section 1 item 2) and ``.db`` annotation stores
+(``AnnotationStoreReader``) for item 4: ``open`` raises
+``FileNotSupportedError`` naming each.
 """
 
 from __future__ import annotations
@@ -19,8 +34,10 @@ from pathlib import Path
 import numpy as np
 
 from tiatoolbox_tpu_torch import logger
+from tiatoolbox_tpu_torch.utils import magic
+from tiatoolbox_tpu_torch.utils.exceptions import FileNotSupportedError
 from tiatoolbox_tpu_torch.utils.image import find_overlap, find_padding, sub_pixel_read
-from tiatoolbox_tpu_torch.utils.misc import mpp2common_objective_power
+from tiatoolbox_tpu_torch.utils.misc import imread, mpp2common_objective_power
 from tiatoolbox_tpu_torch.utils.transforms import (
     background_composite,
     bounds2locsize,
@@ -30,16 +47,7 @@ from tiatoolbox_tpu_torch.utils.transforms import (
 from tiatoolbox_tpu_torch.wsicore.tiffio import TiffFile
 from tiatoolbox_tpu_torch.wsicore.wsimeta import WSIMeta
 
-_TIFF_MAGICS = (b"II*\x00", b"MM\x00*", b"II+\x00", b"MM\x00+")
-
-
-class FileNotSupportedError(Exception):
-    """The file is not in a format the port reads."""
-
-
-def _is_tiff(path: Path) -> bool:
-    with path.open("rb") as fh:
-        return fh.read(4) in _TIFF_MAGICS
+MIN_NGFF_VERSION = (0, 4)
 
 
 class WSIReader:
@@ -52,27 +60,65 @@ class WSIReader:
     """
 
     @staticmethod
-    def open(input_img, mpp=None, power=None, **kwargs) -> "WSIReader":
-        """Return a reader for an array, a reader, a TIFF file or a ``.npy`` file.
+    def open(input_img, mpp=None, power=None, post_proc="auto", **kwargs) -> "WSIReader":
+        """Sniff the input and return a reader for it (JAX :60-113).
 
-        Counterpart of ``wsireader.py:60-113`` for the formats the port reads.
+        ndarray -> Virtual; a reader is returned as it is; a directory ->
+        NGFF or zarr; by suffix and magic bytes -> ``.npy`` (Virtual),
+        ``.mrxs`` (MIRAX), DICOM, TIFF, PNG/JPEG/BMP (Virtual); an fsspec
+        reference JSON is opened with ``FsspecJsonWSIReader`` itself, as in
+        JAX. ``post_proc`` ("auto", a callable, a name in
+        ``utils.postproc_defs`` or None) goes to the TIFF and Virtual
+        readers.
+
+        Raises:
+            FileNotFoundError: no such path.
+            FileNotSupportedError: a format the port does not read, JPEG
+                2000 and ``.db`` stores among them (each named).
         """
         if isinstance(input_img, np.ndarray):
-            return VirtualWSIReader(input_img, mpp=mpp, power=power, **kwargs)
+            return VirtualWSIReader(input_img, mpp=mpp, power=power, post_proc=post_proc, **kwargs)
         if isinstance(input_img, WSIReader):
             return input_img
         path = Path(input_img)
         if not path.exists():
             msg = f"File does not exist: {path}"
             raise FileNotFoundError(msg)
-        if path.suffix.lower() == ".npy":
+        if path.is_dir():
+            if magic.is_ngff(path):
+                return NGFFWSIReader(path, mpp=mpp, power=power)
+            if magic.is_zarr(path):
+                return ZarrWSIReader(path, mpp=mpp, power=power)
+            msg = f"Directory is not a zarr/NGFF store: {path}"
+            raise FileNotSupportedError(msg)
+        suffixes = [s.lower() for s in path.suffixes]
+        last = suffixes[-1] if suffixes else ""
+        if last == ".npy":
             return VirtualWSIReader(np.load(str(path)), mpp=mpp, power=power, **kwargs)
-        if path.is_file() and _is_tiff(path):
-            return TIFFWSIReader(path, mpp=mpp, power=power)
+        if last == ".mrxs":
+            return MIRAXWSIReader(path, mpp=mpp, power=power)
+        if magic.is_dcm(path) or last == ".dcm":
+            return DICOMWSIReader(path, mpp=mpp, power=power)
+        if magic.is_tiff(path):
+            return TIFFWSIReader(path, mpp=mpp, power=power, post_proc=post_proc)
+        if magic.is_jp2(path) or last == ".jp2":
+            msg = (
+                f"{path}: JPEG 2000 slides are not read by the port yet "
+                "(its own JPEG 2000 decoder is ROADMAP.md section 1 item 2)."
+            )
+            raise FileNotSupportedError(msg)
+        if magic.is_sqlite3(path) or last == ".db":
+            msg = (
+                f"{path}: annotation stores as slides (AnnotationStoreReader) are "
+                "not ported yet (ROADMAP.md section 1 item 4)."
+            )
+            raise FileNotSupportedError(msg)
+        if last in (".png", ".jpg", ".jpeg", ".webp", ".bmp"):
+            return VirtualWSIReader(path, mpp=mpp, power=power, **kwargs)
         msg = f"File {path} is not a supported file format."
         raise FileNotSupportedError(msg)
 
-    def __init__(self, input_img, mpp=None, power=None) -> None:
+    def __init__(self, input_img, mpp=None, power=None, post_proc="auto") -> None:
         if isinstance(input_img, (str, Path)):
             self.input_path: Path | None = Path(input_img)
         else:
@@ -80,6 +126,28 @@ class WSIReader:
         self._m_info: WSIMeta | None = None
         self._manual_mpp = tuple(np.broadcast_to(mpp, 2).astype(float)) if mpp else None
         self._manual_power = float(power) if power else None
+        self.post_proc = self.get_post_proc(post_proc)
+
+    def get_post_proc(self, post_proc):
+        """The post-processing callable (JAX :126-146).
+
+        "auto" -> ``MultichannelToRGB`` for TIFF and Virtual readers, None
+        otherwise; a string is looked up in ``utils.postproc_defs``.
+        """
+        from tiatoolbox_tpu_torch.utils import postproc_defs
+
+        if callable(post_proc):
+            return post_proc
+        if post_proc is None:
+            return None
+        if post_proc == "auto":
+            if isinstance(self, (TIFFWSIReader, VirtualWSIReader)):
+                return postproc_defs.MultichannelToRGB()
+            return None
+        if isinstance(post_proc, str) and hasattr(postproc_defs, post_proc):
+            return getattr(postproc_defs, post_proc)()
+        msg = f"Invalid post_proc: {post_proc}"
+        raise ValueError(msg)
 
     # -- metadata --------------------------------------------------------------
 
@@ -316,6 +384,8 @@ class WSIReader:
             region = imresize(
                 region, output_size=tuple(np.array(size)), interpolation=interpolation
             )
+        if self.post_proc is not None and region.ndim == 3:
+            region = self.post_proc(region)
         return np.ascontiguousarray(region)
 
     def read_rect_at_resolution(
@@ -372,7 +442,13 @@ class WSIReader:
                 output_size=tuple(np.array(size_at_requested)),
                 interpolation=interpolation,
             )
+        if self.post_proc is not None and region.ndim == 3:
+            region = self.post_proc(region)
         return region
+
+    def read_region(self, location, level: int, size) -> np.ndarray:
+        """OpenSlide-style read: location at baseline, size at ``level``."""
+        return self.read_rect(location=location, size=size, resolution=level, units="level")
 
     # -- conveniences -------------------------------------------------------------
 
@@ -427,15 +503,16 @@ class VirtualWSIReader(WSIReader):
         power=None,
         info: WSIMeta | None = None,
         mode: str = "rgb",
+        post_proc="auto",
     ) -> None:
-        super().__init__(input_img, mpp=mpp, power=power)
+        super().__init__(input_img, mpp=mpp, power=power, post_proc=post_proc)
         if mode.lower() not in ("rgb", "bool", "feature"):
             msg = "Invalid mode."
             raise ValueError(msg)
-        if not isinstance(input_img, np.ndarray):
-            msg = "VirtualWSIReader reads an ndarray."
-            raise TypeError(msg)
-        self.img = input_img
+        if isinstance(input_img, np.ndarray):
+            self.img = input_img
+        else:
+            self.img = imread(self.input_path)
         if self.img.ndim < 2:
             msg = "Input image must be 2D (H, W) or 3D (H, W, C)."
             raise ValueError(msg)
@@ -515,6 +592,8 @@ class VirtualWSIReader(WSIReader):
             pad_at_baseline=False,
         )
         if self.mode == "rgb":
+            if self.post_proc is not None and region.ndim == 3:
+                region = self.post_proc(region)
             return background_composite(region, alpha=False)
         # contiguity contract: mask/feature modes can return slice
         # views of self.img — copy so callers can't mutate the backing
@@ -570,6 +649,8 @@ class VirtualWSIReader(WSIReader):
                 region, scale_factor=post_read_scale, output_size=size_at_requested
             )
         if self.mode == "rgb":
+            if self.post_proc is not None and region.ndim == 3:
+                region = self.post_proc(region)
             return background_composite(region, alpha=False)
         return region
 
@@ -577,8 +658,8 @@ class VirtualWSIReader(WSIReader):
 class TIFFWSIReader(WSIReader):
     """Tiled pyramidal TIFF / SVS / OME-TIFF reader on ``tiffio``."""
 
-    def __init__(self, input_img, mpp=None, power=None) -> None:
-        super().__init__(input_img, mpp=mpp, power=power)
+    def __init__(self, input_img, mpp=None, power=None, post_proc="auto") -> None:
+        super().__init__(input_img, mpp=mpp, power=power, post_proc=post_proc)
         self.tiff = TiffFile(self.input_path)
         self._level_pages = self.tiff.pyramid_pages()
         if not self._level_pages:
@@ -586,6 +667,150 @@ class TIFFWSIReader(WSIReader):
             raise FileNotSupportedError(msg)
         base = self.tiff.pages[self._level_pages[0]]
         self._n_channels = base.samples_per_pixel
+        self._get_colors_from_meta()
+
+    def _get_colors_from_meta(self) -> None:
+        """Channel colours from the slide's XML (JAX :800-825): ScanColorTable
+        (QPTIFF), FilterColors (Vectra) or OME-XML Channel colours, in turn."""
+        from xml.etree import ElementTree
+
+        from tiatoolbox_tpu_torch.utils import postproc_defs
+
+        if not isinstance(self.post_proc, postproc_defs.MultichannelToRGB):
+            return
+        try:
+            xml = self.tiff.pages[self._level_pages[0]].description
+            root = ElementTree.fromstring(xml)
+        except ElementTree.ParseError:
+            return
+        for parser in (
+            TIFFWSIReader._parse_scancolortable,
+            TIFFWSIReader._parse_filtercolor_metadata,
+            TIFFWSIReader._parse_ome_metadata_mapping,
+        ):
+            color_dict = parser(root)
+            if color_dict:
+                self.post_proc.color_dict = color_dict
+                return
+
+    @staticmethod
+    def _color_string_to_rgb(value: str):
+        """"255, 128, 0" or a named colour ("Lime") -> RGB in [0, 1] (JAX :827),
+        names from the port's copy of matplotlib's tables (``utils/colors.py``)."""
+        from tiatoolbox_tpu_torch.utils.colors import to_rgb
+
+        if "," in value:
+            return tuple(int(x.strip()) / 255 for x in value.split(","))
+        return to_rgb(value)
+
+    @staticmethod
+    def _parse_scancolortable(root):
+        """QPTIFF ScanColorTable key/value pairs -> colour dict."""
+        color_info = root.find(".//ScanColorTable")
+        if color_info is None:
+            return None
+        color_dict = {
+            k.text.split("_")[0]: v.text
+            for k, v in zip(
+                color_info.iterfind("ScanColorTable-k"),
+                color_info.iterfind("ScanColorTable-v"),
+            )
+        }
+        for key, value in color_dict.items():
+            if value is None:
+                continue
+            color_dict[key] = TIFFWSIReader._color_string_to_rgb(value)
+        return color_dict
+
+    @staticmethod
+    def _parse_filtercolor_metadata(root):
+        """FilterColors matched to each ScanBand's filter pair -> colour dict."""
+        filter_colors_section = root.find(".//FilterColors")
+        if filter_colors_section is None:
+            return None
+        filter_colors = {}
+        keys = filter_colors_section.findall(".//FilterColors-k")
+        vals = filter_colors_section.findall(".//FilterColors-v")
+        for k, v in zip(keys, vals):
+            filter_colors[k.text] = v.text
+
+        channel_dict = {}
+        for scan_band in root.findall(".//ScanBands-i"):
+            bands_i = scan_band.find(".//Bands-i")
+            if bands_i is None:
+                continue
+            band_name_element = bands_i.find("Name")
+            if band_name_element is None:
+                continue
+            channel_name = band_name_element.text.strip()
+            filter_pair = scan_band.find(".//FilterPair")
+            if filter_pair is None:
+                continue
+            emission = filter_pair.find(".//EmissionFilter/FixedFilter/PartNumber")
+            excitation = filter_pair.find(".//ExcitationFilter/FixedFilter/PartNumber")
+            if emission is None or excitation is None:
+                continue
+            matching_rgb = (1.0, 1.0, 1.0)
+            for fc_key, fc_val in filter_colors.items():
+                if emission.text in fc_key and excitation.text in fc_key:
+                    matching_rgb = TIFFWSIReader._color_string_to_rgb(fc_val)
+                    break
+            channel_dict[channel_name] = matching_rgb
+        return channel_dict or None
+
+    @staticmethod
+    def _parse_ome_metadata_mapping(root):
+        """OME-XML Channel Color attributes and dye annotations -> colour dict."""
+        from collections import defaultdict
+
+        ns = {}
+        if root.tag.startswith("{"):
+            ns = {"ns": root.tag.split("}")[0].strip("{")}
+
+        dye_mapping = {}
+        for annotation in root.findall(".//ns:StructuredAnnotations/ns:XMLAnnotation", ns):
+            value_elem = annotation.find("ns:Value", ns)
+            if value_elem is None:
+                continue
+            for chan_priv in value_elem.findall(".//ns:ChannelPriv", ns):
+                chan_id = chan_priv.attrib.get("ID")
+                dye = chan_priv.attrib.get("FluorescenceChannel")
+                if chan_id and dye:
+                    dye_mapping[chan_id] = dye
+
+        def int_to_rgb(color_int: int):
+            if color_int < 0:
+                color_int += 1 << 32
+            return (
+                ((color_int >> 16) & 0xFF) / 255,
+                ((color_int >> 8) & 0xFF) / 255,
+                (color_int & 0xFF) / 255,
+            )
+
+        channel_data = []
+        for pixels in root.findall(".//ns:Pixels", ns):
+            for channel in pixels.findall("ns:Channel", ns):
+                chan_id = channel.attrib.get("ID")
+                name = channel.attrib.get("Name")
+                color = channel.attrib.get("Color")
+                if not (chan_id and name and color):
+                    continue
+                try:
+                    rgb = int_to_rgb(int(color))
+                except ValueError:
+                    rgb = None
+                channel_data.append({"id": chan_id, "name": name, "rgb": rgb})
+
+        color_dict = {}
+        key_counts: dict = defaultdict(int)
+        for c_data in channel_data:
+            dye = dye_mapping.get(c_data["id"])
+            base_key = f"{c_data['name']} ({dye})" if dye else c_data["name"]
+            count = key_counts[base_key]
+            key = base_key if count == 0 else f"{base_key} [{count + 1}]"
+            color_dict[key] = c_data["rgb"]
+            key_counts[base_key] += 1
+        return color_dict or None
 
     def _info(self) -> WSIMeta:
         pages = [self.tiff.pages[i] for i in self._level_pages]
@@ -624,3 +849,222 @@ class TIFFWSIReader(WSIReader):
         ds = self.info.level_downsamples[level]
         level_bounds = [tuple(np.asarray(b, float) / ds) for b in bounds_list]
         self.tiff.prefetch_regions(self._level_pages[level], level_bounds)
+
+
+class MIRAXWSIReader(WSIReader):
+    """3DHISTECH MIRAX (``.mrxs``) reader on ``wsicore/mirax.py`` (JAX :989-1029)."""
+
+    def __init__(self, input_img, mpp=None, power=None, post_proc=None) -> None:
+        super().__init__(input_img, mpp=mpp, power=power, post_proc=post_proc)
+        from tiatoolbox_tpu_torch.wsicore.mirax import MiraxFile
+
+        self.mirax = MiraxFile(self.input_path)
+
+    def _info(self) -> WSIMeta:
+        level_dims = [self.mirax.level_dimensions(lvl) for lvl in range(len(self.mirax.levels))]
+        base = level_dims[0]
+        downsamples = [base[0] / d[0] for d in level_dims]
+        mpp = self.mirax.levels[0].mpp_xy
+        objective_power = None
+        if mpp is not None:
+            mpp = np.array(mpp)
+            objective_power = float(mpp2common_objective_power(mpp[0]))
+        return WSIMeta(
+            file_path=self.input_path,
+            axes="YXS",
+            slide_dimensions=base,
+            level_dimensions=level_dims,
+            level_downsamples=downsamples,
+            level_count=len(level_dims),
+            vendor="3DHISTECH",
+            mpp=mpp,
+            objective_power=objective_power,
+            raw={"slide_id": self.mirax.slide_id},
+        )
+
+    def _read_level_within(self, location, size, level: int) -> np.ndarray:
+        return self.mirax.read_region(level, location, size)
+
+
+class DICOMWSIReader(WSIReader):
+    """WSI DICOM reader on ``wsicore/dicom.py`` (JAX :1211-1249); a directory
+    of ``.dcm`` instances is one pyramid."""
+
+    def __init__(self, input_img, mpp=None, power=None) -> None:
+        super().__init__(input_img, mpp=mpp, power=power)
+        from tiatoolbox_tpu_torch.wsicore.dicom import DicomSlide
+
+        self.slide = DicomSlide(self.input_path)
+        self._n_channels = 3
+
+    def _info(self) -> WSIMeta:
+        dims = [(inst.total_shape[1], inst.total_shape[0]) for inst in self.slide.levels]
+        base = dims[0]
+        mpp = self.slide.levels[0].mpp
+        power = float(mpp2common_objective_power(mpp[0])) if mpp else None
+        return WSIMeta(
+            file_path=self.input_path,
+            axes="YXS",
+            slide_dimensions=base,
+            level_dimensions=dims,
+            level_downsamples=[base[0] / d[0] for d in dims],
+            level_count=len(dims),
+            vendor="dicom",
+            mpp=mpp,
+            objective_power=power,
+            raw=None,
+        )
+
+    def _read_level_within(self, location, size, level: int) -> np.ndarray:
+        return self.slide.read_region(level, location, size)
+
+
+class ZarrWSIReader(WSIReader):
+    """A plain zarr array or a group of level arrays (YXS axes) on the port's
+    ``utils/zarrlite.py`` (JAX :1252-1292)."""
+
+    def __init__(self, input_img, mpp=None, power=None) -> None:
+        super().__init__(input_img, mpp=mpp, power=power)
+        from tiatoolbox_tpu_torch.utils.zarrlite import ZarrArray, open_zarr
+
+        store = open_zarr(self.input_path)
+        if isinstance(store, ZarrArray):
+            self._levels = [store]
+        else:
+            self._levels = [store[k] for k in store.keys()]  # noqa: SIM118 - a zarr group
+            self._levels.sort(key=lambda a: -a.shape[1])
+        self._n_channels = self._levels[0].shape[2] if self._levels[0].ndim > 2 else 1
+
+    def _info(self) -> WSIMeta:
+        dims = [(a.shape[1], a.shape[0]) for a in self._levels]
+        base = dims[0]
+        return WSIMeta(
+            file_path=self.input_path,
+            axes="YXS",
+            slide_dimensions=base,
+            level_dimensions=dims,
+            level_downsamples=[base[0] / d[0] for d in dims],
+            level_count=len(dims),
+            vendor="zarr",
+            mpp=None,
+            objective_power=None,
+            raw=None,
+        )
+
+    def _read_level_within(self, location, size, level: int) -> np.ndarray:
+        x0, y0 = int(location[0]), int(location[1])
+        w, h = int(size[0]), int(size[1])
+        region = self._levels[level][y0 : y0 + h, x0 : x0 + w]
+        if region.ndim == 2:
+            region = region[:, :, None]
+        return region
+
+
+class NGFFWSIReader(ZarrWSIReader):
+    """OME-NGFF v0.4 multiscales reader, a zarr group with attributes (JAX :1295-1383)."""
+
+    def __init__(self, input_img, mpp=None, power=None) -> None:
+        WSIReader.__init__(self, input_img, mpp=mpp, power=power)
+        from tiatoolbox_tpu_torch.utils.zarrlite import ZarrGroup
+
+        group = ZarrGroup(self.input_path)
+        attrs = group.attrs
+        multiscales = attrs.get("multiscales", [{}])[0]
+        version = multiscales.get("version", "0.4")
+        if tuple(int(v) for v in str(version).split(".")[:2]) < MIN_NGFF_VERSION:
+            logger.warning("NGFF version %s may not be fully supported.", version)
+        self._axes = [a["name"].upper() for a in multiscales.get("axes", [])] or ["Y", "X", "C"]
+        datasets = multiscales.get("datasets", [])
+        self._levels = [group[d["path"]] for d in datasets]
+        self._scales = [d.get("coordinateTransformations", [{}])[0].get("scale") for d in datasets]
+        self._mpp_from_axes = self._extract_mpp(multiscales)
+        self._n_channels = self._levels[0].shape[-1] if self._levels[0].ndim > 2 else 1
+
+    def _extract_mpp(self, multiscales: dict) -> tuple[float, float] | None:
+        axes = multiscales.get("axes", [])
+        datasets = multiscales.get("datasets", [])
+        if not datasets:
+            return None
+        scale = datasets[0].get("coordinateTransformations", [{}])[0].get("scale")
+        if scale is None:
+            return None
+        mpp_x = mpp_y = None
+        for i, ax in enumerate(axes):
+            unit = (ax.get("unit") or "").lower()
+            factor = {"micrometer": 1.0, "nanometer": 1e-3, "millimeter": 1e3}.get(unit)
+            if factor is None:
+                continue
+            if ax["name"].lower() == "x":
+                mpp_x = scale[i] * factor
+            elif ax["name"].lower() == "y":
+                mpp_y = scale[i] * factor
+        if mpp_x and mpp_y:
+            return (mpp_x, mpp_y)
+        return None
+
+    def _info(self) -> WSIMeta:
+        yi = self._axes.index("Y") if "Y" in self._axes else 0
+        xi = self._axes.index("X") if "X" in self._axes else 1
+        dims = [(a.shape[xi], a.shape[yi]) for a in self._levels]
+        base = dims[0]
+        mpp = self._mpp_from_axes
+        power = float(mpp2common_objective_power(mpp[0])) if mpp else None
+        return WSIMeta(
+            file_path=self.input_path,
+            axes="YXS",
+            slide_dimensions=base,
+            level_dimensions=dims,
+            level_downsamples=[base[0] / d[0] for d in dims],
+            level_count=len(dims),
+            vendor="ngff",
+            mpp=mpp,
+            objective_power=power,
+            raw=None,
+        )
+
+    def _read_level_within(self, location, size, level: int) -> np.ndarray:
+        arr = self._levels[level]
+        x0, y0 = int(location[0]), int(location[1])
+        w, h = int(size[0]), int(size[1])
+        if self._axes[:2] == ["Y", "X"] or arr.ndim == 2:
+            region = arr[y0 : y0 + h, x0 : x0 + w]
+        elif self._axes[:3] == ["C", "Y", "X"]:
+            region = arr[:, y0 : y0 + h, x0 : x0 + w]
+            region = np.moveaxis(region, 0, -1)
+        else:
+            region = arr[y0 : y0 + h, x0 : x0 + w]
+        if region.ndim == 2:
+            region = region[:, :, None]
+        return region
+
+
+def is_dicom(path) -> bool:
+    """True for a DICOM file (JAX :1386, ``utils.magic.is_dcm``)."""
+    return magic.is_dcm(path)
+
+
+def is_tiled_tiff(path) -> bool:
+    """True for a TIFF whose first directory is tiled (JAX :1392)."""
+    if not magic.is_tiff(path):
+        return False
+    try:
+        return TiffFile(str(path)).pages[0].is_tiled
+    except Exception:  # noqa: BLE001 - a malformed file is no tiled TIFF
+        return False
+
+
+def OpenSlideWSIReader(input_img, mpp=None, power=None, **kwargs) -> WSIReader:  # noqa: N802
+    """A reader for what OpenSlide would open: TIFF-like slides and ``.mrxs``
+    (JAX :1405-1421), through ``WSIReader.open``.
+
+    Raises:
+        FileNotSupportedError: the file opens with another reader.
+    """
+    reader = WSIReader.open(input_img, mpp=mpp, power=power, **kwargs)
+    if not isinstance(reader, (TIFFWSIReader, MIRAXWSIReader)):
+        msg = (
+            f"{reader.__class__.__name__} handles this file; "
+            "OpenSlideWSIReader covers SVS/NDPI/MRXS/tiled-TIFF formats."
+        )
+        raise FileNotSupportedError(msg)
+    return reader
