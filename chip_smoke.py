@@ -107,8 +107,10 @@ temporary directory, and drives the port's entry points on them:
   512x512 H&E target, then transform_tiles over every batch (Reinhard on
   the host with the port's OpenCV-exact LAB; Vahadane through the stain
   kernel), and augment_tiles with a seeded torch.Generator on every batch
-  (the stain augmentation kernel, K7), held against its plain version (the
-  first batch, all 2^24 colours, ragged and misaligned inputs) and timed;
+  (the stain augmentation kernel, K7, on its tile-uniform path), held
+  against its plain version (the first batch, all 2^24 colours, ragged and
+  misaligned inputs) and against its general path on the first batch's
+  own pixels (bit for bit, 2 and 3 stains), and timed at 2 and 3 stains;
 - "readers", the slide readers on the port's own codecs: the level 0 of
   phase A's slide written as a two-level MIRAX tree and a JPEG-tiled TIFF
   (the same Q 90 tile bytes), a JPEG-baseline DICOM instance, a native
@@ -196,6 +198,7 @@ from tiatoolbox_tpu_torch.ops import canvas as canvas_ops  # noqa: E402
 from tiatoolbox_tpu_torch.ops import hv_energy as energy_ops  # noqa: E402
 from tiatoolbox_tpu_torch.ops import region as region_ops  # noqa: E402
 from tiatoolbox_tpu_torch.ops.stain import (  # noqa: E402
+    augment_path,
     stain_augment,
     stain_augment_reference,
     stain_transform,
@@ -3308,6 +3311,7 @@ def phase_stain_ext(slide: Path) -> dict:
     seconds.update(reinhard_transform=0.0, vahadane_transform=0.0, augment=0.0)
     first = None
     n_patches = 0
+    paths = set()
     pinned = DEVICE == "cuda"
     for batch in loader.iter_staged(lambda host: torch.as_tensor(host).to(DEVICE, non_blocking=True), pin_memory=pinned):
         tiles = batch["image"]
@@ -3323,6 +3327,7 @@ def phase_stain_ext(slide: Path) -> dict:
         augmented = augment_tiles(tiles, stains, generator=gen)
         torch.cuda.synchronize()
         seconds["augment"] += time.perf_counter() - t
+        paths.add(augment_path(tiles))
         if first is None:
             first = (tiles.clone(), reinhard_out, vahadane_out, augmented)
         n_patches += batch["n_valid"]
@@ -3334,24 +3339,35 @@ def phase_stain_ext(slide: Path) -> dict:
     check(tuple(vahadane_out.shape) == tuple(tiles.shape), "Vahadane output shape")
     check(tuple(augmented.shape) == (BATCH, PATCH, PATCH, 3), "augmented shape")
     check(bool((augmented != tiles).any()), "augmentation changed nothing")
+    check(paths == {"tile_uniform"}, f"K7 paths on the main path {sorted(paths)}")
 
     # K7 against its plain version on the card: the main path's batch with
-    # its own factors, every colour, ragged and misaligned inputs
+    # its own factors, every colour, ragged and misaligned inputs; the
+    # tile-uniform path against the general one on the batch's own pixels
     main_args = augment_args(stains, len(tiles), torch.Generator(device=DEVICE).manual_seed(16))
     max_err, identical = held_augment(tiles, main_args, "main path batch")
     colours = all_colours().reshape(256, 256, 256, 3)
     sweep = held_augment(colours, augment_args(stains, 256, gen), "2^24 colours")
     ragged = {}
-    for name, case in ragged_cases(tiles).items():
+    cases = ragged_cases(tiles)
+    for name, case in cases.items():
         view = case if case.ndim == 4 else case.reshape(case.shape[0], 1, 1, 3)
         ragged[name] = held_augment(view, augment_args(stains, view.shape[0], gen), name)
     hed = np.vstack([stains, np.cross(stains[0], stains[1])[None] / np.linalg.norm(np.cross(stains[0], stains[1]))])
-    three = held_augment(tiles, augment_args(np.abs(hed), len(tiles), gen), "3 stains")
+    three_args = augment_args(np.abs(hed), len(tiles), gen)
+    three = held_augment(tiles, three_args, "3 stains")
+    misaligned = cases["batch_3_bytes_into_a_buffer"]
+    path = augment_path(tiles)
+    check(path == "tile_uniform" and augment_path(misaligned) == "general", "K7 paths of the batch and its view")
+    for args in (main_args, three_args):
+        fast, general = stain_augment(tiles, *args), stain_augment(misaligned, *args)
+        check(torch.equal(fast, general), "K7 tile-uniform path vs general path on the main batch: not bit for bit")
     torch.cuda.synchronize()
 
     copies = [tiles.clone() for _ in range(8)]
     turn = iter(range(1 << 30))
     kernel_ms = time_ms(lambda: stain_augment(copies[next(turn) % 8], *main_args), 50)
+    three_ms = time_ms(lambda: stain_augment(copies[next(turn) % 8], *three_args), 50)
     plain_ms = time_ms(lambda: stain_augment_reference(copies[next(turn) % 8], *main_args), 20)
     n_pix = tiles.numel() // 3
     bytes_s = STAIN_BYTES_PER_PIX * n_pix / HBM_BYTES_PER_S
@@ -3370,6 +3386,8 @@ def phase_stain_ext(slide: Path) -> dict:
         "bound_ms": bound_ms,
         "bound_by": "bytes" if bytes_s >= ops_s else "operations",
         "library_ms": None,
+        "ms_3_stains": three_ms,
+        "path": path,
     }
     emit(
         {
@@ -3388,6 +3406,8 @@ def phase_stain_ext(slide: Path) -> dict:
             "k7_3_stains_max_abs_err_and_identical_share": three,
             "k7_ragged_max_abs_err_and_identical_share": ragged,
             "k7_ms": kernel_ms,
+            "k7_ms_3_stains": three_ms,
+            "k7_path": path,
             "k7_gb_per_s": STAIN_BYTES_PER_PIX * n_pix / kernel_ms / 1e6,
             "k7_share_of_bound": bound_ms / kernel_ms,
             "k7_plain_ms": plain_ms,

@@ -1,13 +1,14 @@
-"""Time the port's K2-K6 kernels against an earlier tree's, in turns, on one card.
+"""Time the port's K2-K7 kernels against an earlier tree's, in turns, on one card.
 
-    python3 scripts/kernel_ab.py --old DIR [--cases k2,k3,k4,k5,k6]
+    python3 scripts/kernel_ab.py --old DIR [--cases k2,k3,k4,k5,k6,k7]
 
 ``DIR`` holds an earlier checkout's ``tiatoolbox_tpu_torch/csrc``, for
 example from ``git archive <commit> tiatoolbox_tpu_torch/csrc | tar -x -C DIR``.
-The script builds that tree's ``canvas.cu``, ``region.cu`` and
-``hv_energy.cu`` with the port's nvcc flags into ``DIR/build``, and calls
-their C entries through ctypes with buffers made once. The tree's kernels
-run through the port's wrappers. Shapes are ``chip_smoke.py``'s:
+The script builds that tree's ``canvas.cu``, ``region.cu``,
+``hv_energy.cu`` and ``stain.cu`` with the port's nvcc flags into
+``DIR/build``, and calls their C entries through ctypes with buffers made
+once. The tree's kernels run through the port's wrappers. Shapes are
+``chip_smoke.py``'s:
 
 - K2 on the first region-feed batch of phase C (16 patches of 512x512x5 at
   stride 450 on the 4608x6362x5 canvas) and of phase D (32 patches of
@@ -32,6 +33,15 @@ run through the port's wrappers. Shapes are ``chip_smoke.py``'s:
   min/max, compared bit for bit, and the spans of the tree's pair from a
   profiler trace. The earlier entries are those of ce2badd (K6 without
   the min/max, K5 without ``minmax``).
+- K7 (stain augmentation, ``stain.cu`` ``stain_augment_u8``) on phase A's
+  batch (64x224x224x3) and on all 2^24 colours (256 tiles of 256x256), at
+  2 and 3 stains, with the row ``path`` the tree's wrapper took; K1 on the
+  same batch beside it. The earlier entry is that of 007f1ea (no path
+  argument). Then, for both trees' K7 kernels, what the compiler made:
+  ``ptxas -v``'s registers and spills, and from ``cuobjdump -sass`` the
+  instructions of each kernel's main loop (the loop with the most
+  ``MUFU.EX2``, one a colour channel), its branches, and the kernel's
+  ``CALL``s (a 64-bit division by a runtime value is one).
 
 The order of the runs is old, new, new, old; each is the mean of 20
 back-to-back calls timed with CUDA events. The old and new outputs are
@@ -46,7 +56,9 @@ from __future__ import annotations
 
 import argparse
 import ctypes
+import hashlib
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -63,6 +75,7 @@ from tiatoolbox_tpu_torch import _build  # noqa: E402
 from tiatoolbox_tpu_torch.ops import canvas as canvas_ops  # noqa: E402
 from tiatoolbox_tpu_torch.ops import hv_energy as energy_ops  # noqa: E402
 from tiatoolbox_tpu_torch.ops import region as region_ops  # noqa: E402
+from tiatoolbox_tpu_torch.ops import stain as stain_ops  # noqa: E402
 
 REPS = 20
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA's data sheet
@@ -70,6 +83,9 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA's data sheet
 K2_SHAPES = {"C": (4608, 6362, 5, 512, 450, 16), "D": (3072, 4100, 4, 164, 164, 32)}
 # (band h, band w, patch side, stride, batch)
 K4_SHAPES = {"C": (1474, 6874, 1024, 450, 16), "D": (748, 4192, 256, 164, 32)}
+K7_BATCH = (64, 224, 224, 3)
+HE = np.array([[0.65, 0.70, 0.29], [0.07, 0.99, 0.11]], np.float32)
+HED = np.array([[0.65, 0.70, 0.29], [0.07, 0.99, 0.11], [0.27, 0.57, 0.78]], np.float32)
 
 
 def time_ms(fn, reps: int = REPS) -> float:
@@ -95,6 +111,7 @@ def build_old(old: Path, source: str) -> ctypes.CDLL:
     proc = subprocess.run(cmd, capture_output=True, text=True, check=False)
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed on the old {source}:\n{proc.stderr}")
+    out.with_suffix(".ptxas").write_text(proc.stderr)
     return ctypes.CDLL(str(out))
 
 
@@ -355,13 +372,153 @@ def k6_cases(libs: dict, gen: torch.Generator) -> list[dict]:
     return [row, pair]
 
 
+def kernel_name(mangled: str) -> str:
+    """``_Z26stain_augment_tiles_kernelILi2EE...`` -> ``stain_augment_tiles_kernel<2>``."""
+    size = re.match(r"_Z(\d+)", mangled)
+    if not size:
+        return mangled
+    start = size.end()
+    name = mangled[start : start + int(size.group(1))]
+    template = re.match(r"ILi(\d+)E", mangled[start + len(name) :])
+    return f"{name}<{template.group(1)}>" if template else name
+
+
+def ptxas_kernels(lines: list[str], name: str) -> dict:
+    """Registers and spills ``ptxas -v`` gave each kernel whose name holds
+    ``name``, keyed by the kernel's name and its stain count."""
+    found, current = {}, None
+    for line in lines:
+        if "entry function" in line:
+            entry = kernel_name(line.split("'")[1])
+            current = entry if name in entry else None
+            continue
+        if current is None:
+            continue
+        regs = re.search(r"Used (\d+) registers", line)
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if regs:
+            found.setdefault(current, {})["registers"] = int(regs.group(1))
+        if spill:
+            found.setdefault(current, {})["spill_bytes"] = int(spill.group(1)) + int(spill.group(2))
+    return found
+
+
+SASS_INSN = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(.+?)\s*;")
+
+
+def opcode(insn: str) -> str:
+    return re.sub(r"^@!?U?P[T\d]+\s+", "", insn).split()[0]
+
+
+def sass_loops(library: Path, name: str) -> dict:
+    """From ``cuobjdump -sass``: for each kernel whose name holds ``name``, its
+    instructions and CALLs, and its main loop (the range of a predicated
+    backward branch with the most MUFU.EX2, the smallest of equals):
+    instructions (NOPs left out), MUFU.EX2 (one a colour channel of a pixel),
+    instructions a pixel, BRA, CALL."""
+    tool = Path(_build.find_nvcc()).parent / "cuobjdump"
+    if not tool.exists():
+        return {"cuobjdump": "not available"}
+    text = subprocess.run([str(tool), "-sass", str(library)], capture_output=True, text=True, check=True).stdout
+    found, insns, labels, pending, current = {}, [], {}, [], None
+
+    def close() -> None:
+        if current is None:
+            return
+        ops = [(a, opcode(t), t) for a, t in insns if opcode(t) != "NOP"]
+        loops = []
+        for addr, op, t in ops:
+            target = re.search(r"\(?(\.L_x_\d+|0x[0-9a-f]+)\)?\s*$", t)
+            # a loop's back edge is a predicated branch (out-of-line code jumps back unpredicated)
+            if not op.startswith("BRA") or not t.startswith("@") or not target:
+                continue
+            key = target.group(1)
+            start = labels.get(key, int(key, 16) if key.startswith("0x") else None)
+            if start is not None and start <= addr:
+                body = [o for a, o, _ in ops if start <= a <= addr]
+                ex2 = sum(o == "MUFU.EX2" for o in body)
+                loops.append({"instructions": len(body), "mufu_ex2": ex2,
+                              "instructions_per_pixel": 3 * len(body) / ex2 if ex2 else None,
+                              "bra": sum(o.startswith("BRA") for o in body), "call": sum(o.startswith("CALL") for o in body)})
+        main = max(loops, key=lambda lp: (lp["mufu_ex2"], -lp["instructions"]), default=None)
+        listing = "\n".join(t for _, t in insns).encode()
+        found[current] = {"instructions": len(ops), "calls": sum(o.startswith("CALL") for _, o, _ in ops),
+                          "main_loop": main, "sha256": hashlib.sha256(listing).hexdigest()[:16]}
+
+    for line in text.splitlines():
+        if "Function :" in line:
+            close()
+            entry = kernel_name(line.split("Function :")[1].strip())
+            current = entry if name in entry else None
+            insns, labels, pending = [], {}, []
+            continue
+        label = re.match(r"\s*(\.L_x_\d+):", line)
+        if label:
+            pending.append(label.group(1))
+            continue
+        insn = SASS_INSN.search(line)
+        if insn:
+            addr = int(insn.group(1), 16)
+            labels.update(dict.fromkeys(pending, addr))
+            pending = []
+            insns.append((addr, insn.group(2)))
+    close()
+    return found
+
+
+def k7_cases(lib: ctypes.CDLL, old_dir: Path, gen: torch.Generator) -> list[dict]:
+    ptr, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+    lib.stain_augment_u8.argtypes = [ptr, ptr, i64, i64, i32, ptr, ptr, stain_ops.AugmentCoefs, ptr]
+    batch = torch.from_numpy(np.random.default_rng(17).integers(0, 256, K7_BATCH, dtype=np.uint8)).cuda()
+    c = torch.arange(1 << 24, dtype=torch.int32, device="cuda")
+    colours = torch.stack([c >> 16, (c >> 8) & 255, c & 255], -1).to(torch.uint8).reshape(256, 256, 256, 3)
+    rows = []
+    for what, tiles in (("64x224x224x3", batch), ("2^24 colours", colours)):
+        n, n_pix = tiles.shape[0], tiles.numel() // 3
+        for stains in (HE, HED):
+            s = len(stains)
+            alpha = torch.rand((n, s), generator=gen, device="cuda") * 0.8 + 0.6
+            beta = torch.rand((n, s), generator=gen, device="cuda") * 0.4 - 0.2
+            proj = np.linalg.pinv(stains.T).T.astype(np.float32)
+            coefs = stain_ops.augment_coefs(proj, stains)
+            out = torch.empty_like(tiles)
+
+            def old(tiles=tiles, out=out, n=n, n_pix=n_pix, s=s, alpha=alpha, beta=beta, coefs=coefs):
+                stream = torch.cuda.current_stream().cuda_stream
+                code = lib.stain_augment_u8(tiles.data_ptr(), out.data_ptr(), n_pix, n_pix // n, s,
+                                            alpha.data_ptr(), beta.data_ptr(), coefs, stream)
+                assert code == 0, code
+
+            def new(tiles=tiles, proj=proj, stains=stains, alpha=alpha, beta=beta):
+                return stain_ops.stain_augment(tiles, proj, stains, alpha, beta)
+
+            old()
+            same = bool(torch.equal(out, new()))
+            n_bytes = 6 * n_pix
+            rows.append({"kernel": "K7 stain_augment", "input": what, "stains": s,
+                         "path": stain_ops.augment_path(tiles), "bytes": n_bytes,
+                         "bound_ms": n_bytes / HBM_BYTES_PER_S * 1e3, "identical": same, **in_turns(old, new)})
+    proj, scale = np.linalg.pinv(HE.T).T.astype(np.float32), np.ones(2, np.float32)
+    rows.append({"kernel": "K1 stain_transform", "input": "64x224x224x3", "stains": 2,
+                 "ms": [time_ms(lambda: stain_ops.stain_transform(batch, proj, HE, scale)) for _ in range(2)]})
+    old_so = old_dir / "build" / "libstain.so"
+    new_so = _build.library_path("stain.cu")
+    old_sass, new_sass = sass_loops(old_so, "stain"), sass_loops(new_so, "stain")
+    k1 = "stain_transform_kernel"
+    rows.append({"kernel": "K7 compiled", "old": {"ptxas": ptxas_kernels(old_so.with_suffix(".ptxas").read_text().splitlines(), "stain"),
+                                                  "sass": old_sass},
+                 "new": {"ptxas": ptxas_kernels(_build.ptxas_report("stain.cu"), "stain"), "sass": new_sass},
+                 "k1_sass_identical": k1 in old_sass and old_sass[k1].get("sha256") == new_sass.get(k1, {}).get("sha256")})
+    return rows
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--old", type=Path, required=True, help="directory holding an older tiatoolbox_tpu_torch/csrc")
-    parser.add_argument("--cases", default="k2,k3,k4,k5,k6", help="comma-separated kernels to time (k2 to k6)")
+    parser.add_argument("--cases", default="k2,k3,k4,k5,k6", help="comma-separated kernels to time (k2 to k7)")
     args = parser.parse_args()
     cases = set(args.cases.split(","))
-    known = {"k2", "k3", "k4", "k5", "k6"}
+    known = {"k2", "k3", "k4", "k5", "k6", "k7"}
     if not cases <= known:
         parser.error(f"unknown cases {sorted(cases - known)}")
     if not torch.cuda.is_available():
@@ -372,13 +529,14 @@ def main() -> int:
     print(card, flush=True)
     gen = torch.Generator(device="cuda").manual_seed(8)
     sources = {"k2": ["canvas.cu"], "k3": ["canvas.cu"], "k4": ["region.cu"], "k5": ["hv_energy.cu"],
-               "k6": ["canvas.cu", "hv_energy.cu"]}
+               "k6": ["canvas.cu", "hv_energy.cu"], "k7": ["stain.cu"]}
     runs = {
         "k2": lambda libs, gen: k2_cases(libs["canvas.cu"], gen),
         "k3": lambda libs, gen: k3_cases(libs["canvas.cu"], gen),
         "k4": lambda libs, gen: k4_cases(libs["region.cu"], gen),
         "k5": lambda libs, gen: k5_cases(libs["hv_energy.cu"], gen),
         "k6": k6_cases,
+        "k7": lambda libs, gen: k7_cases(libs["stain.cu"], args.old, gen),
     }
     libs = {src: build_old(args.old, src) for src in sorted({src for k in cases for src in sources[k]})}
     for kernel in sorted(cases):

@@ -5,9 +5,15 @@ K7 is held against its plain version (``stain_augment_reference``) at most
 1 uint8 level apart and at least 99.9 % identical, for 2 and 3 stains, at
 the main path's batch, on ragged pixel counts around its 16- and 512-pixel
 steps, with tiles whose byte size is no multiple of 16, on a view 3 bytes
-into a buffer, and over all 2^24 colours. ``augment_tiles`` on a CUDA
-tensor raises where the kernel cannot be built or launched: it never gives
-way to the plain version. They skip without a card; run them there with
+into a buffer, and over all 2^24 colours. Its tile-uniform path is held
+against its general path bit for bit on the same pixels (a batch, and the
+same batch as a view 3 bytes into a buffer) at the main path's batch and
+at the tile-uniform path's edges: tiles of 16, 48 and 512 pixels, with
+chunks past the last 512-pixel step, 224^2 with N = 1 and N = 65, 256^2.
+The entry refuses the tile-uniform path where its conditions do not hold.
+``augment_tiles`` on a CUDA tensor raises where the kernel cannot be built
+or launched: it never gives way to the plain version. They skip without a
+card; run them there with
 ``python -m pytest -m cuda tests/test_torch_stain_ext_card.py``.
 """
 
@@ -26,6 +32,10 @@ HE = np.array([[0.65, 0.70, 0.29], [0.07, 0.99, 0.11]], np.float32)
 HED = np.array([[0.65, 0.70, 0.29], [0.07, 0.99, 0.11], [0.27, 0.57, 0.78]], np.float32)
 SHAPES = [(64, 224, 224, 3), (1, 1, 1, 3), (3, 5, 7, 3), (7, 13, 11, 3), (600, 1, 1, 3), (2, 16, 16, 3),
           (33, 17, 31, 3), (1, 513, 1, 3)]
+# tiles of 224^2, 16, 48 and 512 pixels (45 and 63 chunks of 16: one warp-step
+# and a tail), 224^2 with N = 1 and 65, 256^2
+UNIFORM_SHAPES = [(64, 224, 224, 3), (45, 4, 4, 3), (21, 4, 12, 3), (37, 16, 32, 3), (1, 224, 224, 3),
+                  (65, 224, 224, 3), (5, 256, 256, 3)]
 
 
 @pytest.fixture
@@ -35,17 +45,29 @@ def card():
     return torch.device("cuda")
 
 
-def _held(tiles: torch.Tensor, stains: np.ndarray, gen: torch.Generator) -> None:
+def _args(tiles: torch.Tensor, stains: np.ndarray, gen: torch.Generator) -> tuple:
     n, s = tiles.shape[0], stains.shape[0]
     alpha = torch.rand((n, s), generator=gen, device=tiles.device) * 0.8 + 0.6
     beta = torch.rand((n, s), generator=gen, device=tiles.device) * 0.4 - 0.2
     proj = np.linalg.pinv(stains.T).T.astype(np.float32)
+    return proj, stains, alpha, beta
+
+
+def _held(tiles: torch.Tensor, stains: np.ndarray, gen: torch.Generator, args=None) -> torch.Tensor:
+    args = _args(tiles, stains, gen) if args is None else args
     before = stain_ops.stain_augment.launches
-    got = stain_ops.stain_augment(tiles, proj, stains, alpha, beta)
+    got = stain_ops.stain_augment(tiles, *args)
     assert stain_ops.stain_augment.launches == before + 1
-    want = stain_ops.stain_augment_reference(tiles, proj, stains, alpha, beta)
+    want = stain_ops.stain_augment_reference(tiles, *args)
     diff = (got.int() - want.int()).abs()
     assert int(diff.max()) <= 1 and float((diff == 0).double().mean()) >= 0.999
+    return got
+
+
+def _misaligned(tiles: torch.Tensor) -> torch.Tensor:
+    buf = torch.empty(3 + tiles.numel(), dtype=torch.uint8, device=tiles.device)
+    buf[3:] = tiles.flatten()
+    return buf[3:].view(tiles.shape)
 
 
 @pytest.mark.parametrize("stains", [HE, HED], ids=["2_stains", "3_stains"])
@@ -55,11 +77,36 @@ def test_k7_against_plain(card, stains, shape) -> None:
     rng = np.random.default_rng(sum(shape))
     tiles = torch.from_numpy(rng.integers(0, 256, shape, dtype=np.uint8)).to(card)
     _held(tiles, stains, gen)
-    buf = torch.empty(3 + tiles.numel(), dtype=torch.uint8, device=card)
-    buf[3:] = tiles.flatten()
-    misaligned = buf[3:].view(tiles.shape)
+    misaligned = _misaligned(tiles)
     assert misaligned.data_ptr() % 16 != 0
     _held(misaligned, stains, gen)
+
+
+@pytest.mark.parametrize("stains", [HE, HED], ids=["2_stains", "3_stains"])
+@pytest.mark.parametrize("shape", UNIFORM_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_k7_tile_uniform_against_general(card, stains, shape) -> None:
+    gen = torch.Generator(device=card).manual_seed(sum(shape))
+    tiles = torch.from_numpy(np.random.default_rng(sum(shape)).integers(0, 256, shape, dtype=np.uint8)).to(card)
+    view = _misaligned(tiles)
+    assert stain_ops.augment_path(tiles) == "tile_uniform" and stain_ops.augment_path(view) == "general"
+    args = _args(tiles, stains, gen)
+    assert torch.equal(_held(tiles, stains, gen, args), _held(view, stains, gen, args))
+
+
+def test_k7_entry_refuses_tile_uniform_where_it_cannot_run(card) -> None:
+    lib = stain_ops._library()
+    args = _args(torch.zeros((2, 16, 16, 3), dtype=torch.uint8), HE, torch.Generator().manual_seed(0))
+    alpha, beta = args[2].to(card), args[3].to(card)
+    coefs = stain_ops.augment_coefs(args[0], HE)
+    stream = torch.cuda.current_stream(card).cuda_stream
+    for shape, offset in (((2, 16, 16, 3), 3), ((2, 5, 7, 3), 0)):
+        n_pix = int(np.prod(shape[:-1]))
+        buf = torch.zeros(3 * n_pix + 16, dtype=torch.uint8, device=card)
+        tiles = buf[offset : offset + 3 * n_pix]
+        out = torch.empty(3 * n_pix, dtype=torch.uint8, device=card)
+        code = lib.stain_augment_u8(tiles.data_ptr(), out.data_ptr(), n_pix, n_pix // 2, 2, 1, alpha.data_ptr(),
+                                    beta.data_ptr(), coefs, stream)
+        assert code == 1  # cudaErrorInvalidValue
 
 
 @pytest.mark.parametrize("stains", [HE, HED], ids=["2_stains", "3_stains"])

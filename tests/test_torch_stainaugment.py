@@ -9,7 +9,9 @@
 - ``augment_tiles`` on the CPU: its draws from a seeded ``torch.Generator``
   reach the plain version, numpy tiles go to the requested device;
 - ``StainAugmentor`` bit for bit with JAX's when both get
-  ``np.random.default_rng(seed)``.
+  ``np.random.default_rng(seed)``;
+- ``augment_path``, the wrapper's choice between the kernel's tile-uniform
+  and general paths, from the tiles' shape and start address.
 """
 
 from __future__ import annotations
@@ -22,7 +24,7 @@ import torch
 from tiatoolbox_tpu.data.synth import synthetic_he_patch
 from tiatoolbox_tpu.tools.stainaugment import StainAugmentor as JaxAugmentor
 from tiatoolbox_tpu.tools.stainaugment import augment_tiles_jax
-from tiatoolbox_tpu_torch.ops.stain import stain_augment, stain_augment_reference
+from tiatoolbox_tpu_torch.ops.stain import augment_path, stain_augment, stain_augment_reference
 from tiatoolbox_tpu_torch.tools.stainaugment import StainAugmentor as PortAugmentor
 from tiatoolbox_tpu_torch.tools.stainaugment import augment_tiles
 
@@ -103,6 +105,32 @@ def test_stain_augment_rejects_bad_input(tiles, stains, alpha, error) -> None:
     proj = np.linalg.pinv(np.asarray(stains).T).T
     with pytest.raises(error):
         stain_augment(tiles, proj, stains, alpha, np.zeros_like(alpha))
+
+
+@pytest.mark.parametrize(
+    ("shape", "offset", "path"),
+    [
+        ((64, 224, 224, 3), 0, "tile_uniform"),  # phase A's batch: 3,136 chunks of 16 pixels a tile
+        ((64, 224, 224, 3), 16, "tile_uniform"),  # a view one 16-byte word into a buffer
+        ((64, 224, 224, 3), 3, "general"),  # not 16-byte aligned
+        ((2, 16, 16, 3), 0, "tile_uniform"),
+        ((45, 4, 4, 3), 0, "tile_uniform"),  # 16-pixel tiles
+        ((21, 4, 12, 3), 0, "tile_uniform"),  # 48 pixels: a multiple of 16, not of 512
+        ((7, 13, 11, 3), 0, "general"),  # 143 pixels a tile
+        ((600, 1, 1, 3), 0, "general"),
+        ((1, 513, 1, 3), 0, "general"),
+    ],
+)
+def test_augment_path_choice(shape, offset, path) -> None:
+    n = int(np.prod(shape))
+    tiles = torch.zeros(n + 16, dtype=torch.uint8)[offset : offset + n].view(shape)
+    assert tiles.data_ptr() % 16 == offset % 16
+    assert augment_path(tiles) == path
+
+
+def test_augment_path_takes_the_general_path_past_2_to_the_35_pixels() -> None:
+    assert augment_path(torch.empty((2**27 - 1, 256, 1, 3), dtype=torch.uint8, device="meta")) == "tile_uniform"
+    assert augment_path(torch.empty((2**27, 256, 1, 3), dtype=torch.uint8, device="meta")) == "general"
 
 
 @pytest.mark.parametrize(

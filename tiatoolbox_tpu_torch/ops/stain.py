@@ -15,7 +15,8 @@ kernel launches or the call raises.
 an offset per tile and stain: the second entry of ``csrc/stain.cu``, which
 replaces the device program ``augment_tiles_jax``
 (``tiatoolbox_tpu/tools/stainaugment.py:129-154``); its plain version is
-``stain_augment_reference``.
+``stain_augment_reference``. The kernel has two paths, and
+``augment_path`` says which one a CUDA batch takes.
 """
 
 from __future__ import annotations
@@ -76,6 +77,7 @@ def _library() -> ctypes.CDLL:
         ctypes.c_void_p,
         ctypes.c_int64,
         ctypes.c_int64,
+        ctypes.c_int,
         ctypes.c_int,
         ctypes.c_void_p,
         ctypes.c_void_p,
@@ -226,12 +228,39 @@ def stain_augment_reference(tiles: torch.Tensor, conc_proj, stains, alpha, beta)
     return out.clamp_(0.0, 255.0).to(torch.uint8)
 
 
+def augment_coefs(conc_proj, stains: np.ndarray) -> AugmentCoefs:
+    """``stain_augment_u8``'s coefficient struct: P ``[3, S]`` and M ``[S, 3]``, zero-padded to 9."""
+    s = stains.shape[0]
+    p = np.zeros(9, np.float32)
+    p[: 3 * s] = _as_f32(conc_proj, (3 * s,))
+    mm = np.zeros(9, np.float32)
+    mm[: 3 * s] = stains.reshape(-1)
+    return AugmentCoefs((ctypes.c_float * 9)(*p), (ctypes.c_float * 9)(*mm))
+
+
+def augment_path(tiles: torch.Tensor) -> str:
+    """The path of ``csrc/stain.cu``'s ``stain_augment_u8`` that ``tiles`` take.
+
+    ``"tile_uniform"`` where each tile holds a multiple of 16 pixels, the
+    tensor starts on a 16-byte boundary (the output is a fresh allocation,
+    which does) and the batch has fewer than 2^35 pixels: each 16-pixel chunk
+    then lies in one tile, and the kernel's body has no per-pixel tile test.
+    ``"general"`` otherwise. Both write the same bytes.
+    """
+    _check_u8_rgb(tiles, "augment_path")
+    n_pix = tiles.numel() // 3
+    tile_pix = n_pix // tiles.shape[0] if tiles.shape[0] else 0
+    uniform = tile_pix % 16 == 0 and tiles.data_ptr() % 16 == 0 and n_pix // 16 < 1 << 31
+    return "tile_uniform" if uniform else "general"
+
+
 def stain_augment(tiles: torch.Tensor, conc_proj, stains, alpha, beta) -> torch.Tensor:
     """Rescale and shift each tile's stain concentrations and rebuild its RGB.
 
     A CPU tensor goes to ``stain_augment_reference``. A CUDA tensor must be
-    contiguous; the kernel runs on the current stream and the result is a
-    new tensor. ``stain_augment.launches`` counts kernel launches.
+    contiguous; the kernel runs on the current stream, on the path that
+    ``augment_path`` names, and the result is a new tensor.
+    ``stain_augment.launches`` counts kernel launches.
 
     Args:
         tiles: uint8 tensor ``[N, ..., 3]``; the pixels of ``tiles[i]`` take
@@ -262,20 +291,17 @@ def stain_augment(tiles: torch.Tensor, conc_proj, stains, alpha, beta) -> torch.
     n = tiles.shape[0]
     a = _augment_factors(alpha, n, s, tiles.device, "alpha")
     b = _augment_factors(beta, n, s, tiles.device, "beta")
-    p = np.zeros(9, np.float32)
-    p[: 3 * s] = _as_f32(conc_proj, (3 * s,))
-    mm = np.zeros(9, np.float32)
-    mm[: 3 * s] = m.reshape(-1)
-    coefs = AugmentCoefs((ctypes.c_float * 9)(*p), (ctypes.c_float * 9)(*mm))
+    coefs = augment_coefs(conc_proj, m)
     out = torch.empty_like(tiles)
     n_pix = tiles.numel() // 3
     if n_pix == 0:
         return out
+    uniform = int(augment_path(tiles) == "tile_uniform")
     lib = _library()
     with torch.cuda.device(tiles.device):
         stream = torch.cuda.current_stream(tiles.device).cuda_stream
         code = lib.stain_augment_u8(
-            tiles.data_ptr(), out.data_ptr(), n_pix, n_pix // n, s, a.data_ptr(), b.data_ptr(), coefs, stream
+            tiles.data_ptr(), out.data_ptr(), n_pix, n_pix // n, s, uniform, a.data_ptr(), b.data_ptr(), coefs, stream
         )
     if code != 0:
         msg = f"stain_augment_u8 failed: {lib.stain_error_string(code).decode()}"
