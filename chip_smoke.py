@@ -119,7 +119,19 @@ temporary directory, and drives the port's entry points on them:
   holding the same pixels bit for bit (the JPEG TIFF for MIRAX and the JPEG
   DICOM, the deflate TIFF for the rest), then PatchPredictor (resnet18,
   kather100k ioconfig, batch 64) over the MIRAX and the JPEG DICOM slide
-  through WSIReader.open gives the predictions of the JPEG TIFF.
+  through WSIReader.open gives the predictions of the JPEG TIFF;
+- "jp2", JPEG 2000 on the port's own host C++ codec: the card machine's
+  build held to tiatoolbox_tpu_torch/data/j2k_golden.npz (cv2's pixels bit
+  for bit, the 9/7 streams too, and the reduced reads); the JPEG phase's
+  level 0, its top-left 4096^2, written losslessly as a tiled JP2 (a JP2
+  box with its mpp), an Aperio 33005 tiled TIFF and a .90 DICOM instance,
+  each level-0 read equal to the source bit for bit; decode MPix/s on 1
+  thread and on every worker; PatchPredictor (resnet18, kather100k
+  ioconfig) over the JP2 and the TIFF with one tissue mask: the same
+  predictions, probabilities within 1e-6; and one SemanticSegmentor
+  region-feed run (phase C's U-Net, seeded and tempered; K4, K2 and K3)
+  over a JP2 and a TIFF of the same 2048x4096 pixels at 0.25 mpp, bit for
+  bit.
 
 Each phase prints one JSON line. The stain kernel is held against its plain
 PyTorch version on the card (main-path batch, all 2^24 RGB colours, ragged
@@ -152,10 +164,12 @@ from __future__ import annotations
 import json
 import os
 import shutil
+import struct
 import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -211,13 +225,17 @@ from tiatoolbox_tpu_torch.tools.stainnorm import get_normalizer  # noqa: E402
 from tiatoolbox_tpu_torch.annotation.storage import SQLiteStore  # noqa: E402
 from tiatoolbox_tpu_torch.models.engine.engine_abc import OUTPUT_SUFFIXES  # noqa: E402
 from tiatoolbox_tpu_torch.utils.tiff_to_fsspec import tiff_to_fsspec  # noqa: E402
+from tiatoolbox_tpu_torch.utils.transforms import imresize, shrink_linear_exact  # noqa: E402
 from tiatoolbox_tpu_torch.utils.zarrlite import ZarrGroup, open_zarr  # noqa: E402
 from tiatoolbox_tpu_torch.wsicore import tiffio  # noqa: E402
+from tiatoolbox_tpu_torch.wsicore.jp2 import encode_tiled_j2k, jp2_container  # noqa: E402
 from tiatoolbox_tpu_torch.wsicore.store_reader import FsspecJsonWSIReader  # noqa: E402
 from tiatoolbox_tpu_torch.wsicore.wsireader import (  # noqa: E402
     DICOMWSIReader,
+    JP2WSIReader,
     MIRAXWSIReader,
     NGFFWSIReader,
+    TIFFWSIReader,
     WSIReader,
 )
 
@@ -404,6 +422,13 @@ def phase_jpeg(tmp: Path, card: str) -> Path:
         many = native.decode_jpeg_batch(streams, tl, tw, n_threads=n_threads)
         many_s.append(time.perf_counter() - t0)
         check(np.array_equal(one, many), "1-thread and n-thread level-0 decodes differ")
+    # the top-left JP2_SIDE^2 of level 0 for the jp2 phase
+    side = JP2_SIDE // tw
+    KEPT["jp2_pixels"] = np.ascontiguousarray(
+        one.reshape(page.tiles_down, page.tiles_across, tl, tw, 3)[:side, :side]
+        .transpose(0, 2, 1, 3, 4)
+        .reshape(side * tl, side * tw, 3)
+    )
     t0 = time.perf_counter()
     sizes = [len(native.encode_jpeg(tile, JPEG_QUALITY)) for tile in one]
     encode_s = time.perf_counter() - t0
@@ -3554,6 +3579,212 @@ def phase_readers(slide: Path, tmp: Path, card: str) -> None:
     shutil.rmtree(root)
 
 
+JP2_SIDE = 4096  # the JPEG phase's level 0, its top-left 4096^2: 256 tiles of 256^2
+JP2_TILE = 256
+JP2_SEG_WH = (2048, 4096)  # the segmentor's crop, declared at 0.25 mpp: 8 patch rows, so 6 bands
+JP2_ONE_THREAD_TILES = 32  # tiles timed on one thread
+JP2_PHASE_LIMIT_S = 90.0  # twice the phase's budget
+J2K_GOLDEN = ROOT / "tiatoolbox_tpu_torch" / "data" / "j2k_golden.npz"
+
+
+def check_j2k_golden() -> dict:
+    """The card machine's build of the JPEG 2000 decoder against the golden
+    set that scripts/make_j2k_golden.py made with OpenCV: every stream's
+    pixels bit for bit (the 9/7 ones too: the tolerance is 0 levels), and
+    cv2's IMREAD_REDUCED_COLOR_{2,4,8} pixels from the decode shrunk."""
+    g = np.load(J2K_GOLDEN)
+    for i, name in enumerate(g["names"]):
+        stream = g["blob"][g["offsets"][i] : g["offsets"][i + 1]].tobytes()
+        want = g["pixels"][g["pixel_offsets"][i] : g["pixel_offsets"][i + 1]].reshape(g["shapes"][i])
+        got = native.decode_j2k(stream)
+        check(np.array_equal(got, want), f"J2K golden {name}: pixels differ from cv2's")
+    full = native.decode_j2k(g["reduced_stream"].tobytes())
+    for k, factor in enumerate(g["reduced_factors"]):
+        want = g["reduced_pixels"][g["reduced_offsets"][k] : g["reduced_offsets"][k + 1]]
+        got = shrink_linear_exact(full, int(factor))
+        check(np.array_equal(got, want.reshape(g["reduced_shapes"][k])), f"J2K golden reduced by {factor}")
+    return {"decode_cases": len(g["names"]), "reduced_cases": len(g["reduced_factors"])}
+
+
+class J2kTiffWriter(tiffio.TiffPyramidWriter):
+    """The port's TIFF writer with each tile a lossless JPEG 2000 codestream
+    (``retag_compression`` then marks the pages Aperio 33005)."""
+
+    def _encode_tile(self, tile: np.ndarray) -> bytes:
+        return native.encode_j2k(tile, n_threads=1)
+
+
+def retag_compression(path: Path, compression: int) -> None:
+    """Set every IFD's Compression (259, SHORT, one value) to ``compression``."""
+    data = bytearray(path.read_bytes())
+    entry = struct.pack("<HHI", 259, 3, 1)
+    at = data.find(entry)
+    check(at >= 0, "a Compression tag to retag")
+    while at >= 0:
+        struct.pack_into("<H", data, at + 8, compression)
+        at = data.find(entry, at + 12)
+    path.write_bytes(bytes(data))
+
+
+def j2k_dicom(path: Path, image: np.ndarray, frame: int) -> Path:
+    """A DICOM instance with lossless JPEG 2000 frames (transfer syntax
+    1.2.840.10008.1.2.4.90): the frames coded on threads, then written by
+    ``make_synthetic_dicom``'s encapsulated-frame path in place of JPEG."""
+    from tiatoolbox_tpu_torch.data import synth
+
+    h, w = image.shape[:2]
+    tiles = []
+    for fy in range(-(-h // frame)):
+        for fx in range(-(-w // frame)):
+            tile = np.zeros((frame, frame, 3), np.uint8)
+            block = image[fy * frame : (fy + 1) * frame, fx * frame : (fx + 1) * frame]
+            tile[: block.shape[0], : block.shape[1]] = block
+            tiles.append(tile)
+    with ThreadPoolExecutor(os.cpu_count() or 1) as pool:
+        frames = iter(list(pool.map(lambda t: native.encode_j2k(t, n_threads=1), tiles)))
+    jpeg_encoder = synth.native.encode_jpeg
+    synth.native.encode_jpeg = lambda tile, quality: next(frames)
+    try:
+        make_synthetic_dicom(path, frame_size=frame, mpp=0.5, image=image, compression="jpeg")
+    finally:
+        synth.native.encode_jpeg = jpeg_encoder
+    data = path.read_bytes()
+    check(data.count(b"1.2.840.10008.1.2.4.50") == 1, "one transfer syntax to replace")
+    path.write_bytes(data.replace(b"1.2.840.10008.1.2.4.50", b"1.2.840.10008.1.2.4.90"))
+    return path
+
+
+def phase_jp2(tmp: Path, card: str) -> None:
+    """JPEG 2000 on the port's own codec: the golden set, the JPEG phase's
+    level-0 pixels (top-left 4096^2) written losslessly as a tiled JP2, an
+    Aperio 33005 tiled TIFF and a .90 DICOM, each read back bit for bit,
+    decode rates, then PatchPredictor over the JP2 and the TIFF with one
+    mask and one SemanticSegmentor region-feed run over a JP2/TIFF pair."""
+    t0 = time.perf_counter()
+    golden = check_j2k_golden()
+    root = tmp / "jp2"
+    root.mkdir()
+    base = KEPT.pop("jp2_pixels")
+    wh = (base.shape[1], base.shape[0])
+    half = imresize(base, scale_factor=0.5, interpolation="area")
+    n_threads = os.cpu_count() or 1
+
+    t = time.perf_counter()
+    stream = encode_tiled_j2k(base, JP2_TILE)
+    encode_s = time.perf_counter() - t
+    jp2_path = root / "slide.jp2"
+    jp2_path.write_bytes(jp2_container(stream, mpp=(0.5, 0.5)))
+    t = time.perf_counter()
+    tiff_path = root / "j2k.tiff"
+    J2kTiffWriter(
+        tiff_path, tile_size=JP2_TILE, description=aperio_description(wh, "J2K/RGB"), mpp=(0.5, 0.5),
+        compression="deflate",
+    ).write([base, half])
+    retag_compression(tiff_path, tiffio.COMPRESSION_APERIO_J2K_RGB)
+    dcm_path = j2k_dicom(root / "j2k.dcm", base, JP2_TILE)
+    write_s = time.perf_counter() - t
+
+    # decode rates: the JP2's level-0 tiles on one thread and on every worker
+    info = native.j2k_header(stream)
+    n_tiles = info["tiles_across"] * info["tiles_down"]
+    native.decode_j2k_tiles(stream, range(4), n_threads=1)  # warm: pages, library
+    t = time.perf_counter()
+    one = native.decode_j2k_tiles(stream, range(JP2_ONE_THREAD_TILES), n_threads=1)
+    one_s = time.perf_counter() - t
+    many_s = []
+    for _ in range(2):
+        t = time.perf_counter()
+        many = native.decode_j2k_tiles(stream, range(n_tiles), n_threads=n_threads)
+        many_s.append(time.perf_counter() - t)
+    check(all(np.array_equal(a, b) for a, b in zip(one, many)), "1-thread and n-thread tile decodes differ")
+    tile_mpix = JP2_TILE * JP2_TILE / 1e6
+
+    readers = {
+        "jp2": (WSIReader.open(jp2_path), JP2WSIReader),
+        "tiff_33005": (WSIReader.open(tiff_path), TIFFWSIReader),
+        "dicom_90": (WSIReader.open(dcm_path), DICOMWSIReader),
+    }
+    mpix = wh[0] * wh[1] / 1e6
+    read_rates = {}
+    for name, (reader, cls) in readers.items():
+        check(isinstance(reader, cls), f"{name} opened as {type(reader).__name__}")
+        check(tuple(reader.info.slide_dimensions) == wh, f"{name} dimensions {reader.info.slide_dimensions}")
+        got, sec = timed_read(reader, wh)
+        check(got.shape == base.shape and np.array_equal(got, base), f"{name} level 0 is not the source, bit for bit")
+        read_rates[name] = mpix / sec
+    check(readers["jp2"][0]._codestream is not None, "the JP2 is read through its tiles")
+
+    # PatchPredictor over the JP2 and the TIFF holding the same level 0, one
+    # tissue mask for both (the JP2's virtual pyramid is not the TIFF's levels)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    ioconfig = IOPatchPredictorConfig(**PRETRAINED_MODELS["resnet18-kather100k"]["ioconfig"]["kwargs"])
+    mask = readers["tiff_33005"][0].tissue_mask()
+    model = CNNModel("resnet18", num_classes=9, seed=0)
+    corners = [((i // 4) * PATCH, (i % 4) * PATCH) for i in range(8)]
+    calibrate_batch_norm(model, np.stack([base[y : y + PATCH, x : x + PATCH] for y, x in corners]))
+    runs = {name: predictor_run(model, path, ioconfig, mask) for name, path in (("tiff_33005", tiff_path), ("jp2", jp2_path))}
+    want, got = runs["tiff_33005"][0], runs["jp2"][0]
+    n = len(want["probabilities"])
+    check(n > 0, "the predictor kept patches")
+    check(np.array_equal(got["coordinates"], want["coordinates"]), "jp2 patch coordinates")
+    check(np.array_equal(got["predictions"], want["predictions"]), "jp2 predictions")
+    prob_err = float(np.abs(got["probabilities"] - want["probabilities"]).max())
+    check(prob_err <= 1e-6, f"jp2 probabilities differ by {prob_err}")
+    release(model)
+
+    # one SemanticSegmentor region-feed run over a JP2 and a TIFF holding the
+    # same 2048x4096 pixels at 0.25 mpp: K4, K2 and K3 on the card, bit for bit
+    crop = np.ascontiguousarray(base[: JP2_SEG_WH[1], : JP2_SEG_WH[0]])
+    seg_jp2 = root / "seg.jp2"
+    seg_jp2.write_bytes(jp2_container(encode_tiled_j2k(crop, JP2_TILE), mpp=(0.25, 0.25)))
+    seg_tiff = root / "seg.tiff"
+    tiffio.TiffPyramidWriter(seg_tiff, tile_size=JP2_TILE, mpp=(0.25, 0.25), compression="deflate").write([crop])
+    # phase C's U-Net (the spill phase released C's): seeded and tempered again
+    seg_model, seg_io = get_pretrained_model(SEG_MODEL, device=DEVICE)
+    temper_random_weights(seg_model)
+    seg = {}
+    for name, path in (("tiff", seg_tiff), ("jp2", seg_jp2)):
+        segmentor = SemanticSegmentor(seg_model, batch_size=SEG_BATCH, verbose=False)
+        reset_segment_counts()
+        t = time.perf_counter()
+        out = segmentor.run([path], patch_mode=False, ioconfig=seg_io, auto_get_mask=False)[str(path)]
+        torch.cuda.synchronize()
+        counts = segment_counts()
+        seg[name] = (out, counts, time.perf_counter() - t)
+        check(segmentor.last_stage_summary["path"] == "device-canvas+region-feed", f"{name} segmentor path")
+        check(all(v > 0 for v in counts.values()), f"{name} segmentor launches {counts}")
+    a, b = seg["tiff"][0], seg["jp2"][0]
+    check(a["probabilities"].shape == (*crop.shape[:2], 5), f"segment map {a['probabilities'].shape}")
+    check(np.array_equal(a["probabilities"], b["probabilities"]), "segmentor maps over the JP2 and the TIFF differ")
+    check(np.array_equal(a["predictions"], b["predictions"]), "segmentor predictions differ")
+    seconds = time.perf_counter() - t0
+    emit(
+        {
+            "phase": "jp2",
+            "seconds": seconds,
+            "golden": golden,
+            "level0_mpix": mpix,
+            "encode_mpix_per_s_n_threads": mpix / encode_s,
+            "write_tiff_and_dicom_seconds": write_s,
+            "codestream_bytes": len(stream),
+            "tiles": n_tiles,
+            "decode_mpix_per_s_1_thread": JP2_ONE_THREAD_TILES * tile_mpix / one_s,
+            "decode_mpix_per_s_n_threads": [n_tiles * tile_mpix / x for x in many_s],
+            "n_threads": n_threads,
+            "read_level0_mpix_per_s": read_rates,
+            "predict_patches": n,
+            "predict_seconds": {k: v[1] for k, v in runs.items()},
+            "prob_max_abs_diff": prob_err,
+            "segment_launches": {k: v[1] for k, v in seg.items()},
+            "segment_seconds": {k: v[2] for k, v in seg.items()},
+            "card": card,
+        }
+    )
+    check(seconds <= JP2_PHASE_LIMIT_S, f"the jp2 phase took {seconds:.1f} s")
+    shutil.rmtree(root)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; nothing was run.", file=sys.stderr)
@@ -3603,6 +3834,8 @@ def main() -> int:
         mark("stain_ext")
         phase_readers(slide, Path(tmp), card)
         mark("readers")
+        phase_jp2(Path(tmp), card)
+        mark("jp2")
     # seconds since the start at the end of each group of phases
     emit({"phase": "timeline", "seconds_at_end": marks})
     # K2 to K4 run on phases C and D: their rows count both phases' launches

@@ -17,7 +17,8 @@ EfficientNet features to zarr, a narrow ViT); then the registry's tail
 morphology on the semantic engine, NuClick with a click); then the stain
 API's Reinhard and Vahadane normalisers and stain augmentation, and the
 readers on the port's own codecs (MIRAX, JPEG DICOM, NGFF, an fsspec
-reference, a PNG slide).
+reference, a PNG slide, a tiled JPEG 2000 slide through the JPEG 2000
+codec's C++).
 """
 
 from __future__ import annotations
@@ -248,6 +249,13 @@ GUARDED_RUN = textwrap.dedent(
         for path in (mrxs, dcm, f"{tmp}/n.zarr"):
             assert WSIReader.open(path).read_rect((0, 0), (256, 256)).shape == (256, 256, 3)
         assert FsspecJsonWSIReader(f"{tmp}/refs.json").read_rect((0, 0), (256, 256)).shape == (256, 256, 3)
+        from tiatoolbox_tpu_torch.wsicore.jp2 import encode_tiled_j2k, jp2_container
+
+        with open(f"{tmp}/slide.jp2", "wb") as fh:
+            fh.write(jp2_container(encode_tiled_j2k(image, 128), mpp=(0.5, 0.5)))
+        jp2 = WSIReader.open(f"{tmp}/slide.jp2")
+        assert np.array_equal(jp2.read_rect((0, 0), (256, 256)), image)
+        assert jp2.read_rect((0, 0), (64, 64), resolution=1.0, units="mpp").shape == (64, 64, 3)
 
     leaked = sorted(n for n in sys.modules if n.split(".")[0] in BLOCKED)
     assert not leaked, leaked

@@ -29,6 +29,20 @@ back to another decoder.
   with the pure-Python decoders as JAX's reader does.
 - ``csrc/png.cpp``: ``png_unfilter``, the five PNG row filters undone, for
   the port's PNG decoder (``utils/imagecodec.py``).
+- ``csrc/j2kdec.cpp``: ``decode_j2k``, a JPEG 2000 codestream or JP2 file
+  decoded whole, and ``decode_j2k_tiles``, listed tiles of one codestream
+  each at its own size, on ``std::thread`` workers (the ``cv2.imdecode`` /
+  ``cv2.imread`` of JAX's ``wsicore/jp2.py:229-244``, ``wsireader.py:1075-1108``,
+  ``tiffio.py:416-422`` and ``dicom.py:361-375``). They give OpenJPEG 2.5's
+  pixels bit for bit (cv2's decoder): the reversible 5/3 path, truncated
+  code-blocks included, and the irreversible 9/7 path in OpenJPEG's float
+  operations; a stream they cannot decode raises ``J2kDecodeError`` naming
+  the feature or the fault. ``j2k_header`` reads the geometry without
+  decoding.
+- ``csrc/j2kenc.cpp``: ``encode_j2k``, a tiled codestream written in one
+  pass (the role of the cv2 encodes JAX's ``jp2.py:319-384`` stitches):
+  lossless by default, with test-stream options for every feature the
+  decoder reads.
 """
 
 from __future__ import annotations
@@ -47,6 +61,8 @@ JPEG_ENCODER = "jpegenc.cpp"
 TIFF_CODECS = "lzw.cpp"
 CONTOURS = "contours.cpp"
 PNG = "png.cpp"
+J2K_DECODER = "j2kdec.cpp"
+J2K_ENCODER = "j2kenc.cpp"
 # JAX's batch decoder takes min(cpu_count, n, 16) threads (its __init__.py:168-169)
 MAX_DECODE_THREADS = 16
 
@@ -354,3 +370,262 @@ def png_unfilter(raw: np.ndarray, rows: int, row_bytes: int, bpp: int) -> np.nda
     if _png().png_unfilter(_ptr(raw), rows, row_bytes, max(int(bpp), 1), _ptr(out)) != 0:
         return None
     return out
+
+
+@functools.cache
+def _j2k_decoder() -> ctypes.CDLL:
+    lib = _build.load(J2K_DECODER)
+    ptr, i32, u64, buf = ctypes.c_void_p, ctypes.c_int32, ctypes.c_uint64, ctypes.c_char_p
+    lib.j2k_header.argtypes = [buf, u64, ptr, buf, i32]
+    lib.j2k_header.restype = i32
+    lib.j2k_decode_tiles.argtypes = [buf, u64, ptr, i32, ptr, ptr, i32, buf, i32]
+    lib.j2k_decode_tiles.restype = i32
+    lib.j2k_decode_batch.argtypes = [buf, ptr, ptr, i32, ptr, ptr, i32, ptr, buf, i32]
+    lib.j2k_decode_batch.restype = i32
+    return lib
+
+
+@functools.cache
+def _j2k_encoder() -> ctypes.CDLL:
+    lib = _build.load(J2K_ENCODER)
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int32
+    lib.j2k_encode.argtypes = [ptr, i32, i32, i32, ptr, ctypes.c_double, i32, ptr, ctypes.c_char_p, i32]
+    lib.j2k_encode.restype = ptr
+    lib.j2k_encoded_copy.argtypes = [ptr, ptr]
+    lib.j2k_encoded_copy.restype = None
+    lib.j2k_encoded_free.argtypes = [ptr]
+    lib.j2k_encoded_free.restype = None
+    return lib
+
+
+class J2kDecodeError(ValueError):
+    """A JPEG 2000 stream the decoder refused: a feature it lacks (the
+    message names it, after "unsupported JPEG 2000 feature") or a truncated
+    or corrupt stream. ``index`` is the failing stream's place in a batch."""
+
+    def __init__(self, message: str, index: int = 0) -> None:
+        super().__init__(message)
+        self.index = index
+
+
+# j2k_header's fields (csrc/j2kdec.cpp)
+J2K_HEADER_FIELDS = (
+    "width", "height", "components", "x0", "y0", "tile_width", "tile_height", "tile_x0", "tile_y0",
+    "tiles_across", "tiles_down",
+)
+
+
+def _j2k_call(fn, *args) -> None:
+    err = ctypes.create_string_buffer(512)
+    if fn(*args, err, len(err)) != 0:
+        raise J2kDecodeError(err.value.decode(errors="replace"))
+
+
+def j2k_header(stream: bytes) -> dict[str, int]:
+    """Geometry of a JPEG 2000 codestream or JP2 file, read without decoding
+    (the fields of ``J2K_HEADER_FIELDS``: image size and components, the
+    image's origin, the tile size and the tile grid's origin and shape)."""
+    stream = bytes(stream)
+    info = np.zeros(len(J2K_HEADER_FIELDS), np.int64)
+    _j2k_call(_j2k_decoder().j2k_header, stream, len(stream), _ptr(info))
+    return dict(zip(J2K_HEADER_FIELDS, (int(v) for v in info)))
+
+
+def _threads(n_threads: int | None, n: int) -> int:
+    if n_threads is None:
+        n_threads = min(os.cpu_count() or 4, MAX_DECODE_THREADS)
+    return max(1, min(int(n_threads), MAX_DECODE_THREADS)) if n else 1
+
+
+def decode_j2k(stream: bytes, n_threads: int | None = None) -> np.ndarray:
+    """Decode a JPEG 2000 codestream or JP2 file to ``[h, w, c]`` uint8 (c 1
+    or 3, in component order: RGB after the codestream's colour transform,
+    as OpenJPEG gives it). Its tiles, or one tile's code-blocks, are shared
+    out over ``n_threads`` workers (default ``min(cpu_count, 16)``).
+
+    Raises:
+        J2kDecodeError: (a ``ValueError``) an unsupported feature, named, or
+            a truncated or corrupt stream.
+    """
+    try:
+        return decode_j2k_batch([stream], _threads(n_threads, 1))[0]
+    except J2kDecodeError as exc:
+        raise J2kDecodeError(str(exc).removeprefix("stream 0: ")) from None
+
+
+def decode_j2k_tiles(stream: bytes, indices, n_threads: int | None = None) -> list[np.ndarray]:
+    """Decode tiles ``indices`` (raster order of the tile grid) of one
+    codestream, each to ``[h, w, c]`` uint8 at its own size, on ``n_threads``
+    workers (default ``min(cpu_count, len(indices), 16)``); the same errors
+    as ``decode_j2k``."""
+    stream = bytes(stream)
+    info = j2k_header(stream)
+    indices = np.ascontiguousarray(indices, np.int32).reshape(-1)
+    across, down = info["tiles_across"], info["tiles_down"]
+    if indices.size and (indices.min() < 0 or indices.max() >= across * down):
+        msg = f"tile index out of range 0-{across * down - 1}: {indices.tolist()}"
+        raise J2kDecodeError(msg)
+    x_end, y_end = info["x0"] + info["width"], info["y0"] + info["height"]
+    shapes = []
+    for t in indices.tolist():
+        i, j = t % across, t // across
+        x0 = max(info["tile_x0"] + i * info["tile_width"], info["x0"])
+        y0 = max(info["tile_y0"] + j * info["tile_height"], info["y0"])
+        x1 = min(info["tile_x0"] + (i + 1) * info["tile_width"], x_end)
+        y1 = min(info["tile_y0"] + (j + 1) * info["tile_height"], y_end)
+        shapes.append((y1 - y0, x1 - x0, info["components"]))
+    sizes = np.array([h * w * c for h, w, c in shapes], np.int64)
+    offsets = np.zeros(len(shapes), np.int64)
+    np.cumsum(sizes[:-1], out=offsets[1:])
+    blob = np.empty(int(sizes.sum()), np.uint8)
+    if n_threads is None:
+        n_threads = min(os.cpu_count() or 4, max(len(shapes), 1), MAX_DECODE_THREADS)
+    _j2k_call(
+        _j2k_decoder().j2k_decode_tiles, stream, len(stream), _ptr(indices), len(shapes), _ptr(blob),
+        _ptr(offsets), _threads(n_threads, len(shapes)),
+    )
+    return [blob[o : o + s].reshape(shape) for o, s, shape in zip(offsets, sizes, shapes)]
+
+
+def decode_j2k_batch(streams: list[bytes], n_threads: int | None = None) -> list[np.ndarray]:
+    """Decode several codestreams (TIFF tiles, DICOM frames), each whole to
+    ``[h, w, c]`` uint8, on ``n_threads`` workers (default ``min(cpu_count,
+    len(streams), 16)``).
+
+    Raises:
+        J2kDecodeError: as ``decode_j2k``; ``index`` names the first failing
+            stream.
+    """
+    streams = [bytes(s) for s in streams]
+    shapes = []
+    for k, s in enumerate(streams):
+        try:
+            info = j2k_header(s)
+        except J2kDecodeError as exc:
+            raise J2kDecodeError(f"stream {k}: {exc}", k) from None
+        shapes.append((info["height"], info["width"], info["components"]))
+    n = len(streams)
+    sizes = np.array([len(s) for s in streams], np.int64)
+    offsets = np.zeros(n, np.int64)
+    np.cumsum(sizes[:-1], out=offsets[1:])
+    out_sizes = np.array([h * w * c for h, w, c in shapes], np.int64)
+    out_offsets = np.zeros(n, np.int64)
+    np.cumsum(out_sizes[:-1], out=out_offsets[1:])
+    out = np.empty(int(out_sizes.sum()), np.uint8)
+    if n == 0:
+        return []
+    if n_threads is None:
+        n_threads = min(os.cpu_count() or 4, n, MAX_DECODE_THREADS)
+    failed = ctypes.c_int32(-1)
+    err = ctypes.create_string_buffer(512)
+    blob = b"".join(streams)
+    code = _j2k_decoder().j2k_decode_batch(
+        blob, _ptr(offsets), _ptr(sizes), n, _ptr(out), _ptr(out_offsets), _threads(n_threads, n),
+        ctypes.byref(failed), err, len(err),
+    )
+    if code != 0:
+        raise J2kDecodeError(err.value.decode(errors="replace"), max(failed.value, 0))
+    return [out[o : o + s].reshape(shape) for o, s, shape in zip(out_offsets, out_sizes, shapes)]
+
+
+# encode_j2k's progression orders and code-block style bits (Table A.19)
+J2K_PROGRESSIONS = ("LRCP", "RLCP", "RPCL", "PCRL", "CPRL")
+J2K_BLOCK_STYLES = {"bypass": 1, "reset": 2, "termall": 4, "vertical_causal": 8, "predictable": 16, "segsym": 32}
+
+
+def encode_j2k(
+    image: np.ndarray,
+    tile_size: int | tuple[int, int] | None = None,
+    *,
+    levels: int = 5,
+    irreversible: bool = False,
+    step: float = 1.0,
+    layers: int = 1,
+    progression: str = "LRCP",
+    precincts=None,
+    cblk_style=(),
+    code_block: tuple[int, int] = (64, 64),
+    sop: bool = False,
+    eph: bool = False,
+    packets_per_tile_part: int = 0,
+    mct: bool | None = None,
+    n_threads: int | None = None,
+) -> bytes:
+    """A JPEG 2000 codestream of an ``[h, w, 3]`` RGB or ``[h, w]`` /
+    ``[h, w, 1]`` grey uint8 image.
+
+    The default is lossless: the reversible 5/3 transform, RCT on colour,
+    ``levels`` decomposition levels, 64x64 code-blocks, one layer, LRCP,
+    every coding pass kept, as ``cv2.imencode(".jp2", bgr,
+    [IMWRITE_JPEG2000_COMPRESSION_X1000, 1000])`` codes it. ``tile_size``
+    (an int, or ``(width, height)``) sets a tile grid from (0, 0); the tiles
+    are coded on ``n_threads`` workers. The other options make the streams
+    the decoder's tests need: ``irreversible`` (9/7, ICT, expounded steps of
+    ``step`` grey levels over OpenJPEG's band norms), ``layers`` (each
+    code-block's passes shared out evenly), ``progression`` (one of
+    ``J2K_PROGRESSIONS``), ``precincts`` (one ``(log2 width, log2 height)``
+    for each resolution, the coarsest first), ``cblk_style`` (names of
+    ``J2K_BLOCK_STYLES``), ``code_block`` sizes (powers of two), ``sop`` /
+    ``eph`` markers, ``packets_per_tile_part``, and ``mct`` (the colour
+    transform, on by default for colour images).
+
+    Raises:
+        ValueError: a bad image or option, or a coefficient that needs more
+            bit-planes than the band has guard bits for.
+    """
+    image = np.ascontiguousarray(image, np.uint8)
+    if image.ndim == 3 and image.shape[2] == 1:
+        image = image[:, :, 0]
+    if image.ndim not in (2, 3) or (image.ndim == 3 and image.shape[2] != 3):
+        msg = f"encode_j2k takes [h, w, 3] RGB or [h, w] grey, got {image.shape}."
+        raise ValueError(msg)
+    h, w = image.shape[:2]
+    if tile_size is None:
+        tile_w = tile_h = 0
+    else:
+        tile_w, tile_h = (tile_size, tile_size) if np.isscalar(tile_size) else tile_size
+    if progression not in J2K_PROGRESSIONS:
+        msg = f"progression must be one of {J2K_PROGRESSIONS}, got {progression!r}."
+        raise ValueError(msg)
+    style = 0
+    for name in cblk_style:
+        if name not in J2K_BLOCK_STYLES:
+            msg = f"unknown code-block style {name!r}; known: {sorted(J2K_BLOCK_STYLES)}."
+            raise ValueError(msg)
+        style |= J2K_BLOCK_STYLES[name]
+    xcb, ycb = (int(np.log2(s)) for s in code_block)
+    if [1 << xcb, 1 << ycb] != list(code_block):
+        msg = f"code-block sides must be powers of two, got {code_block}."
+        raise ValueError(msg)
+    if mct is None:
+        mct = image.ndim == 3
+    opts = np.zeros(14 + 66, np.int32)
+    opts[:14] = [
+        tile_w, tile_h, levels, int(irreversible), layers, J2K_PROGRESSIONS.index(progression), style, int(sop),
+        int(eph), xcb, ycb, packets_per_tile_part, precincts is not None, int(mct),
+    ]
+    if precincts is not None:
+        if len(precincts) != levels + 1:
+            msg = f"precincts needs one (log2 w, log2 h) for each of the {levels + 1} resolutions."
+            raise ValueError(msg)
+        for r, (px, py) in enumerate(precincts):
+            opts[14 + r] = px
+            opts[14 + 33 + r] = py
+    if n_threads is None:
+        n_threads = min(os.cpu_count() or 4, MAX_DECODE_THREADS)
+    lib = _j2k_encoder()
+    size = ctypes.c_int64(0)
+    err = ctypes.create_string_buffer(512)
+    ch = 1 if image.ndim == 2 else 3
+    handle = lib.j2k_encode(
+        _ptr(image), h, w, ch, _ptr(opts), float(step), max(1, int(n_threads)), ctypes.byref(size), err, len(err)
+    )
+    if not handle:
+        msg = f"encode_j2k: {err.value.decode(errors='replace')}"
+        raise ValueError(msg)
+    try:
+        out = np.empty(size.value, np.uint8)
+        lib.j2k_encoded_copy(handle, _ptr(out))
+    finally:
+        lib.j2k_encoded_free(handle)
+    return out.tobytes()

@@ -11,7 +11,9 @@ decodes with its own code:
   type (grey, RGB, palette, grey+alpha, RGBA) and ``tRNS``;
 - BMP: uncompressed 24- and 32-bit rows, bottom-up or top-down, and 32-bit
   ``BI_BITFIELDS`` with an alpha mask;
-- JPEG: the port's baseline decoder (``native.decode_jpeg``).
+- JPEG: the port's baseline decoder (``native.decode_jpeg``);
+- JPEG 2000: JP2 files and raw codestreams through the port's decoder
+  (``native.decode_j2k``, OpenJPEG's pixels bit for bit).
 
 ``imdecode(data, mode)`` gives what ``cv2.imdecode`` gives, in RGB(A) order:
 ``mode="unchanged"`` (``IMREAD_UNCHANGED``) keeps grey as ``[H, W]``, alpha,
@@ -21,8 +23,10 @@ and 16-bit samples; ``mode="color"`` (``IMREAD_COLOR``) always gives ``[H, W,
 truncated stream, gives ``None``, as OpenCV's does. A format or feature the
 port does not decode raises ``FileNotSupportedError`` naming it: sub-byte
 PNG samples, other BMP layouts, progressive, arithmetic-coded, 12-bit,
-lossless, multi-scan, 4-component and odd-sampling JPEG, and GIF, TIFF,
-WebP, PNM and JPEG 2000 data (``ROADMAP.md`` §1 item 2 brings the last).
+lossless, multi-scan, 4-component and odd-sampling JPEG, the JPEG 2000
+features ``native.decode_j2k`` refuses (HTJ2K, POC, PPM/PPT, RGN,
+sub-sampled or other than 8-bit components), and GIF, TIFF, WebP and PNM
+data.
 """
 
 from __future__ import annotations
@@ -49,8 +53,6 @@ def _other_format(data: bytes) -> str | None:
         return "TIFF"
     if data[:4] == b"RIFF" and data[8:12] == b"WEBP":
         return "WebP"
-    if data[4:12] == b"jP  \r\n\x87\n" or data[:4] == b"\xff\x4f\xff\x51":
-        return "JPEG 2000 (ROADMAP.md section 1 item 2)"
     if len(data) > 2 and data[:1] == b"P" and data[1:2] in b"1234567" and data[2:3].isspace():
         return "PNM"
     if data[:4] == b"\x76\x2f\x31\x01":
@@ -61,7 +63,7 @@ def _other_format(data: bytes) -> str | None:
 
 
 def imdecode(data, mode: str = "unchanged") -> np.ndarray | None:
-    """Decode an encoded PNG, BMP or JPEG image held in memory.
+    """Decode an encoded PNG, BMP, JPEG or JPEG 2000 image held in memory.
 
     Args:
         data: The encoded bytes (``bytes``, ``bytearray`` or a uint8 array).
@@ -86,6 +88,8 @@ def imdecode(data, mode: str = "unchanged") -> np.ndarray | None:
         return _decode_jpeg(data, color=color)
     if data[:2] == b"BM":
         return _decode_bmp(data, color=color)
+    if data[4:12] == b"jP  \r\n\x87\n" or data[:4] == b"\xff\x4f\xff\x51":
+        return _decode_j2k(data, color=color)
     name = _other_format(data)
     if name is not None:
         msg = f"{name} images are not supported by the port's decoders."
@@ -104,6 +108,24 @@ def _decode_jpeg(data: bytes, *, color: bool) -> np.ndarray | None:
     except native.JpegDecodeError as exc:
         if exc.unsupported:  # a feature the decoder lacks, where OpenCV decodes
             msg = f"JPEG stream not supported by the port's decoder: {exc.reason}"
+            raise FileNotSupportedError(msg) from exc
+        return None
+    if img.shape[2] == 1:
+        return np.repeat(img, 3, axis=2) if color else img[:, :, 0]
+    return img
+
+
+# -- JPEG 2000 -----------------------------------------------------------------
+
+
+def _decode_j2k(data: bytes, *, color: bool) -> np.ndarray | None:
+    from tiatoolbox_tpu_torch import native
+
+    try:
+        img = native.decode_j2k(data)
+    except native.J2kDecodeError as exc:
+        if str(exc).startswith("unsupported"):  # a feature the decoder lacks
+            msg = f"JPEG 2000 stream not supported by the port's decoder: {exc}"
             raise FileNotSupportedError(msg) from exc
         return None
     if img.shape[2] == 1:

@@ -39,7 +39,7 @@ _COMMON_POWERS = (1, 1.25, 2, 2.5, 4, 5, 10, 20, 40, 60, 90, 100)
 def imread(image_path, as_uint8: bool = True) -> np.ndarray:
     """Read an image file to an RGB(A) numpy array (JAX ``misc.py:41-60``).
 
-    ``.npy`` arrays load as they are; PNG, JPEG and BMP files decode through
+    ``.npy`` arrays load as they are; PNG, JPEG, JPEG 2000 and BMP files decode through
     the port's codecs (``utils/imagecodec.py``) as ``cv2.imread(path,
     IMREAD_UNCHANGED)`` would, in RGB(A) order. With ``as_uint8`` a
     non-uint8 image is clipped to 0..255 and cast, as JAX does.

@@ -13,6 +13,11 @@ copied as they are. ``imresize`` (:110) is written without OpenCV:
 - ``"linear"`` and ``"cubic"`` go through ``torch.nn.functional.interpolate``
   (half-pixel centres, the same cubic coefficient -0.75 as OpenCV) and may
   differ from OpenCV by rounding.
+
+``shrink_linear_exact`` is OpenCV's fixed-point ``INTER_LINEAR_EXACT`` for
+uint8 images, bit for bit: what ``cv2.IMREAD_REDUCED_*`` gives for a JPEG
+2000 file (a full decode shrunk to the floored size), which JAX's JP2 reads
+return (``wsicore/jp2.py:229-244``, ``wsireader.py:1075-1108``).
 """
 
 from __future__ import annotations
@@ -119,6 +124,45 @@ def _resize_torch(img: np.ndarray, out_w: int, out_h: int, mode: str) -> np.ndar
     )[0]
     out = y[0] if img.ndim == 2 else y.permute(1, 2, 0)
     return _to_dtype(out.numpy(), img.dtype)
+
+
+def _linear_exact_taps(n_in: int, n_out: int):
+    """OpenCV's ``interpolationLinear`` taps (resize.cpp): the source
+    position of each output sample in IEEE double, its weights in 8-bit
+    fixed point rounded half to even; outside the source the edge sample."""
+    scale = 1.0 / (n_out / n_in)
+    pos = scale * (np.arange(n_out, dtype=np.float64) + 0.5) - 0.5
+    base = np.floor(pos)
+    w1 = np.rint((pos - base) * 256.0).astype(np.uint32)
+    base = base.astype(np.int64)
+    edge = (base < 0) | (base >= n_in - 1)
+    i0 = np.where(base >= n_in - 1, n_in - 1, np.clip(base, 0, n_in - 1))
+    i1 = np.minimum(i0 + 1, n_in - 1)
+    w1 = np.where(edge, 0, w1).astype(np.uint32)
+    return i0, i1, (256 - w1).astype(np.uint32), w1
+
+
+def shrink_linear_exact(image: np.ndarray, factor: int) -> np.ndarray:
+    """A uint8 ``[h, w]`` or ``[h, w, c]`` image shrunk by ``factor`` to
+    ``(w // factor, h // factor)`` as ``cv2.resize(image, size,
+    interpolation=cv2.INTER_LINEAR_EXACT)`` gives it, bit for bit: rows then
+    columns in 8-bit fixed point, the sum rounded at 16 fraction bits."""
+    image = np.asarray(image)
+    if image.dtype != np.uint8:
+        msg = f"shrink_linear_exact takes uint8 images, got {image.dtype}."
+        raise ValueError(msg)
+    h, w = image.shape[:2]
+    out_w, out_h = w // factor, h // factor
+    if out_w < 1 or out_h < 1:
+        msg = f"a {w}x{h} image shrunk by {factor} is empty."
+        raise ValueError(msg)
+    x0, x1, wx0, wx1 = _linear_exact_taps(w, out_w)
+    y0, y1, wy0, wy1 = _linear_exact_taps(h, out_h)
+    src = image.reshape(h, w, -1).astype(np.uint32)
+    rows = src[:, x0] * wx0[None, :, None] + src[:, x1] * wx1[None, :, None]
+    both = rows[y0] * wy0[:, None, None] + rows[y1] * wy1[:, None, None]
+    out = np.minimum((both + (1 << 15)) >> 16, 255).astype(np.uint8)
+    return out.reshape((out_h, out_w, *image.shape[2:]))
 
 
 def imresize(

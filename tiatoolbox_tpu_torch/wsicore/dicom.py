@@ -8,15 +8,16 @@ tiles white for colour slides and black for monochrome ones); concatenated
 instances sharing a ConcatenationUID stitched into one level by
 ConcatenationFrameOffsetNumber; native frames.
 
-Encapsulated frames are decoded by the port's own codec where JAX calls
+Encapsulated frames are decoded by the port's own codecs where JAX calls
 ``cv2.imdecode`` (:361-376): JPEG baseline and extended 8-bit
-(``1.2.840.10008.1.2.4.50`` and ``.51``) through ``utils/imagecodec.py``.
-Every other encapsulated transfer syntax raises ``FileNotSupportedError``
-naming it; the JPEG 2000 ones (``.4.90``, ``.4.91``) wait for
-``ROADMAP.md`` section 1 item 2. A non-empty Basic Offset Table groups the
-fragments into frames; without one, each fragment is a frame as in JAX,
-unless there are more fragments than frames: then a frame starts at each
-fragment that opens with a JPEG SOI marker.
+(``1.2.840.10008.1.2.4.50`` and ``.51``) through ``utils/imagecodec.py``,
+JPEG 2000 (``.4.90`` lossless, ``.4.91``) through ``native.decode_j2k``,
+the frames a region touches in one threaded batch. Every other
+encapsulated transfer syntax raises ``FileNotSupportedError`` naming it,
+HTJ2K (``.4.201``, ``.4.203``) among them. A non-empty Basic Offset Table
+groups the fragments into frames; without one, each fragment is a frame as
+in JAX, unless there are more fragments than frames: then a frame starts at
+each fragment that opens with a JPEG SOI marker.
 """
 
 from __future__ import annotations
@@ -37,16 +38,17 @@ _ENCAPSULATED_PREFIX = "1.2.840.10008.1.2.4"  # JPEG family / J2K
 # encapsulated syntaxes the port's codec decodes
 TS_JPEG_BASELINE = "1.2.840.10008.1.2.4.50"
 TS_JPEG_EXTENDED = "1.2.840.10008.1.2.4.51"
-_DECODED_SYNTAXES = (TS_JPEG_BASELINE, TS_JPEG_EXTENDED)
+TS_J2K_LOSSLESS = "1.2.840.10008.1.2.4.90"
+TS_J2K = "1.2.840.10008.1.2.4.91"
+_J2K_SYNTAXES = (TS_J2K_LOSSLESS, TS_J2K)
+_DECODED_SYNTAXES = (TS_JPEG_BASELINE, TS_JPEG_EXTENDED, *_J2K_SYNTAXES)
 _SYNTAX_NAMES = {
     "1.2.840.10008.1.2.4.57": "JPEG lossless",
     "1.2.840.10008.1.2.4.70": "JPEG lossless, first-order prediction",
     "1.2.840.10008.1.2.4.80": "JPEG-LS lossless",
     "1.2.840.10008.1.2.4.81": "JPEG-LS near-lossless",
-    "1.2.840.10008.1.2.4.90": "JPEG 2000 lossless (ROADMAP.md section 1 item 2)",
-    "1.2.840.10008.1.2.4.91": "JPEG 2000 (ROADMAP.md section 1 item 2)",
-    "1.2.840.10008.1.2.4.201": "HTJ2K lossless",
-    "1.2.840.10008.1.2.4.203": "HTJ2K",
+    "1.2.840.10008.1.2.4.201": "HTJ2K lossless (ROADMAP.md section 1)",
+    "1.2.840.10008.1.2.4.203": "HTJ2K (ROADMAP.md section 1)",
     "1.2.840.10008.1.2.5": "RLE lossless",
 }
 
@@ -403,6 +405,8 @@ class DicomFile:
             name = _SYNTAX_NAMES.get(syntax, "this encapsulated syntax")
             msg = f"DICOM transfer syntax {syntax} ({name}) is not decoded by the port."
             raise FileNotSupportedError(msg)
+        if syntax in _J2K_SYNTAXES:
+            return self.decode_frames([index])[0]
         if syntax in _DECODED_SYNTAXES:
             arr = imdecode(self.frames_at(index), "unchanged")
             if arr is None:
@@ -417,6 +421,18 @@ class DicomFile:
         start = index * frame_bytes
         frame = np.frombuffer(blob[start : start + frame_bytes], np.uint8)
         return frame.reshape(rows, cols, spp)
+
+    def decode_frames(self, indices: list[int]) -> list[np.ndarray]:
+        """Decode frames ``indices``; JPEG 2000 frames in one threaded batch."""
+        if self.transfer_syntax not in _J2K_SYNTAXES:
+            return [self.decode_frame(i) for i in indices]
+        from tiatoolbox_tpu_torch import native
+
+        try:
+            return native.decode_j2k_batch([self.frames_at(i) for i in indices])
+        except native.J2kDecodeError as exc:
+            msg = f"Could not decode DICOM frame {indices[exc.index]}: {exc}"
+            raise ValueError(msg) from exc
 
     def frames_at(self, index: int) -> bytes:
         return self.ds.frames[index]
@@ -553,19 +569,26 @@ class DicomSlide:
             return np.zeros((h, w, spp), np.uint8)
         pad_mask[iy0 - y0 : iy1 - y0, ix0 - x0 : ix1 - x0] = False
         out[pad_mask] = 0
+        cells = []
         for fy in range(iy0 // rows, (iy1 - 1) // rows + 1):
             for fx in range(ix0 // cols, (ix1 - 1) // cols + 1):
                 hit = lv.frame_for_cell(fy, fx)
-                if hit is None:
-                    continue  # sparse background cell
-                part, local_idx = hit
-                frame = part.decode_frame(local_idx)
-                fx0, fy0 = fx * cols, fy * rows
-                sx0, sy0 = max(ix0 - fx0, 0), max(iy0 - fy0, 0)
-                sx1 = min(ix1 - fx0, cols)
-                sy1 = min(iy1 - fy0, rows)
-                out[
-                    fy0 + sy0 - y0 : fy0 + sy1 - y0,
-                    fx0 + sx0 - x0 : fx0 + sx1 - x0,
-                ] = frame[sy0:sy1, sx0:sx1]
+                if hit is not None:  # else a sparse background cell
+                    cells.append((fy, fx, *hit))
+        wanted: dict[int, tuple[DicomFile, list[int]]] = {}  # each part's frames, decoded together
+        for _fy, _fx, part, local_idx in cells:
+            wanted.setdefault(id(part), (part, []))[1].append(local_idx)
+        frames = {}
+        for key, (part, indices) in wanted.items():
+            frames.update({(key, i): f for i, f in zip(indices, part.decode_frames(indices))})
+        for fy, fx, part, local_idx in cells:
+            frame = frames[(id(part), local_idx)]
+            fx0, fy0 = fx * cols, fy * rows
+            sx0, sy0 = max(ix0 - fx0, 0), max(iy0 - fy0, 0)
+            sx1 = min(ix1 - fx0, cols)
+            sy1 = min(iy1 - fy0, rows)
+            out[
+                fy0 + sy0 - y0 : fy0 + sy1 - y0,
+                fx0 + sx0 - x0 : fx0 + sx1 - x0,
+            ] = frame[sy0:sy1, sx0:sx1]
         return out

@@ -10,12 +10,15 @@ the port's own baseline decoder (``csrc/jpegdec.cpp``, libjpeg-turbo's
 pixels bit for bit) where JAX calls ``cv2.imdecode``. The tiles a region
 touches decode in one threaded native batch (``_batch_decode_tiles``
 :460-518), and ``prefetch_regions`` (:520-545) decodes the union of many
-regions' tiles at once into the tile cache. JPEG 2000 tiles raise.
+regions' tiles at once into the tile cache. Aperio's JPEG 2000 tiles
+(compression 33003 and 33005) go to the port's JPEG 2000 decoder
+(``csrc/j2kdec.cpp``, OpenJPEG's pixels bit for bit) where JAX calls
+``cv2.imdecode`` (:416-422), one at a time or in the same threaded batches.
 ``TiffPyramidWriter`` (:670-800) writes JPEG tiles (the port's encoder,
 ``csrc/jpegenc.cpp``, the stream ``cv2.imencode`` writes) or deflate tiles.
 
-``decode_counts`` counts the JPEG tiles decoded by native batches and one
-at a time, over every file of the process.
+``decode_counts`` counts the JPEG and JPEG 2000 tiles decoded by native
+batches and one at a time, over every file of the process.
 """
 
 from __future__ import annotations
@@ -66,6 +69,9 @@ COMPRESSION_PACKBITS = 32773
 COMPRESSION_DEFLATE = 32946
 COMPRESSION_APERIO_J2K_YCBCR = 33003
 COMPRESSION_APERIO_J2K_RGB = 33005
+_J2K_COMPRESSIONS = (COMPRESSION_APERIO_J2K_YCBCR, COMPRESSION_APERIO_J2K_RGB)
+# compressions whose tiles a region decodes in one threaded native batch
+_BATCHED_COMPRESSIONS = (COMPRESSION_JPEG, *_J2K_COMPRESSIONS)
 
 # TIFF field types: (struct format char, byte size)
 _FIELD_TYPES = {
@@ -431,12 +437,16 @@ class TiffFile:
             _count_decoded("single", 1)
             if arr.shape[2] == 1 and spp == 3:
                 arr = np.repeat(arr, 3, axis=2)
-        elif comp in (COMPRESSION_APERIO_J2K_YCBCR, COMPRESSION_APERIO_J2K_RGB):
-            msg = (
-                f"JPEG 2000 TIFF tiles are not supported (compression {comp}); the port's own "
-                "JPEG 2000 decoder is ROADMAP.md section 1 item 2."
-            )
-            raise ValueError(msg)
+        elif comp in _J2K_COMPRESSIONS:
+            # JAX hands the codestream to cv2 (:416-422): its components as
+            # they come, so a 33003 stream without a colour transform gives
+            # YCbCr samples, as there
+            try:
+                arr = native.decode_j2k(data, n_threads=1)
+            except native.J2kDecodeError as exc:
+                msg = f"JPEG 2000 decode failed for block {idx} of page {page.index}: {exc}"
+                raise ValueError(msg) from exc
+            _count_decoded("single", 1)
         else:
             if comp == COMPRESSION_NONE:
                 raw = data
@@ -473,12 +483,12 @@ class TiffFile:
     def _batch_decode_tiles(
         self, page: TiffPage, ix0: int, iy0: int, ix1: int, iy1: int
     ) -> dict[int, np.ndarray] | None:
-        """Decode all JPEG tiles of a region at once with the native decoder.
+        """Decode all JPEG or JPEG 2000 tiles of a region at once with the native decoder.
 
-        Returns {tile_index: array}, or None where the page is not JPEG (the
-        caller then decodes tile by tile).
+        Returns {tile_index: array}, or None where the page is neither JPEG
+        nor JPEG 2000 (the caller then decodes tile by tile).
         """
-        if page.compression != COMPRESSION_JPEG or page.samples_per_pixel not in (1, 3):
+        if page.compression not in _BATCHED_COMPRESSIONS or page.samples_per_pixel not in (1, 3):
             return None
         tw, tl = page.tile_width, page.tile_length
         ta = page.tiles_across
@@ -499,7 +509,7 @@ class TiffFile:
         Raises:
             ValueError: a tile cannot be decoded; the message names it.
         """
-        if page.compression != COMPRESSION_JPEG or page.samples_per_pixel not in (1, 3):
+        if page.compression not in _BATCHED_COMPRESSIONS or page.samples_per_pixel not in (1, 3):
             return None
         tw, tl = page.tile_width, page.tile_length
         cached = {}
@@ -516,18 +526,21 @@ class TiffFile:
         ]
         if len(indices) < 2:  # not worth the batch setup
             return cached or None
-        streams = [
-            _merge_jpeg_tables(
-                page.jpeg_tables or b"",
-                self._read(page.offsets[i], page.byte_counts[i]),
-            )
-            for i in indices
-        ]
-        try:
-            decoded = native.decode_jpeg_batch(streams, tl, tw, out_ch=page.samples_per_pixel)
-        except native.JpegDecodeError as exc:
-            msg = f"JPEG decode failed for block {indices[exc.index]} of page {page.index}: {exc.reason}"
-            raise ValueError(msg) from exc
+        if page.compression in _J2K_COMPRESSIONS:
+            decoded = self._batch_decode_j2k(page, indices)
+        else:
+            streams = [
+                _merge_jpeg_tables(
+                    page.jpeg_tables or b"",
+                    self._read(page.offsets[i], page.byte_counts[i]),
+                )
+                for i in indices
+            ]
+            try:
+                decoded = native.decode_jpeg_batch(streams, tl, tw, out_ch=page.samples_per_pixel)
+            except native.JpegDecodeError as exc:
+                msg = f"JPEG decode failed for block {indices[exc.index]} of page {page.index}: {exc.reason}"
+                raise ValueError(msg) from exc
         _count_decoded("batch", len(indices))
         result = dict(cached)
         for k, idx in enumerate(indices):
@@ -536,15 +549,35 @@ class TiffFile:
             self._cache_put((page.index, idx), tile)
         return result
 
+    def _batch_decode_j2k(self, page: TiffPage, indices: list[int]) -> list[np.ndarray]:
+        """JPEG 2000 tiles decoded in one threaded native batch, each cropped
+        or zero-padded to the tile as the per-tile path does."""
+        streams = [self._read(page.offsets[i], page.byte_counts[i]) for i in indices]
+        try:
+            arrays = native.decode_j2k_batch(streams)
+        except native.J2kDecodeError as exc:
+            msg = f"JPEG 2000 decode failed for block {indices[exc.index]} of page {page.index}: {exc}"
+            raise ValueError(msg) from exc
+        h, w, spp = page.tile_length, page.tile_width, page.samples_per_pixel
+        out = []
+        for arr in arrays:
+            if arr.shape != (h, w, spp):
+                tile = np.zeros((h, w, arr.shape[2]), np.uint8)
+                ch, cw = min(h, arr.shape[0]), min(w, arr.shape[1])
+                tile[:ch, :cw] = arr[:ch, :cw]
+                arr = tile
+            out.append(arr)
+        return out
+
     def prefetch_regions(self, page_index: int, bounds_list) -> None:
-        """Batch-decode the JPEG tiles covering many regions at once.
+        """Batch-decode the JPEG or JPEG 2000 tiles covering many regions at once.
 
         ``bounds_list``: iterable of (x0, y0, x1, y1) in page pixels. The
         union of touched tiles decodes in one threaded native call; later
-        ``read_region`` calls hit the cache. No-op for non-JPEG pages.
+        ``read_region`` calls hit the cache. No-op for other pages.
         """
         page = self.pages[page_index]
-        if page.compression != COMPRESSION_JPEG or not page.tile_width:
+        if page.compression not in _BATCHED_COMPRESSIONS or not page.tile_width:
             return
         tw, tl = page.tile_width, page.tile_length
         ta = page.tiles_across

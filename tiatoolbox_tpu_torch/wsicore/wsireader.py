@@ -16,19 +16,20 @@ dispatches on the input as JAX's does. Concrete readers:
   ScanColorTable, FilterColors or OME-XML (:800-946), and
   ``prefetch_bounds`` (:977-986), which decodes the JPEG tiles of many
   bounds in one threaded native batch;
-- ``MIRAXWSIReader`` (:989, ``wsicore/mirax.py``), ``DICOMWSIReader``
-  (:1211, ``wsicore/dicom.py``), ``ZarrWSIReader`` (:1252, on the port's
-  ``utils/zarrlite.py``) and ``NGFFWSIReader`` (:1295);
+- ``MIRAXWSIReader`` (:989, ``wsicore/mirax.py``), ``JP2WSIReader``
+  (:1032, JPEG 2000 on the port's own decoder, ``wsicore/jp2.py``),
+  ``DICOMWSIReader`` (:1211, ``wsicore/dicom.py``), ``ZarrWSIReader``
+  (:1252, on the port's ``utils/zarrlite.py``) and ``NGFFWSIReader``
+  (:1295);
 - ``FsspecJsonWSIReader`` in ``wsicore/store_reader.py``.
 
-JPEG 2000 (``.jp2``, JAX's ``JP2WSIReader`` :1032) waits for the port's own
-decoder (``ROADMAP.md`` section 1 item 2) and ``.db`` annotation stores
-(``AnnotationStoreReader``) for item 4: ``open`` raises
-``FileNotSupportedError`` naming each.
+``.db`` annotation stores (``AnnotationStoreReader``) wait for ``ROADMAP.md``
+section 1 item 4: ``open`` raises ``FileNotSupportedError`` naming it.
 """
 
 from __future__ import annotations
 
+import struct
 from pathlib import Path
 
 import numpy as np
@@ -65,16 +66,16 @@ class WSIReader:
 
         ndarray -> Virtual; a reader is returned as it is; a directory ->
         NGFF or zarr; by suffix and magic bytes -> ``.npy`` (Virtual),
-        ``.mrxs`` (MIRAX), DICOM, TIFF, PNG/JPEG/BMP (Virtual); an fsspec
-        reference JSON is opened with ``FsspecJsonWSIReader`` itself, as in
-        JAX. ``post_proc`` ("auto", a callable, a name in
+        ``.mrxs`` (MIRAX), DICOM, TIFF, JPEG 2000, PNG/JPEG/BMP (Virtual);
+        an fsspec reference JSON is opened with ``FsspecJsonWSIReader``
+        itself, as in JAX. ``post_proc`` ("auto", a callable, a name in
         ``utils.postproc_defs`` or None) goes to the TIFF and Virtual
         readers.
 
         Raises:
             FileNotFoundError: no such path.
-            FileNotSupportedError: a format the port does not read, JPEG
-                2000 and ``.db`` stores among them (each named).
+            FileNotSupportedError: a format the port does not read, ``.db``
+                stores among them (named).
         """
         if isinstance(input_img, np.ndarray):
             return VirtualWSIReader(input_img, mpp=mpp, power=power, post_proc=post_proc, **kwargs)
@@ -102,11 +103,7 @@ class WSIReader:
         if magic.is_tiff(path):
             return TIFFWSIReader(path, mpp=mpp, power=power, post_proc=post_proc)
         if magic.is_jp2(path) or last == ".jp2":
-            msg = (
-                f"{path}: JPEG 2000 slides are not read by the port yet "
-                "(its own JPEG 2000 decoder is ROADMAP.md section 1 item 2)."
-            )
-            raise FileNotSupportedError(msg)
+            return JP2WSIReader(path, mpp=mpp, power=power)
         if magic.is_sqlite3(path) or last == ".db":
             msg = (
                 f"{path}: annotation stores as slides (AnnotationStoreReader) are "
@@ -884,6 +881,164 @@ class MIRAXWSIReader(WSIReader):
 
     def _read_level_within(self, location, size, level: int) -> np.ndarray:
         return self.mirax.read_region(level, location, size)
+
+
+class JP2WSIReader(WSIReader):
+    """JPEG 2000 reader (JAX :1032-1208) on the port's own decoder.
+
+    The slide's size comes from the SIZ marker and its mpp from the JP2
+    ``resc`` box, without a decode. Levels form a virtual power-of-two
+    pyramid down to about 512 pixels. A multi-tile codestream whose tiles
+    are a multiple of ``2**levels`` is read through its tiles
+    (``_codestream``, ``wsicore/jp2.py``), decoding only the tiles a window
+    touches; any other stream is decoded whole at the coarsest of the
+    scales 8, 4, 2, 1 that covers the level (``_decode_plane``: the full
+    decode shrunk as ``cv2.IMREAD_REDUCED_*`` shrinks it), planes above
+    64 MB spilled to a zarr-backed smart array, as in JAX.
+    """
+
+    #: reduced-decode scales (cv2's IMREAD_REDUCED_* factors)
+    _SCALES = (8, 4, 2, 1)
+
+    def __init__(self, input_img, mpp=None, power=None) -> None:
+        super().__init__(input_img, mpp=mpp, power=power)
+        parsed = self._parse_j2k_size(self.input_path)
+        if parsed is None:
+            msg = f"Could not parse JP2 codestream header: {self.input_path}"
+            raise FileNotSupportedError(msg)
+        self._base_wh, self._n_channels = parsed
+        self._planes: dict[int, np.ndarray] = {}
+        self._file_mpp = self._parse_jp2_mpp(self.input_path)
+
+    @staticmethod
+    def _parse_j2k_size(path: Path) -> tuple[tuple[int, int], int] | None:
+        """(width, height), components from the SIZ marker (no decode)."""
+        try:
+            head = path.read_bytes()[: 1 << 16]
+        except OSError:  # pragma: no cover
+            return None
+        soc = head.find(b"\xff\x4f\xff\x51")  # SOC immediately before SIZ
+        if soc < 0 or soc + 42 > len(head):
+            return None
+        siz = soc + 2
+        (xsiz, ysiz, xosiz, yosiz) = struct.unpack_from(">IIII", head, siz + 6)
+        (csiz,) = struct.unpack_from(">H", head, siz + 38)
+        return ((xsiz - xosiz, ysiz - yosiz), int(csiz))
+
+    def _decode_plane(self, scale: int) -> np.ndarray:
+        """Decode the image at 1/scale resolution (cached)."""
+        if scale in self._planes:
+            return self._planes[scale]
+        from tiatoolbox_tpu_torch import native
+        from tiatoolbox_tpu_torch.utils.transforms import shrink_linear_exact
+
+        try:
+            img = native.decode_j2k(self.input_path.read_bytes())
+        except native.J2kDecodeError as exc:
+            msg = f"Could not decode JP2 file {self.input_path}: {exc}"
+            raise FileNotSupportedError(msg) from exc
+        if self._n_channels == 3 and img.shape[2] != 3:  # cv2's IMREAD_COLOR
+            img = np.repeat(img, 3, axis=2)
+        if scale != 1:
+            img = shrink_linear_exact(img, scale)
+        # spill big planes to a zarr-backed smart array
+        if img.nbytes > (64 << 20):
+            from tiatoolbox_tpu_torch.utils.zarrlite import create_smart_array
+
+            holder = create_smart_array(img.shape, img.dtype, name=f"jp2_s{scale}")
+            holder[:] = img
+            img = holder
+        self._planes[scale] = img
+        return img
+
+    @staticmethod
+    def _parse_jp2_mpp(path: Path) -> tuple[float, float] | None:
+        """(x, y) mpp from the first ``resc`` box, None without one (JAX :1110-1129)."""
+        try:
+            data = path.read_bytes()[: 1 << 20]
+        except OSError:  # pragma: no cover
+            return None
+        idx = data.find(b"resc")
+        if idx < 0 or idx + 14 > len(data):
+            return None
+        vr_n, vr_d, hr_n, hr_d, vr_e, hr_e = struct.unpack(">HHHHbb", data[idx + 4 : idx + 14])
+        if vr_d == 0 or hr_d == 0:
+            return None
+        v_ppm = (vr_n / vr_d) * (10.0**vr_e)  # points per metre
+        h_ppm = (hr_n / hr_d) * (10.0**hr_e)
+        if v_ppm <= 0 or h_ppm <= 0:
+            return None
+        return (1e6 / h_ppm, 1e6 / v_ppm)
+
+    def _info(self) -> WSIMeta:
+        w, h = self._base_wh
+        level_dims = [(w, h)]
+        while min(level_dims[-1]) > 512:
+            pw, ph = level_dims[-1]
+            level_dims.append((max(1, pw // 2), max(1, ph // 2)))
+        downs = [w / d[0] for d in level_dims]
+        mpp = self._file_mpp
+        power = float(mpp2common_objective_power(mpp[0])) if mpp else None
+        return WSIMeta(
+            file_path=self.input_path,
+            axes="YXS",
+            slide_dimensions=(w, h),
+            level_dimensions=level_dims,
+            level_downsamples=downs,
+            level_count=len(level_dims),
+            vendor="jp2",
+            mpp=mpp,
+            objective_power=power,
+            raw={},
+        )
+
+    @property
+    def _codestream(self):
+        """The parsed codestream (cached) when tile reads are exact: several
+        tiles, no PPM, tile sizes a multiple of ``2**levels``; else None."""
+        if not hasattr(self, "_codestream_cache"):
+            from tiatoolbox_tpu_torch.wsicore.jp2 import J2KCodestream
+
+            cs = None
+            try:
+                parsed = J2KCodestream.from_bytes(self.input_path.read_bytes())
+                if len(parsed.tiles) > 1 and not parsed.has_ppm:
+                    align = 1 << parsed.decomposition_levels
+                    if parsed.xtsiz % align == 0 and parsed.ytsiz % align == 0:
+                        cs = parsed
+            except (ValueError, KeyError, OSError):
+                cs = None
+            self._codestream_cache = cs
+        return self._codestream_cache
+
+    def _read_level_within(self, location, size, level: int) -> np.ndarray:
+        ds = self.info.level_downsamples[level]
+        # decode at the coarsest reduced scale that still covers ds
+        scale = next(s for s in self._SCALES if s <= ds or s == 1)
+        cs = self._codestream
+        if cs is not None:
+            x0 = int(location[0] * ds)
+            y0 = int(location[1] * ds)
+            w0 = max(int(size[0] * ds), 1)
+            h0 = max(int(size[1] * ds), 1)
+            region = cs.read_region((x0, y0), (w0, h0), reduce=scale)
+            if region.shape[:2] != (int(size[1]), int(size[0])):
+                region = imresize(region, output_size=(int(size[0]), int(size[1])))
+            if region.ndim == 2:
+                region = region[:, :, None]
+            return region
+        plane = self._decode_plane(scale)
+        rel = ds / scale
+        x0 = int(location[0] * ds / scale)
+        y0 = int(location[1] * ds / scale)
+        w0 = max(int(size[0] * rel), 1)
+        h0 = max(int(size[1] * rel), 1)
+        region = np.asarray(plane[y0 : y0 + h0, x0 : x0 + w0])
+        if rel != 1:
+            region = imresize(region, output_size=(int(size[0]), int(size[1])))
+        if region.ndim == 2:
+            region = region[:, :, None]
+        return region
 
 
 class DICOMWSIReader(WSIReader):
