@@ -131,7 +131,22 @@ temporary directory, and drives the port's entry points on them:
   predictions, probabilities within 1e-6; and one SemanticSegmentor
   region-feed run (phase C's U-Net, seeded and tempered; K4, K2 and K3)
   over a JP2 and a TIFF of the same 2048x4096 pixels at 0.25 mpp, bit for
-  bit.
+  bit;
+- "sam", Segment Anything: SAM at SamConfig()'s full ViT-B width (seeded
+  weights written as a local checkpoint directory, config.json,
+  model.safetensors and preprocessor_config.json, and loaded through
+  SAM(dir) and the port's own safetensors reader), PromptSegmentor.run on
+  two tiles of phase A's slide (a 1024^2 tile at baseline, and a 2400x1600
+  area read at the mpp calc_mpp gives, 1500x1000) with two points, one box,
+  and a point and a box; the 1500x1000 tile's runs held against the same
+  checkpoint on the CPU (low-resolution logits and IoU scores, the share
+  of mask pixels that agree, the stores' annotation counts); the image
+  encoder's ms per image and images/s at batch 4, the prompt encoder and
+  mask decoder's ms per prompt, post_process_masks' ms and the peak
+  memory. No hand-written kernel is on this path (SAM is convolutions,
+  matmuls, softmax, layer norms and interpolation: library calls, as in
+  the reference's torch); the kernel counts are read and printed (all
+  zero).
 
 Each phase prints one JSON line. The stain kernel is held against its plain
 PyTorch version on the card (main-path batch, all 2^24 RGB colours, ragged
@@ -195,6 +210,9 @@ from tiatoolbox_tpu_torch.models.architecture.grandqc import GrandQCModel, jpeg_
 from tiatoolbox_tpu_torch.models.architecture.hovernetplus import HoVerNetPlus  # noqa: E402
 from tiatoolbox_tpu_torch.models.architecture.kongnet import KongNet  # noqa: E402
 from tiatoolbox_tpu_torch.models.architecture.nuclick import NuClick  # noqa: E402
+from tiatoolbox_tpu_torch.models.architecture.sam import SAM, save_sam_checkpoint, seeded_sam_state  # noqa: E402
+from tiatoolbox_tpu_torch.models.architecture.sam_config import SamConfig  # noqa: E402
+from tiatoolbox_tpu_torch.models.architecture.sam_processor import post_process_masks, preprocess  # noqa: E402
 from tiatoolbox_tpu_torch.models.architecture.unet import UNetModel  # noqa: E402
 from tiatoolbox_tpu_torch.models.architecture.vanilla import CNNBackbone, CNNModel  # noqa: E402
 from tiatoolbox_tpu_torch.models.architecture.vit import VIT_CONFIGS, TimmBackbone  # noqa: E402
@@ -207,6 +225,7 @@ from tiatoolbox_tpu_torch.models.engine import (  # noqa: E402
 )
 from tiatoolbox_tpu_torch.models.engine.io_config import IOPatchPredictorConfig  # noqa: E402
 from tiatoolbox_tpu_torch.models.engine.patch_predictor import PatchPredictor  # noqa: E402
+from tiatoolbox_tpu_torch.models.engine.prompt_segmentor import PromptSegmentor  # noqa: E402
 from tiatoolbox_tpu_torch.models.models_abc import ModelABC  # noqa: E402
 from tiatoolbox_tpu_torch.ops import canvas as canvas_ops  # noqa: E402
 from tiatoolbox_tpu_torch.ops import hv_energy as energy_ops  # noqa: E402
@@ -3785,6 +3804,209 @@ def phase_jp2(tmp: Path, card: str) -> None:
     shutil.rmtree(root)
 
 
+# -- Segment Anything: SAM and PromptSegmentor at ViT-B width -----------------
+
+SAM_SEED = 0
+# (baseline location, baseline area): a 1024^2 tile read at baseline, and an
+# area larger than calc_mpp's 1500 px, read at 0.5 * 1.6 mpp as 1500x1000
+SAM_TILES = {"square": ((1024, 1024), (1024, 1024)), "wide": ((512, 768), (2400, 1600))}
+# per tile, in the tile's pixels: two points, one box, a point and a box
+SAM_PROMPTS = {
+    "square": {
+        "points": {"point_coords": np.array([[[300, 420], [610, 380]]])},
+        "box": {"box_coords": np.array([[[200, 150, 700, 640]]])},
+        "point_box": {"point_coords": np.array([[[512, 512]]]), "box_coords": np.array([[[380, 360, 760, 700]]])},
+    },
+    "wide": {
+        "points": {"point_coords": np.array([[[400, 300], [1100, 620]]])},
+        "box": {"box_coords": np.array([[[250, 180, 1200, 860]]])},
+        "point_box": {"point_coords": np.array([[[750, 500]]]), "box_coords": np.array([[[520, 260, 1010, 770]]])},
+    },
+}
+SAM_CPU_TILE = "wide"  # the tile whose three runs are held against the CPU
+SAM_PIXEL_AGREEMENT = 0.999  # share of output mask pixels, card against the CPU
+SAM_LOGIT_TOL = 1e-3  # low-resolution logits and IoU scores, card against the CPU, absolute
+SAM_ENCODER_REPS = 10
+SAM_BATCH = 4
+SAM_PHASE_LIMIT_S = 120.0  # twice the phase's budget
+
+
+class KeepingSAM(SAM):
+    """SAM keeping its last call's low-resolution logits and masks."""
+
+    def infer_logits(self, *args, **kwargs) -> list[dict]:
+        self.kept_logits = super().infer_logits(*args, **kwargs)
+        return self.kept_logits
+
+    def infer_batch(self, *args, **kwargs) -> list[np.ndarray]:
+        self.kept_masks = super().infer_batch(*args, **kwargs)
+        return self.kept_masks
+
+
+def sam_encoder_gflop(config: SamConfig) -> float:
+    """GFLOP of one image through the image encoder (2 per multiply-add):
+    patch embedding, each layer's linears over the token grid, attention
+    over windows padded to a multiple of the window (global layers: the
+    whole grid), and the neck."""
+    v = config.vision_config
+    grid, width = v.grid, v.hidden_size
+    tokens = grid * grid
+    macs = tokens * width * v.num_channels * v.patch_size**2
+    for i in range(v.num_hidden_layers):
+        macs += tokens * (4 * width * width + 2 * width * v.mlp_dim)
+        window = grid if i in v.global_attn_indexes else v.window_size
+        padded = -(-grid // window) * window
+        macs += 2 * padded * padded * window * window * width  # q k^T and attn . v
+    macs += tokens * (width * v.output_channels + 9 * v.output_channels**2)
+    return 2 * macs / 1e9
+
+
+def sam_tiles(slide: Path, engine: PromptSegmentor) -> dict:
+    """Each SAM_TILES area read at the mpp calc_mpp gives, with its scale."""
+    reader = WSIReader.open(slide)
+    base_mpp = float(reader.info.mpp[0])
+    tiles = {}
+    for name, (location, area) in SAM_TILES.items():
+        mpp, scale = engine.calc_mpp(area, base_mpp)
+        size = (round(area[0] / scale), round(area[1] / scale))
+        image = reader.read_rect(location, size, resolution=mpp, units="mpp")
+        check(image.shape == (size[1], size[0], 3), f"sam tile {name} read as {image.shape}")
+        tiles[name] = {"image": image, "location": location, "scale": scale, "mpp": mpp}
+    return tiles
+
+
+def sam_run(engine: PromptSegmentor, tile: dict, prompts: dict, out: Path, device: str) -> dict:
+    """One PromptSegmentor.run over a tile; its store, masks and logits."""
+    engine.scale = tile["scale"]
+    engine.offset = np.array(tile["location"])
+    t = time.perf_counter()
+    paths = engine.run([tile["image"]], save_dir=out, device=device, **prompts)
+    if device != "cpu":
+        torch.cuda.synchronize()
+    seconds = time.perf_counter() - t
+    masks = engine.model.kept_masks[0]
+    logits = engine.model.kept_logits[0]
+    check(masks.shape == (3, *tile["image"].shape[:2]) and masks.dtype == bool, f"sam masks {masks.shape} {masks.dtype}")
+    check(bool(torch.isfinite(logits["low_res_masks"]).all()), "sam logits are not finite")
+    return {
+        "seconds": seconds,
+        "masks": masks,
+        "logits": logits,
+        "annotations": len(SQLiteStore(paths[0])),
+        "foreground": float(masks.any(axis=0).mean()),
+    }
+
+
+def phase_sam(slide: Path, tmp: Path, card: str) -> None:
+    """SAM at full ViT-B width from a checkpoint directory the script writes,
+    PromptSegmentor.run on two tiles with three prompt kinds on the card,
+    one tile's runs held against the CPU, and the network's times."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t0 = time.perf_counter()
+    root = tmp / "sam"
+    config = SamConfig()
+    t = time.perf_counter()
+    state = seeded_sam_state(config, seed=SAM_SEED)
+    save_sam_checkpoint(root / "checkpoint", state, config)
+    write_s = time.perf_counter() - t
+    checkpoint_bytes = disk_bytes(root / "checkpoint")
+    t = time.perf_counter()
+    sam = KeepingSAM(root / "checkpoint", device=DEVICE)
+    load_s = time.perf_counter() - t
+    loaded = sam.model.state_dict()
+    check(len(loaded) == len(state), f"{len(loaded)} state-dict names, {len(state)} written")
+    check(all(np.array_equal(loaded[k].cpu().numpy(), v) for k, v in state.items()), "the checkpoint did not load as written")
+    del state, loaded
+    engine = PromptSegmentor(model=sam)
+    tiles = sam_tiles(slide, engine)
+
+    reset_all_counts()
+    stain_transform.launches = stain_augment.launches = 0
+    runs = {}
+    for name, tile in tiles.items():
+        for kind, prompts in SAM_PROMPTS[name].items():
+            runs[name, kind] = sam_run(engine, tile, prompts, root / f"{name}_{kind}", DEVICE)
+    counts = {**all_counts(), "stain_transform": stain_transform.launches, "stain_augment": stain_augment.launches}
+    check(any(r["annotations"] for r in runs.values()), "no SAM run gave an annotation")
+
+    # the CPU on the same checkpoint, the same tile and prompts
+    cpu_engine = PromptSegmentor(model=KeepingSAM(root / "checkpoint", device="cpu"))
+    held = {}
+    for kind, prompts in SAM_PROMPTS[SAM_CPU_TILE].items():
+        card_run = runs[SAM_CPU_TILE, kind]
+        cpu_run = sam_run(cpu_engine, tiles[SAM_CPU_TILE], prompts, root / f"cpu_{kind}", "cpu")
+        logit_err = float((card_run["logits"]["low_res_masks"].cpu() - cpu_run["logits"]["low_res_masks"]).abs().max())
+        iou_err = float((card_run["logits"]["iou_scores"].cpu() - cpu_run["logits"]["iou_scores"]).abs().max())
+        agree = float((card_run["masks"] == cpu_run["masks"]).mean())
+        held[kind] = {
+            "logit_max_abs_diff": logit_err,
+            "iou_max_abs_diff": iou_err,
+            "pixel_agreement": agree,
+            "annotations": [card_run["annotations"], cpu_run["annotations"]],
+            "cpu_seconds": cpu_run["seconds"],
+        }
+        check(logit_err <= SAM_LOGIT_TOL and iou_err <= SAM_LOGIT_TOL, f"sam {kind}: logits {logit_err}, IoU {iou_err}")
+        check(agree >= SAM_PIXEL_AGREEMENT, f"sam {kind}: {agree} of the mask pixels agree with the CPU")
+        check(card_run["annotations"] == cpu_run["annotations"], f"sam {kind}: annotation counts {held[kind]['annotations']}")
+    del cpu_engine
+
+    # times: the encoder per image and at batch SAM_BATCH, the prompt encoder
+    # and mask decoder per prompt, post-processing of the wide tile's masks
+    cfg = sam.preprocessor
+    pre_ms = time_ms(lambda: preprocess(tiles["wide"]["image"], cfg, DEVICE), SAM_ENCODER_REPS)
+    pixels, _, _ = preprocess(tiles["square"]["image"], cfg, DEVICE)
+    pixels = pixels[None]
+    with torch.inference_mode():
+        encoder_ms = time_ms(lambda: sam.model.vision_encoder(pixels), SAM_ENCODER_REPS)
+        embedding = sam.model.vision_encoder(pixels)
+        decoder_ms = {}
+        for kind, prompts in SAM_PROMPTS["square"].items():
+            tensors = sam.prompt_tensors(
+                prompts.get("point_coords", [None])[0], prompts.get("box_coords", [None])[0], (1024, 1024)
+            )
+            decoder_ms[kind] = time_ms(lambda: sam.model(image_embeddings=embedding, **tensors), SAM_ENCODER_REPS)
+        wide = runs["wide", "point_box"]["logits"]
+        post_ms = time_ms(
+            lambda: post_process_masks(wide["low_res_masks"], wide["original_size"], wide["reshaped_size"], cfg),
+            SAM_ENCODER_REPS,
+        )
+        batch = pixels.repeat(SAM_BATCH, 1, 1, 1)
+        torch.cuda.reset_peak_memory_stats()
+        batch_ms = time_ms(lambda: sam.model.vision_encoder(batch), SAM_ENCODER_REPS // 2)
+        peak = torch.cuda.max_memory_allocated()
+    gflop = sam_encoder_gflop(config)
+    seconds = time.perf_counter() - t0
+    emit(
+        {
+            "phase": "sam",
+            "seconds": seconds,
+            "checkpoint_write_seconds": write_s,
+            "checkpoint_bytes": checkpoint_bytes,
+            "checkpoint_load_seconds": load_s,
+            "tiles": {k: {"shape": list(v["image"].shape), "mpp": v["mpp"], "scale": v["scale"]} for k, v in tiles.items()},
+            "runs": {
+                f"{name}/{kind}": {k: r[k] for k in ("seconds", "annotations", "foreground")}
+                for (name, kind), r in runs.items()
+            },
+            "kernel_launches": counts,
+            "held_against_cpu": {"tile": SAM_CPU_TILE, **held},
+            "preprocess_ms": pre_ms,
+            "encoder_ms_per_image": encoder_ms,
+            "encoder_gflop_per_image": gflop,
+            "encoder_tflop_per_s": gflop / encoder_ms,
+            f"encoder_images_per_s_batch_{SAM_BATCH}": SAM_BATCH * 1e3 / batch_ms,
+            "decoder_ms_per_prompt": decoder_ms,
+            "post_process_ms": post_ms,
+            f"peak_bytes_batch_{SAM_BATCH}": peak,
+            "card": card,
+        }
+    )
+    check(seconds <= SAM_PHASE_LIMIT_S, f"the sam phase took {seconds:.1f} s")
+    release(sam.model)
+    shutil.rmtree(root)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; nothing was run.", file=sys.stderr)
@@ -3836,6 +4058,8 @@ def main() -> int:
         mark("readers")
         phase_jp2(Path(tmp), card)
         mark("jp2")
+        phase_sam(slide, Path(tmp), card)
+        mark("sam")
     # seconds since the start at the end of each group of phases
     emit({"phase": "timeline", "seconds_at_end": marks})
     # K2 to K4 run on phases C and D: their rows count both phases' launches

@@ -18,7 +18,9 @@ morphology on the semantic engine, NuClick with a click); then the stain
 API's Reinhard and Vahadane normalisers and stain augmentation, and the
 readers on the port's own codecs (MIRAX, JPEG DICOM, NGFF, an fsspec
 reference, a PNG slide, a tiled JPEG 2000 slide through the JPEG 2000
-codec's C++).
+codec's C++); then SAM from a checkpoint directory written with numpy
+(transformers, safetensors and huggingface_hub refused too) and
+PromptSegmentor with a point and a box.
 """
 
 from __future__ import annotations
@@ -37,7 +39,8 @@ GUARDED_RUN = textwrap.dedent(
     from importlib.abc import MetaPathFinder
 
     BLOCKED = {"jax", "jaxlib", "flax", "cv2", "yaml", "PIL", "pandas", "tqdm",
-               "psutil", "sklearn", "fsspec", "matplotlib", "tiatoolbox_tpu"}
+               "psutil", "sklearn", "fsspec", "matplotlib", "transformers", "safetensors",
+               "huggingface_hub", "tiatoolbox_tpu"}
 
     class Refuse(MetaPathFinder):
         def find_spec(self, name, path=None, target=None):
@@ -257,6 +260,26 @@ GUARDED_RUN = textwrap.dedent(
         assert np.array_equal(jp2.read_rect((0, 0), (256, 256)), image)
         assert jp2.read_rect((0, 0), (64, 64), resolution=1.0, units="mpp").shape == (64, 64, 3)
 
+        # SAM from a checkpoint directory written with numpy (the port's own
+        # safetensors reader), PromptSegmentor with a point and a box
+        from tiatoolbox_tpu_torch.models.architecture.sam import SAM, save_sam_checkpoint, seeded_sam_state
+        from tiatoolbox_tpu_torch.models.architecture.sam_config import (
+            PreprocessorConfig, SamConfig, SamMaskDecoderConfig, SamPromptEncoderConfig, SamVisionConfig)
+        from tiatoolbox_tpu_torch.models.engine import PromptSegmentor
+
+        tiny = SamConfig(SamVisionConfig(hidden_size=32, num_hidden_layers=2, num_attention_heads=2,
+                                         global_attn_indexes=(1,), window_size=4, image_size=96,
+                                         output_channels=16, num_pos_feats=8),
+                         SamPromptEncoderConfig(hidden_size=16, image_size=96),
+                         SamMaskDecoderConfig(hidden_size=16, mlp_dim=32, num_attention_heads=2,
+                                              iou_head_hidden_dim=16))
+        sam_dir = save_sam_checkpoint(f"{tmp}/sam", seeded_sam_state(tiny, seed=1), tiny,
+                                      PreprocessorConfig(longest_edge=96, pad_height=96, pad_width=96))
+        stores = PromptSegmentor(model=SAM(sam_dir, device="cpu")).run(
+            [image[:120, :80]], point_coords=np.array([[[40, 50]]]), box_coords=np.array([[[10, 10, 70, 100]]]),
+            save_dir=f"{tmp}/prompt", device="cpu")
+        assert len(stores) == 1 and SQLiteStore(stores[0]) is not None
+
     leaked = sorted(n for n in sys.modules if n.split(".")[0] in BLOCKED)
     assert not leaked, leaked
     print("GUARDED_OK", len(names))
@@ -283,7 +306,9 @@ def test_no_top_level_import_of_refused_packages() -> None:
     import re
 
     pattern = re.compile(
-        r"^\s*(import|from) (jax|flax|cv2|yaml|PIL|sklearn|fsspec|matplotlib|tiatoolbox_tpu)\b", re.M
+        r"^\s*(import|from) (jax|flax|cv2|yaml|PIL|sklearn|fsspec|matplotlib|transformers|safetensors|"
+        r"huggingface_hub|tiatoolbox_tpu)\b",
+        re.M,
     )
     sources = [REPO / "chip_smoke.py", *sorted((REPO / "tiatoolbox_tpu_torch").rglob("*.py"))]
     offenders = [str(p) for p in sources if pattern.search(p.read_text())]

@@ -7,6 +7,8 @@ model (``vanilla.CNNModel`` over any of its 19 backbones, ``unet.UNetModel``, ``
 ``sccnn.SCCNN``, ``kongnet.KongNet``, ``grandqc.GrandQCModel``,
 ``efficientunet_tissue_mask_model.EfficientUNetTissueMaskModel`` or
 ``nuclick.NuClick``) and its ioconfig: every entry of the JAX registry.
+SAM is outside the registry: ``sam.SAM`` reads a transformers checkpoint
+directory.
 Without ``pretrained_weights`` it looks for a local checkpoint first
 (``fetch_pretrained_weights``, :21-43), in the JAX package's order: flax
 ``.npz``, then torch ``.pth`` and ``.tar`` ``state_dict``s. It never
@@ -153,5 +155,6 @@ from tiatoolbox_tpu_torch.models.architecture.efficientnet import (  # noqa: E40
     EfficientNetV2Encoder,
 )
 from tiatoolbox_tpu_torch.models.architecture.idars import IDaRS  # noqa: E402, F401
+from tiatoolbox_tpu_torch.models.architecture.sam import SAM  # noqa: E402, F401
 from tiatoolbox_tpu_torch.models.architecture.vanilla import CNNBackbone, CNNModel  # noqa: E402, F401
 from tiatoolbox_tpu_torch.models.architecture.vit import TimmBackbone, TimmModel, VisionTransformer  # noqa: E402, F401

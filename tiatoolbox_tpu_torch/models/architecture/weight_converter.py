@@ -39,6 +39,10 @@ their inverses: ``flax_kongnet_to_torch`` (``torch_kongnet_to_flax``
 ``flax_grandqc_to_torch`` (:719-797), ``flax_efficientunet_to_torch``
 (:640-716; ``efficientnet_pytorch``'s names) and ``flax_nuclick_to_torch``
 (:555-628; its transpose convolutions flipped back as MicroNet's).
+
+SAM's checkpoints are transformers' own (``SamModel``'s names, no flax
+tree): ``sam_state_dict_from_numpy`` carries the names as they are, and
+``load_sam_checkpoint`` reads a checkpoint directory into a ``SamNet``.
 """
 
 from __future__ import annotations
@@ -635,3 +639,45 @@ def load_flax_npz(path) -> dict:
                 node = node.setdefault(key, {})
             node[leaf] = data[flat_key]
     return tree
+
+
+_SAM_TIED = ("prompt_encoder.shared_embedding.positional_embedding", "shared_image_embedding.positional_embedding")
+
+
+def sam_state_dict_from_numpy(mapping: dict) -> dict[str, torch.Tensor]:
+    """transformers' ``SamModel`` names carried as they are into float32 CPU
+    tensors (numpy arrays or tensors in); the prompt encoder's Fourier
+    matrix is the model's, which ``save_pretrained`` leaves out of the file
+    (``SamModel._tie_weights``, ``modeling_sam.py:1130``)."""
+    state = {}
+    for name, value in mapping.items():
+        tensor = value.detach().cpu() if isinstance(value, torch.Tensor) else torch.from_numpy(np.array(value))
+        state[name] = tensor.float() if tensor.is_floating_point() else tensor
+    tied, shared = _SAM_TIED
+    if shared in state:
+        state[tied] = state[shared]
+    return state
+
+
+def load_sam_checkpoint(directory, device=None):
+    """The ``SamNet`` of a local checkpoint directory: ``config.json`` and
+    ``model.safetensors`` (else ``pytorch_model.bin``), loaded strictly.
+
+    Raises:
+        FileNotFoundError: no ``config.json`` or no weights file.
+        RuntimeError: a name missing from the file, or one the network lacks.
+    """
+    from pathlib import Path
+
+    from tiatoolbox_tpu_torch.models.architecture.sam import build_sam_net
+    from tiatoolbox_tpu_torch.models.architecture.sam_config import read_sam_config
+    from tiatoolbox_tpu_torch.utils.safetensors_lite import load_checkpoint_file
+
+    directory = Path(directory)
+    config = read_sam_config(directory)
+    for name in ("model.safetensors", "pytorch_model.bin"):
+        if (directory / name).is_file():
+            state = sam_state_dict_from_numpy(load_checkpoint_file(directory / name))
+            return build_sam_net(config, state, device)
+    msg = f"{directory} holds neither model.safetensors nor pytorch_model.bin."
+    raise FileNotFoundError(msg)

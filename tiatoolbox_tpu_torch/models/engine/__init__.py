@@ -14,3 +14,4 @@ from tiatoolbox_tpu_torch.models.engine.multi_task_segmentor import (  # noqa: F
 )
 from tiatoolbox_tpu_torch.models.engine.nucleus_detector import NucleusDetector  # noqa: F401, E402
 from tiatoolbox_tpu_torch.models.engine.deep_feature_extractor import DeepFeatureExtractor  # noqa: F401, E402
+from tiatoolbox_tpu_torch.models.engine.prompt_segmentor import PromptSegmentor  # noqa: F401, E402
