@@ -146,6 +146,21 @@ temporary directory, and drives the port's entry points on them:
   memory. No hand-written kernel is on this path (SAM is convolutions,
   matmuls, softmax, layer norms and interpolation: library calls, as in
   the reference's torch); the kernel counts are read and printed (all
+  zero);
+- "registration", whole-slide registration: phase A/B's slide read at 1.0
+  mpp (2048x1536) and cut to a section's outline is the fixed image; the
+  moving slide is it rotated 33 degrees and shifted (48, -36) px by the
+  port's OpenCV-exact warp, written as a deflate TIFF; prealignment on
+  the Otsu masks (the rotation found must lie within one 10 degree step
+  of the truth), DFBRegister.register with VGG16 (seeded, full width) on
+  the card, its features at 224^2 held against the CPU and the forward
+  timed, estimate_bspline_transform at JAX's defaults (42 x 32 controls,
+  200 steps) on the card with its first 10 steps held against the CPU,
+  then TransformedWSIReader: an identity read equal to the plain read,
+  and whole-slide reads through the affine and through the composed
+  field (MPix/s), each closer to the fixed image than the moving slide
+  (masked MSE). No hand-written kernel is on this path (VGG16 and the
+  B-spline step are library calls); the kernel counts are printed (all
   zero).
 
 Each phase prints one JSON line. The stain kernel is held against its plain
@@ -239,16 +254,26 @@ from tiatoolbox_tpu_torch.ops.stain import (  # noqa: E402
 )
 from tiatoolbox_tpu_torch.parallel import BatchLoader  # noqa: E402
 from tiatoolbox_tpu_torch.tools.patchextraction import get_patch_extractor  # noqa: E402
+from tiatoolbox_tpu_torch.tools.registration.wsi_registration import (  # noqa: E402
+    DFBRegister,
+    DFBRFeatureExtractor,
+    apply_affine_transformation,
+    estimate_bspline_transform,
+    prealignment,
+)
 from tiatoolbox_tpu_torch.tools.stainaugment import augment_tiles  # noqa: E402
 from tiatoolbox_tpu_torch.tools.stainnorm import get_normalizer  # noqa: E402
+from tiatoolbox_tpu_torch.tools.tissuemask import OtsuTissueMasker  # noqa: E402
 from tiatoolbox_tpu_torch.annotation.storage import SQLiteStore  # noqa: E402
 from tiatoolbox_tpu_torch.models.engine.engine_abc import OUTPUT_SUFFIXES  # noqa: E402
 from tiatoolbox_tpu_torch.utils.tiff_to_fsspec import tiff_to_fsspec  # noqa: E402
+from tiatoolbox_tpu_torch.utils.misc import rgb2gray_u8  # noqa: E402
 from tiatoolbox_tpu_torch.utils.transforms import imresize, shrink_linear_exact  # noqa: E402
+from tiatoolbox_tpu_torch.utils.warp import resize_linear, warp_affine  # noqa: E402
 from tiatoolbox_tpu_torch.utils.zarrlite import ZarrGroup, open_zarr  # noqa: E402
 from tiatoolbox_tpu_torch.wsicore import tiffio  # noqa: E402
 from tiatoolbox_tpu_torch.wsicore.jp2 import encode_tiled_j2k, jp2_container  # noqa: E402
-from tiatoolbox_tpu_torch.wsicore.store_reader import FsspecJsonWSIReader  # noqa: E402
+from tiatoolbox_tpu_torch.wsicore.store_reader import FsspecJsonWSIReader, TransformedWSIReader  # noqa: E402
 from tiatoolbox_tpu_torch.wsicore.wsireader import (  # noqa: E402
     DICOMWSIReader,
     JP2WSIReader,
@@ -4007,6 +4032,183 @@ def phase_sam(slide: Path, tmp: Path, card: str) -> None:
     shutil.rmtree(root)
 
 
+# -- whole-slide registration ---------------------------------------------------
+
+REG_MPP = 1.0  # phase A/B's 0.5 mpp slide read at half resolution: 2048x1536
+REG_ANGLE = 33.0  # degrees: the moving slide's known rotation about its centre
+REG_SHIFT = (48.0, -36.0)  # px: and its known shift
+REG_ROTATION_STEP = 10  # prealignment's search step (its default)
+REG_GRID_SPACE = 50.0  # px between B-spline control points: 42 x 32 controls
+REG_STEPS = 200
+REG_CPU_STEPS = 10  # steps held against the CPU
+REG_FIELD_TOL = 1e-3  # px, card against the CPU after REG_CPU_STEPS steps
+REG_FEATURE_TOL = 1e-4  # VGG16 features, card against the CPU, of their largest |feature|
+REG_VGG_REPS = 20
+REG_PHASE_LIMIT_S = 90.0  # twice the phase's budget
+
+
+def angle_of(transform: np.ndarray) -> float:
+    """The rotation of a 3x3 affine, in degrees."""
+    return float(np.degrees(np.arctan2(transform[1, 0], transform[0, 0])))
+
+
+def masked_mse(image: np.ndarray, reference: np.ndarray, mask: np.ndarray) -> float:
+    """Mean squared greyscale difference over ``mask``, on [0, 1]."""
+    a = rgb2gray_u8(image).astype(np.float64) / 255
+    b = rgb2gray_u8(reference).astype(np.float64) / 255
+    return float(((a - b) ** 2)[mask].mean())
+
+
+def composed_field(transform: np.ndarray, field: np.ndarray) -> np.ndarray:
+    """The fixed -> moving-slide displacement of an affine (moving -> fixed)
+    followed by a B-spline field on the affinely aligned image."""
+    h, w = field.shape[:2]
+    ys, xs = np.mgrid[0:h, 0:w].astype(np.float64)
+    qx, qy = xs + field[..., 0], ys + field[..., 1]
+    inv = np.linalg.inv(transform)
+    mx = inv[0, 0] * qx + inv[0, 1] * qy + inv[0, 2]
+    my = inv[1, 0] * qx + inv[1, 1] * qy + inv[1, 2]
+    return np.stack([mx - xs, my - ys], axis=-1).astype(np.float32)
+
+
+def rotation_about(centre: tuple[float, float], angle: float) -> np.ndarray:
+    """``cv2.getRotationMatrix2D(centre, angle, 1.0)``: a counter-clockwise
+    rotation by ``angle`` degrees about ``centre``."""
+    a, b = np.cos(np.radians(angle)), np.sin(np.radians(angle))
+    cx, cy = centre
+    return np.array([[a, b, (1 - a) * cx - b * cy], [-b, a, b * cx + (1 - a) * cy]])
+
+
+def tissue_section(image: np.ndarray) -> np.ndarray:
+    """``image`` inside a section's outline (an ellipse and an off-centre
+    lobe, so no rotation maps it onto itself), white glass outside: the
+    synthetic slide is tissue from edge to edge, which gives a rotation
+    search by mask overlap nothing to find."""
+    h, w = image.shape[:2]
+    ys, xs = np.mgrid[0:h, 0:w]
+    body = ((xs - 0.45 * w) / (0.3 * w)) ** 2 + ((ys - 0.52 * h) / (0.36 * h)) ** 2 <= 1
+    lobe = (xs - 0.72 * w) ** 2 + (ys - 0.3 * h) ** 2 <= (0.16 * h) ** 2
+    out = np.full_like(image, 255)
+    inside = body | lobe
+    out[inside] = image[inside]
+    return out
+
+
+def phase_registration(slide: Path, tmp: Path, card: str) -> None:
+    """Whole-slide registration of a pair made from phase A/B's slide (at
+    half resolution, cut to a section's outline): the moving slide is the
+    fixed one rotated and shifted by a known amount and written as a TIFF; prealignment, DFBR (VGG16 on the card) and the
+    B-spline optimisation on the card, then reads of the moving slide
+    through the affine and through the composed field."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    reset_all_counts()
+    stain_transform.launches = stain_augment.launches = 0
+    t0 = time.perf_counter()
+    root = tmp / "registration"
+    root.mkdir()
+    fixed = tissue_section(WSIReader.open(slide).read_bounds((0, 0, *SLIDE_WH), resolution=REG_MPP, units="mpp"))
+    h, w = fixed.shape[:2]
+    check((w, h) == (SLIDE_WH[0] // 2, SLIDE_WH[1] // 2), f"registration pair read as {fixed.shape}")
+    truth = np.eye(3)
+    truth[:2] = rotation_about((w / 2, h / 2), REG_ANGLE)
+    truth[:2, 2] += REG_SHIFT
+    moving = warp_affine(fixed, truth[:2], (w, h), border_value=255)
+    moving_path = root / "moving.tiff"
+    tiffio.TiffPyramidWriter(moving_path, tile_size=READER_TILE, mpp=(REG_MPP, REG_MPP), compression="deflate").write([moving])
+    fixed_mask = OtsuTissueMasker().fit_transform(fixed[None])[0]
+    moving_mask = OtsuTissueMasker().fit_transform(moving[None])[0]
+
+    t = time.perf_counter()
+    pre, pre_moving, _, pre_dice = prealignment(fixed, moving, fixed_mask, moving_mask, rotation_step=REG_ROTATION_STEP)
+    pre_s = time.perf_counter() - t
+    true_angle = angle_of(np.linalg.inv(truth))
+    angle_error = (angle_of(pre) - true_angle + 180) % 360 - 180
+    check(abs(angle_error) <= REG_ROTATION_STEP, f"prealignment rotation {angle_of(pre):.1f}, truth {true_angle:.1f}")
+
+    dfbr = DFBRegister(device=DEVICE)
+    t = time.perf_counter()
+    affine = dfbr.register(fixed, moving, fixed_mask, moving_mask, transform_initializer=pre)
+    if DEVICE != "cpu":
+        torch.cuda.synchronize()
+    dfbr_s = time.perf_counter() - t
+    check(bool(np.isfinite(affine).all()), "DFBR transform is not finite")
+    patch = resize_linear(fixed, (PATCH, PATCH))
+    cpu_feats = DFBRFeatureExtractor(device="cpu")(patch)
+    card_feats = dfbr._extractor(patch)
+    feature_err = max(float(np.abs(a - b).max() / np.abs(b).max()) for a, b in zip(card_feats, cpu_feats))
+    check(feature_err <= REG_FEATURE_TOL, f"VGG16 features differ from the CPU by {feature_err}")
+    x = torch.from_numpy(patch).to(DEVICE).permute(2, 0, 1)[None].float() / 255
+    with torch.inference_mode():
+        vgg_ms = time_ms(lambda: dfbr._extractor.model(x), REG_VGG_REPS)
+
+    aligned = apply_affine_transformation(fixed, moving, affine)
+    aligned_mask = apply_affine_transformation(fixed, moving_mask.astype(np.uint8), affine)
+    bspline = {"fixed_image": fixed, "moving_image": aligned, "fixed_mask": fixed_mask, "moving_mask": aligned_mask,
+               "grid_space": REG_GRID_SPACE}
+    card_head = estimate_bspline_transform(**bspline, n_iterations=REG_CPU_STEPS, device=DEVICE)
+    cpu_head = estimate_bspline_transform(**bspline, n_iterations=REG_CPU_STEPS, device="cpu")
+    field_err = float(np.abs(card_head - cpu_head).max())
+    check(field_err <= REG_FIELD_TOL, f"{REG_CPU_STEPS} B-spline steps differ from the CPU by {field_err} px")
+    t = time.perf_counter()
+    estimate_bspline_transform(**bspline, n_iterations=0, device=DEVICE)
+    setup_s = time.perf_counter() - t
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    field = estimate_bspline_transform(**bspline, n_iterations=REG_STEPS, device=DEVICE)
+    bspline_s = time.perf_counter() - t
+    peak = torch.cuda.max_memory_allocated()
+    check(field.shape == (h, w, 2) and bool(np.isfinite(field).all()), f"B-spline field {field.shape}")
+
+    # reads of the moving slide in the fixed frame
+    plain = WSIReader.open(moving_path)
+    identity = TransformedWSIReader(moving_path, np.eye(3))
+    check(
+        np.array_equal(identity.read_rect((300, 200), (1024, 768)), plain.read_rect((300, 200), (1024, 768))),
+        "an identity read differs from the plain read",
+    )
+    reads = {}
+    for name, transform in (("affine", affine), ("field", composed_field(affine, field))):
+        reader = TransformedWSIReader(moving_path, transform, fixed_info=plain.info)
+        t = time.perf_counter()
+        region = reader.read_rect((0, 0), (w, h))
+        seconds = time.perf_counter() - t
+        check(region.shape == fixed.shape, f"{name} read {region.shape}")
+        reads[name] = {"seconds": seconds, "mpix_per_s": w * h / 1e6 / seconds, "mse": masked_mse(region, fixed, fixed_mask)}
+    mse = {"moving": masked_mse(moving, fixed, fixed_mask), "prealigned": masked_mse(pre_moving, fixed, fixed_mask)}
+    check(mse["prealigned"] < mse["moving"], f"prealignment did not bring the pair closer: {mse}")
+    check(reads["field"]["mse"] < reads["affine"]["mse"], f"the B-spline field did not bring the pair closer: {reads}")
+    seconds = time.perf_counter() - t0
+    emit(
+        {
+            "phase": "registration",
+            "seconds": seconds,
+            "pair": [w, h],
+            "truth": {"angle": REG_ANGLE, "shift": list(REG_SHIFT)},
+            "prealignment": {"seconds": pre_s, "angle": angle_of(pre), "angle_error": angle_error, "dice": pre_dice},
+            "dfbr": {"seconds": dfbr_s, "angle": angle_of(affine), "vgg16_ms_224": vgg_ms,
+                     "features_rel_diff_cpu": feature_err},
+            "bspline": {
+                "controls": [int(np.ceil(h / REG_GRID_SPACE)) + 1, int(np.ceil(w / REG_GRID_SPACE)) + 1],
+                "steps": REG_STEPS,
+                "seconds": bspline_s,
+                "setup_seconds": setup_s,
+                "ms_per_step": (bspline_s - setup_s) * 1e3 / REG_STEPS,
+                f"field_max_abs_diff_cpu_{REG_CPU_STEPS}_steps": field_err,
+                "max_displacement": float(np.abs(field).max()),
+                "peak_bytes": peak,
+            },
+            "reads": reads,
+            "mse": mse,
+            "kernel_launches": {**all_counts(), "stain_transform": stain_transform.launches,
+                                "stain_augment": stain_augment.launches},
+            "card": card,
+        }
+    )
+    check(seconds <= REG_PHASE_LIMIT_S, f"the registration phase took {seconds:.1f} s")
+    shutil.rmtree(root)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; nothing was run.", file=sys.stderr)
@@ -4060,6 +4262,8 @@ def main() -> int:
         mark("jp2")
         phase_sam(slide, Path(tmp), card)
         mark("sam")
+        phase_registration(slide, Path(tmp), card)
+        mark("registration")
     # seconds since the start at the end of each group of phases
     emit({"phase": "timeline", "seconds_at_end": marks})
     # K2 to K4 run on phases C and D: their rows count both phases' launches

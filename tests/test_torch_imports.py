@@ -20,7 +20,8 @@ readers on the port's own codecs (MIRAX, JPEG DICOM, NGFF, an fsspec
 reference, a PNG slide, a tiled JPEG 2000 slide through the JPEG 2000
 codec's C++); then SAM from a checkpoint directory written with numpy
 (transformers, safetensors and huggingface_hub refused too) and
-PromptSegmentor with a point and a box.
+PromptSegmentor with a point and a box; then registration (prealignment,
+DFBR, B-spline steps, a read through the transform).
 """
 
 from __future__ import annotations
@@ -279,6 +280,24 @@ GUARDED_RUN = textwrap.dedent(
             [image[:120, :80]], point_coords=np.array([[[40, 50]]]), box_coords=np.array([[[10, 10, 70, 100]]]),
             save_dir=f"{tmp}/prompt", device="cpu")
         assert len(stores) == 1 and SQLiteStore(stores[0]) is not None
+
+        # registration: prealignment, DFBR and a few B-spline steps, then a
+        # read through the transform
+        from tiatoolbox_tpu_torch.tools.registration import (
+            DFBRegister, estimate_bspline_transform, prealignment)
+        from tiatoolbox_tpu_torch.utils.warp import warp_affine
+        from tiatoolbox_tpu_torch.wsicore.store_reader import TransformedWSIReader
+
+        fixed = np.full((128, 128, 3), 255, np.uint8)
+        fixed[24:104, 16:88] = image[24:104, 16:88]
+        rotation = np.array([[0.0, 1.0, 0.0], [-1.0, 0.0, 128.0]])
+        moving = warp_affine(fixed, rotation, (128, 128), border_value=255)
+        masks = [(img.min(axis=-1) < 250).astype(np.uint8) for img in (fixed, moving)]
+        pre, *_ = prealignment(fixed, moving, *masks)
+        affine = DFBRegister(patch_size=(64, 64), device="cpu").register(fixed, moving, transform_initializer=pre)
+        field = estimate_bspline_transform(fixed, moving, n_iterations=3, grid_space=32, device="cpu")
+        assert field.shape == (128, 128, 2) and np.isfinite(affine).all()
+        assert TransformedWSIReader(moving, affine).read_rect((0, 0), (64, 64)).shape == (64, 64, 3)
 
     leaked = sorted(n for n in sys.modules if n.split(".")[0] in BLOCKED)
     assert not leaked, leaked

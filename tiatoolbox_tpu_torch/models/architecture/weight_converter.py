@@ -40,6 +40,11 @@ their inverses: ``flax_kongnet_to_torch`` (``torch_kongnet_to_flax``
 (:640-716; ``efficientnet_pytorch``'s names) and ``flax_nuclick_to_torch``
 (:555-628; its transpose convolutions flipped back as MicroNet's).
 
+``flax_vgg_to_torch`` is the inverse of ``torch_vgg_to_flax`` (:221-232),
+and ``torchvision_vgg16_features`` takes a torchvision ``vgg16`` state dict's
+trunk by name, refusing other conv layouts as JAX's ``convert_for_model``
+does (:235-243).
+
 SAM's checkpoints are transformers' own (``SamModel``'s names, no flax
 tree): ``sam_state_dict_from_numpy`` carries the names as they are, and
 ``load_sam_checkpoint`` reads a checkpoint directory into a ``SamNet``.
@@ -597,6 +602,40 @@ def flax_nuclick_to_torch(variables: dict) -> dict[str, torch.Tensor]:
     the inverse of ``torch_nuclick_to_flax`` (JAX :555-628); the transpose
     convolutions' kernels are flipped back as MicroNet's are."""
     return _convert(variables, _nuclick_module_path, transposed=lambda module: module.startswith("conv_transpose"))
+
+
+def flax_vgg_to_torch(variables: dict) -> dict[str, torch.Tensor]:
+    """Convert flax ``VGG16Features`` variables (``conv{i}``) to torchvision's
+    ``features.{i}`` names: the inverse of ``torch_vgg_to_flax`` (JAX
+    :221-232)."""
+    return _convert(variables, lambda path: f"features.{path[0].removeprefix('conv')}")
+
+
+def torchvision_vgg16_features(state_dict: dict) -> dict[str, torch.Tensor]:
+    """The ``features.*`` conv weights of a torchvision ``vgg16`` state dict
+    (``module.`` prefixes stripped; ``classifier.*`` and other entries left
+    out), checked against VGG16's conv indices as JAX's ``convert_for_model``
+    gates on the target module (:235-243).
+
+    Raises:
+        ValueError: a VGG16 conv is missing, or the checkpoint has convs at
+            other indices (vgg19, vgg16_bn, ...).
+    """
+    from tiatoolbox_tpu_torch.models.architecture.vgg import VGG16_CONV_IDS
+
+    state = {k.removeprefix("module."): v for k, v in state_dict.items()}
+    found = {int(m.group(1)) for k in state if (m := re.fullmatch(r"features\.(\d+)\.weight", k))}
+    if found != set(VGG16_CONV_IDS):
+        msg = (
+            f"Not a torchvision vgg16 checkpoint: conv weights at features {sorted(found)}, "
+            f"VGG16's are at {list(VGG16_CONV_IDS)}."
+        )
+        raise ValueError(msg)
+    return {
+        f"features.{i}.{leaf}": torch.as_tensor(state[f"features.{i}.{leaf}"]).float()
+        for i in VGG16_CONV_IDS
+        for leaf in ("weight", "bias")
+    }
 
 
 def _convert(variables: dict, module_path, transposed=lambda module: False) -> dict[str, torch.Tensor]:

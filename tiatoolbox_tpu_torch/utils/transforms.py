@@ -10,9 +10,12 @@ copied as they are. ``imresize`` (:110) is written without OpenCV:
 - ``"area"`` at other factors averages with exact overlap weights and
   rounds half to even, which may differ from OpenCV by one level;
 - ``"nearest"`` reproduces ``INTER_NEAREST``;
-- ``"linear"`` and ``"cubic"`` go through ``torch.nn.functional.interpolate``
-  (half-pixel centres, the same cubic coefficient -0.75 as OpenCV) and may
-  differ from OpenCV by rounding.
+- ``"linear"`` goes through ``utils.warp.resize_linear``: bit for bit
+  with ``INTER_LINEAR`` on uint8 (OpenCV's 11-bit fixed point), within one
+  float32 rounding of it on float32 and 1e-13 on float64;
+- ``"linear"`` on other types (int16, uint16) and ``"cubic"`` go through
+  ``torch.nn.functional.interpolate`` (half-pixel centres, the same cubic
+  coefficient -0.75 as OpenCV) and may differ from OpenCV by rounding.
 
 ``shrink_linear_exact`` is OpenCV's fixed-point ``INTER_LINEAR_EXACT`` for
 uint8 images, bit for bit: what ``cv2.IMREAD_REDUCED_*`` gives for a JPEG
@@ -24,6 +27,8 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+
+from tiatoolbox_tpu_torch.utils.warp import resize_linear
 
 _INTERPOLATIONS = ("nearest", "linear", "area", "cubic")
 
@@ -211,6 +216,8 @@ def imresize(
         return _resize_nearest(img, out_w, out_h)
     if interpolation == "area" and out_w <= img.shape[1] and out_h <= img.shape[0]:
         return _resize_area(img, out_w, out_h)
+    if interpolation == "linear" and img.dtype in (np.uint8, np.float32, np.float64):
+        return resize_linear(img, (out_w, out_h))
     mode = "bicubic" if interpolation == "cubic" else "bilinear"
     return _resize_torch(img, out_w, out_h, mode)
 

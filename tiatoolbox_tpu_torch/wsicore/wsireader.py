@@ -21,10 +21,12 @@ dispatches on the input as JAX's does. Concrete readers:
   ``DICOMWSIReader`` (:1211, ``wsicore/dicom.py``), ``ZarrWSIReader``
   (:1252, on the port's ``utils/zarrlite.py``) and ``NGFFWSIReader``
   (:1295);
-- ``FsspecJsonWSIReader`` in ``wsicore/store_reader.py``.
+- ``FsspecJsonWSIReader`` and ``TransformedWSIReader`` (a slide read
+  through a registration transform) in ``wsicore/store_reader.py``.
 
 ``.db`` annotation stores (``AnnotationStoreReader``) wait for ``ROADMAP.md``
-section 1 item 4: ``open`` raises ``FileNotSupportedError`` naming it.
+section 1 item 4 (rendering): ``open`` raises ``FileNotSupportedError``
+naming it.
 """
 
 from __future__ import annotations
