@@ -161,7 +161,28 @@ temporary directory, and drives the port's entry points on them:
   field (MPix/s), each closer to the fixed image than the moving slide
   (masked MSE). No hand-written kernel is on this path (VGG16 and the
   B-spline step are library calls); the kernel counts are printed (all
-  zero).
+  zero);
+- "render", results drawn on the host by the port's C++ rasteriser
+  (csrc/raster.cpp, cv2's LINE_8 drawing): the golden set
+  tiatoolbox_tpu_torch/data/raster_golden.npz (cv2's draws, blurs and
+  colour maps) replayed bit for bit; phase D's run store (2,388 instances)
+  opened with WSIReader.open(".db") over D's slide at alpha 0.5, a 2048^2
+  region and the thumbnail read; D's AnnotationTileGenerator pyramid (5
+  levels, 257 tiles of 256^2) dumped to a .zip, a few tiles read back
+  through the port's JPEG decoder and held to the encoder's bytes of
+  get_tile; C's run store (about 235,000 polygons) rendered at its
+  pyramid's coarsest level (decimated) and as 16 baseline tiles;
+  overlay_prediction_mask and overlay_probability_map over C's
+  thumbnail-scale prediction; a D tile read through AnnotationStoreReader
+  without a base equal to get_tile composited onto white; tiles/s, MPix/s,
+  polygons/s and each step's seconds;
+- "graph", the card then the host: PatchPredictor (seeded resnet18) over
+  KatherPatchDataset's 128-patch synthetic stand-in in patch mode, its
+  first patches against the CPU; SlideGraphConstructor.build over the
+  "features" phase's resnet50 features and positions on phase A/B's slide,
+  node colours from _umap_reducer, plot_graph onto the slide's thumbnail,
+  and the golden graph (clusters and edge_index of the JAX package) rebuilt
+  equal. Neither phase launches a hand-written kernel.
 
 Each phase prints one JSON line. The stain kernel is held against its plain
 PyTorch version on the card (main-path batch, all 2^24 RGB colours, ragged
@@ -199,6 +220,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import zipfile
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
@@ -265,6 +287,18 @@ from tiatoolbox_tpu_torch.tools.stainaugment import augment_tiles  # noqa: E402
 from tiatoolbox_tpu_torch.tools.stainnorm import get_normalizer  # noqa: E402
 from tiatoolbox_tpu_torch.tools.tissuemask import OtsuTissueMasker  # noqa: E402
 from tiatoolbox_tpu_torch.annotation.storage import SQLiteStore  # noqa: E402
+from tiatoolbox_tpu_torch.data.render_golden import check_graph_golden, check_raster_golden  # noqa: E402
+from tiatoolbox_tpu_torch.models.dataset.info import KatherPatchDataset  # noqa: E402
+from tiatoolbox_tpu_torch.tools.graph import SlideGraphConstructor  # noqa: E402
+from tiatoolbox_tpu_torch.tools.pyramid import AnnotationTileGenerator  # noqa: E402
+from tiatoolbox_tpu_torch.utils.imagecodec import imdecode  # noqa: E402
+from tiatoolbox_tpu_torch.utils.transforms import background_composite  # noqa: E402
+from tiatoolbox_tpu_torch.utils.visualization import (  # noqa: E402
+    AnnotationRenderer,
+    overlay_prediction_mask,
+    overlay_probability_map,
+    plot_graph,
+)
 from tiatoolbox_tpu_torch.models.engine.engine_abc import OUTPUT_SUFFIXES  # noqa: E402
 from tiatoolbox_tpu_torch.utils.tiff_to_fsspec import tiff_to_fsspec  # noqa: E402
 from tiatoolbox_tpu_torch.utils.misc import rgb2gray_u8  # noqa: E402
@@ -273,7 +307,11 @@ from tiatoolbox_tpu_torch.utils.warp import resize_linear, warp_affine  # noqa: 
 from tiatoolbox_tpu_torch.utils.zarrlite import ZarrGroup, open_zarr  # noqa: E402
 from tiatoolbox_tpu_torch.wsicore import tiffio  # noqa: E402
 from tiatoolbox_tpu_torch.wsicore.jp2 import encode_tiled_j2k, jp2_container  # noqa: E402
-from tiatoolbox_tpu_torch.wsicore.store_reader import FsspecJsonWSIReader, TransformedWSIReader  # noqa: E402
+from tiatoolbox_tpu_torch.wsicore.store_reader import (  # noqa: E402
+    AnnotationStoreReader,
+    FsspecJsonWSIReader,
+    TransformedWSIReader,
+)
 from tiatoolbox_tpu_torch.wsicore.wsireader import (  # noqa: E402
     DICOMWSIReader,
     JP2WSIReader,
@@ -2073,6 +2111,8 @@ def phase_outputs(tmp: Path, card: str) -> None:
     ran_rows = store_rows(ran)
     check(abs(len(ran_rows) - len(rows)) <= 0.005 * len(rows),
           f"C run's store holds {len(ran_rows)} polygons, save_predictions' {len(rows)}")
+    KEPT["render"] = {"C_store": Path(ran), "C_slide": slide, "C_predictions": result["predictions"],
+                      "C_probabilities": result["probabilities"][..., 1]}
     line["C"] = {
         "polygons": len(rows), "classes": sorted(classes), "scale_factor": list(scale),
         "writers": timing(written), "zarr_read_seconds": zarr_read_seconds,
@@ -2102,6 +2142,7 @@ def phase_outputs(tmp: Path, card: str) -> None:
     check(run_counts["pack_fg_tp"] > 0 and run_counts["hv_energy"] > 0, f"D run launches {run_counts}")
     ran_n = len(store_rows(ran))
     check(ran_n == n, f"D run's store holds {ran_n} instances, run 1 kept {n}")
+    KEPT["render"].update(D_store=Path(ran), D_slide=slide, D_instances=n)
     line["D"] = {
         "instances": n, "scale_factor": list(scale), "writers": timing(written),
         "run_annotationstore": {"seconds": run_seconds, "instances": ran_n, "launches": run_counts},
@@ -2755,6 +2796,7 @@ def feature_run(model, slide: Path, ioconfig, first: np.ndarray, expected: WSIPa
     peak = int(torch.cuda.max_memory_allocated())
     group = open_zarr(written)
     features, coords = group["features"][:], group["coordinates"][:]
+    KEPT.setdefault("features", {"path": Path(written), "model": model.backbone})
     check(np.array_equal(features, engine.kept["features"]), "zarr features read back equal")
     check(np.array_equal(coords, engine.kept["coordinates"]), "zarr coordinates read back equal")
     check(features.shape == (len(expected), model.num_features), f"features shape {features.shape}")
@@ -4209,6 +4251,239 @@ def phase_registration(slide: Path, tmp: Path, card: str) -> None:
     shutil.rmtree(root)
 
 
+# -- rendering and tiles, the slide graph ---------------------------------------
+
+RENDER_ALPHA = 0.5
+RENDER_REGION = 2048  # D's store over D's slide: one 2048^2 read at baseline
+RENDER_TILE = 256
+D_PYRAMID_LEVELS = 5  # 4096x3072 in tiles of 256^2: 16 x 12, 8 x 6, 4 x 3, 2 x 2, 1
+D_PYRAMID_TILES = 257
+RENDER_READBACK = ((4, 8, 6), (3, 4, 3), (2, 1, 1), (0, 0, 0))  # (level, x, y) read back from the zip
+RENDER_JPEG_PSNR_FLOOR_DB = 25.0  # a Q 95 tile of flat colours, thin edges and chroma subsampling
+C_BASELINE_BLOCK = 4  # a 4 x 4 block of C's baseline tiles at the slide's centre
+THUMB_DOWNSAMPLE = 16  # C's thumbnail-scale prediction: 384 x 288
+GRAPH_THUMB_DOWNSAMPLE = 8  # phase A/B's slide: 512 x 384
+
+
+class CountingRenderer(AnnotationRenderer):
+    """The default renderer, counting the geometries it draws."""
+
+    def __init__(self, **kwargs) -> None:
+        super().__init__(**kwargs)
+        self.drawn = 0
+
+    def _draw_geometry(self, canvas, geom, origin, sf, color) -> None:
+        self.drawn += 1
+        super()._draw_geometry(canvas, geom, origin, sf, color)
+
+
+def psnr_db(a: np.ndarray, b: np.ndarray) -> float:
+    mse = float(np.mean((a.astype(np.float64) - b) ** 2))
+    return float("inf") if mse == 0 else 10 * np.log10(255.0**2 / mse)
+
+
+def phase_render(tmp: Path, card: str) -> None:
+    """Stores as slides and tile pyramids, drawn by the port's host rasteriser."""
+    kept = KEPT.pop("render")
+    t_start = time.perf_counter()
+    line: dict = {"phase": "render"}
+
+    t0 = time.perf_counter()
+    line["golden"] = {"arrays": check_raster_golden(), "seconds": time.perf_counter() - t0}
+
+    # D's store over D's slide, through WSIReader.open
+    t0 = time.perf_counter()
+    reader = WSIReader.open(kept["D_store"], base_wsi=kept["D_slide"], alpha=RENDER_ALPHA)
+    check(isinstance(reader, AnnotationStoreReader), f"WSIReader.open(.db) gave {type(reader).__name__}")
+    check(tuple(reader.info.slide_dimensions) == INST_SLIDE_WH, f"store reader dims {reader.info.slide_dimensions}")
+    open_seconds = time.perf_counter() - t0
+    x0, y0 = (INST_SLIDE_WH[0] - RENDER_REGION) // 2, (INST_SLIDE_WH[1] - RENDER_REGION) // 2
+    t0 = time.perf_counter()
+    region = reader.read_rect((x0, y0), (RENDER_REGION, RENDER_REGION))
+    region_seconds = time.perf_counter() - t0
+    base = WSIReader.open(kept["D_slide"]).read_rect((x0, y0), (RENDER_REGION, RENDER_REGION))
+    check(region.shape == base.shape == (RENDER_REGION, RENDER_REGION, 3) and region.dtype == np.uint8,
+          f"region {region.shape} {region.dtype}")
+    tinted = float(np.any(region != base, axis=-1).mean())
+    check(0.01 < tinted < 0.99, f"the overlay changes {tinted} of the region's pixels")
+    t0 = time.perf_counter()
+    thumb = reader.slide_thumbnail()
+    thumb_seconds = time.perf_counter() - t0
+    check(thumb.ndim == 3 and thumb.shape[2] == 3 and thumb.size > 0, f"thumbnail {thumb.shape}")
+    line["store_reader"] = {
+        "instances": kept["D_instances"], "open_seconds": open_seconds,
+        "region": [RENDER_REGION, RENDER_REGION], "region_seconds": region_seconds,
+        "region_mpix_per_s": RENDER_REGION**2 / 1e6 / region_seconds, "tinted_share": tinted,
+        "thumbnail": list(thumb.shape), "thumbnail_seconds": thumb_seconds,
+    }
+
+    # D's annotation pyramid to a zip, tiles read back through the port's decoder
+    renderer = CountingRenderer()
+    gen = AnnotationTileGenerator(reader.info, reader.store, renderer=renderer, tile_size=RENDER_TILE)
+    n_tiles = sum(int(np.prod(gen.tile_grid_size(level))) for level in range(gen.level_count))
+    check(gen.level_count == D_PYRAMID_LEVELS and n_tiles == D_PYRAMID_TILES,
+          f"D pyramid {gen.level_count} levels, {n_tiles} tiles")
+    archive = tmp / "d_pyramid.zip"
+    t0 = time.perf_counter()
+    gen.dump(archive, container="zip")
+    dump_seconds = time.perf_counter() - t0
+    drawn = renderer.drawn
+    readback = []
+    with zipfile.ZipFile(archive) as zf:
+        check(len(zf.namelist()) == D_PYRAMID_TILES, f"zip holds {len(zf.namelist())} tiles")
+        for level, x, y in RENDER_READBACK:
+            data = zf.read(str(gen.tile_path(level, x, y)))
+            tile = gen.get_tile(level, x, y)
+            check(data == native.encode_jpeg(tile[..., :3], 95), f"tile {level}/{x}_{y} is not the encoder's bytes")
+            decoded = imdecode(data)
+            check(decoded.shape == (RENDER_TILE, RENDER_TILE, 3), f"decoded tile {decoded.shape}")
+            psnr = psnr_db(decoded, tile[..., :3])
+            check(psnr >= RENDER_JPEG_PSNR_FLOOR_DB, f"tile {level}/{x}_{y} decodes at {psnr} dB")
+            readback.append({"tile": [level, x, y], "bytes": len(data), "psnr_db": psnr,
+                             "opaque_share": float((tile[..., 3] > 0).mean())})
+    check(any(r["opaque_share"] > 0 for r in readback), "every read-back tile is empty")
+    line["d_pyramid"] = {
+        "levels": gen.level_count, "tiles": n_tiles, "seconds": dump_seconds,
+        "tiles_per_s": n_tiles / dump_seconds, "mpix_per_s": n_tiles * RENDER_TILE**2 / 1e6 / dump_seconds,
+        "geometries_drawn": drawn, "polygons_per_s": drawn / dump_seconds,
+        "zip_bytes": archive.stat().st_size, "readback": readback,
+    }
+
+    # the reader without a base gives the generator's tile composited onto
+    # white (one renderer for both: categorical colours go by first sight)
+    bare = AnnotationStoreReader(kept["D_store"], info=reader.info, renderer=renderer)
+    top = gen.level_count - 1
+    for x, y in ((8, 6), (3, 2), (15, 11)):
+        want = background_composite(gen.get_tile(top, x, y), alpha=False)
+        got = bare.read_rect((x * RENDER_TILE, y * RENDER_TILE), (RENDER_TILE, RENDER_TILE))
+        check(np.array_equal(got, want), f"store reader tile ({x}, {y}) differs from the generator's")
+
+    # C's store: the coarsest level (decimated) and 16 baseline tiles
+    c_reader = WSIReader.open(kept["C_slide"])
+    c_store = SQLiteStore(kept["C_store"])
+    c_renderer = CountingRenderer()
+    c_gen = AnnotationTileGenerator(c_reader.info, c_store, renderer=c_renderer, tile_size=RENDER_TILE)
+    coarse_scale = 2 ** (c_gen.level_count - 1)
+    check(coarse_scale > c_renderer.max_scale, f"C's coarsest scale {coarse_scale} is not decimated")
+    t0 = time.perf_counter()
+    coarse = c_gen.get_tile(0, 0, 0)
+    coarse_seconds = time.perf_counter() - t0
+    coarse_drawn = c_renderer.drawn
+    # decimated: only polygons of 0.05 % of the slide's square or more are drawn
+    check(coarse.shape == (RENDER_TILE, RENDER_TILE, 4), f"C's coarsest tile {coarse.shape}")
+    top = c_gen.level_count - 1
+    gw, gh = c_gen.tile_grid_size(top)
+    xs = range(gw // 2 - C_BASELINE_BLOCK // 2, gw // 2 + C_BASELINE_BLOCK // 2)
+    ys = range(gh // 2 - C_BASELINE_BLOCK // 2, gh // 2 + C_BASELINE_BLOCK // 2)
+    c_renderer.drawn = 0
+    t0 = time.perf_counter()
+    tiles = [c_gen.get_tile(top, x, y) for y in ys for x in xs]
+    tiles_seconds = time.perf_counter() - t0
+    check(len(tiles) == C_BASELINE_BLOCK**2 and any(t[..., 3].any() for t in tiles), "C's baseline tiles are empty")
+    line["c_store"] = {
+        "coarsest": {"scale": coarse_scale, "seconds": coarse_seconds, "geometries_drawn": coarse_drawn,
+                     "opaque_share": float((coarse[..., 3] > 0).mean())},
+        "baseline_tiles": {"tiles": len(tiles), "seconds": tiles_seconds, "tiles_per_s": len(tiles) / tiles_seconds,
+                           "mpix_per_s": len(tiles) * RENDER_TILE**2 / 1e6 / tiles_seconds,
+                           "geometries_drawn": c_renderer.drawn, "polygons_per_s": c_renderer.drawn / tiles_seconds},
+    }
+
+    # overlays on C's thumbnail-scale prediction
+    w, h = c_reader.info.slide_dimensions
+    t0 = time.perf_counter()
+    c_thumb = c_reader.read_bounds((0, 0, w, h), resolution=1 / THUMB_DOWNSAMPLE, units="baseline")
+    size = (c_thumb.shape[1], c_thumb.shape[0])
+    pred = imresize(np.ascontiguousarray(kept["C_predictions"], np.uint8), output_size=size, interpolation="nearest")
+    prob = imresize(np.ascontiguousarray(kept["C_probabilities"], np.float32), output_size=size, interpolation="nearest")
+    mask_overlay = overlay_prediction_mask(c_thumb, pred, alpha=0.35)
+    prob_overlay = overlay_probability_map(c_thumb, prob, alpha=0.35, min_val=0.1)
+    overlay_seconds = time.perf_counter() - t0
+    fg = pred > 0
+    check(mask_overlay.shape == prob_overlay.shape == c_thumb.shape, f"overlays {mask_overlay.shape}")
+    check(np.array_equal(mask_overlay[~fg], c_thumb[~fg]), "overlay_prediction_mask tinted class 0")
+    check(not fg.any() or bool(np.any(mask_overlay[fg] != c_thumb[fg])), "overlay_prediction_mask tinted nothing")
+    check(np.array_equal(prob_overlay[prob < 0.1], c_thumb[prob < 0.1]), "overlay_probability_map below min_val")
+    line["overlays"] = {"thumbnail": list(c_thumb.shape), "seconds": overlay_seconds,
+                        "foreground_share": float(fg.mean())}
+    c_store.close()
+    line["seconds"] = time.perf_counter() - t_start
+    line["card"] = card
+    emit(line)
+
+
+def phase_graph(slide: Path, tmp: Path, card: str) -> None:
+    """PatchPredictor over the Kather stand-in; the slide graph of the features
+    phase's resnet50 features, coloured by UMAP and drawn on the thumbnail."""
+    kept = KEPT.pop("features")
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t_start = time.perf_counter()
+    line: dict = {"phase": "graph"}
+
+    t0 = time.perf_counter()
+    dataset = KatherPatchDataset(tmp / "kather100k")  # no such directory: the synthetic stand-in
+    stand_in_seconds = time.perf_counter() - t0
+    images = np.asarray(dataset.inputs)
+    check(images.shape == (128, PATCH, PATCH, 3) and len(dataset.labels) == 128, f"stand-in {images.shape}")
+    model = CNNModel("resnet18", num_classes=9, seed=0)
+    calibrate_batch_norm(model, images[:BATCH])
+    reset_all_counts()
+    t0 = time.perf_counter()
+    out = PatchPredictor(model=model, batch_size=BATCH, verbose=False).run(images, patch_mode=True)
+    predict_seconds = time.perf_counter() - t0
+    probs = out["probabilities"]
+    check(probs.shape == (128, 9) and bool(np.isfinite(probs).all()), f"stand-in probabilities {probs.shape}")
+    check(np.array_equal(out["predictions"], probs.argmax(axis=1)), "stand-in predictions")
+    cpu_model = CNNModel("resnet18", num_classes=9, device="cpu")
+    cpu_model.load_state_dict(model.state_dict())
+    cpu_err = float(np.abs(CNNModel.infer_batch(cpu_model, images[:4]) - probs[:4]).max())
+    check(cpu_err <= 1e-3, f"stand-in card vs CPU probabilities {cpu_err} > 1e-3")
+    line["kather_stand_in"] = {
+        "patches": len(images), "build_seconds": stand_in_seconds, "predict_seconds": predict_seconds,
+        "patches_per_s": len(images) / predict_seconds, "cpu_max_abs_diff": cpu_err,
+        "agreement_with_labels": float(np.mean(out["predictions"] == np.asarray(dataset.labels))),
+        "launches": all_counts(),
+    }
+    del model, cpu_model
+    torch.cuda.empty_cache()
+
+    group = open_zarr(kept["path"])
+    features, coords = group["features"][:], group["coordinates"][:]
+    check(len(features) == PREDICT_PATCHES, f"{len(features)} feature rows, not {PREDICT_PATCHES}")
+    points = (coords[:, :2] + coords[:, 2:]) / 2
+    t0 = time.perf_counter()
+    graph = SlideGraphConstructor.build(points, features)
+    build_seconds = time.perf_counter() - t0
+    n, edges = len(graph["x"]), graph["edge_index"]
+    check(edges.ndim == 2 and edges.shape[0] == 2 and edges.shape[1] > 0, f"edge_index {edges.shape}")
+    check(int(edges.max()) < n and graph["coordinates"].shape == (n, 2), "edges index the clusters")
+    t0 = time.perf_counter()
+    colours = SlideGraphConstructor._umap_reducer(graph)
+    umap_seconds = time.perf_counter() - t0
+    check(colours.shape == (n, 3) and bool(np.isfinite(colours).all()), f"UMAP colours {colours.shape}")
+    check(float(colours.min()) >= 0 and float(colours.max()) <= 1, "UMAP colours outside [0, 1]")
+    w, h = SLIDE_WH
+    thumb = WSIReader.open(slide).read_bounds((0, 0, w, h), resolution=1 / GRAPH_THUMB_DOWNSAMPLE, units="baseline")
+    canvas = np.ascontiguousarray(thumb.copy())
+    t0 = time.perf_counter()
+    plot_graph(canvas, graph["coordinates"][:, ::-1] / GRAPH_THUMB_DOWNSAMPLE, edges.T,
+               node_colors=[tuple(int(v) for v in c) for c in (colours * 255).astype(np.uint8)],
+               node_size=4, edge_size=1)
+    plot_seconds = time.perf_counter() - t0
+    check(bool(np.any(canvas != thumb)), "plot_graph drew nothing")
+    t0 = time.perf_counter()
+    golden = check_graph_golden()
+    line["slide_graph"] = {
+        "features": [int(d) for d in features.shape], "model": kept["model"], "clusters": n,
+        "edges": int(edges.shape[1]), "build_seconds": build_seconds, "umap_seconds": umap_seconds,
+        "plot_seconds": plot_seconds, "thumbnail": list(thumb.shape),
+        "golden": {**golden, "seconds": time.perf_counter() - t0},
+    }
+    line["seconds"] = time.perf_counter() - t_start
+    line["card"] = card
+    emit(line)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; nothing was run.", file=sys.stderr)
@@ -4264,6 +4539,10 @@ def main() -> int:
         mark("sam")
         phase_registration(slide, Path(tmp), card)
         mark("registration")
+        phase_render(Path(tmp), card)
+        mark("render")
+        phase_graph(slide, Path(tmp), card)
+        mark("graph")
     # seconds since the start at the end of each group of phases
     emit({"phase": "timeline", "seconds_at_end": marks})
     # K2 to K4 run on phases C and D: their rows count both phases' launches

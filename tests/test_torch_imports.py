@@ -21,7 +21,11 @@ reference, a PNG slide, a tiled JPEG 2000 slide through the JPEG 2000
 codec's C++); then SAM from a checkpoint directory written with numpy
 (transformers, safetensors and huggingface_hub refused too) and
 PromptSegmentor with a point and a box; then registration (prealignment,
-DFBR, B-spline steps, a read through the transform).
+DFBR, B-spline steps, a read through the transform); then rendering (an
+annotation store opened as a slide over the slide, an annotation pyramid
+to a zip and a Zoomify pyramid to a tar through the rasteriser's C++, an
+overlay written as PNG and JPEG, the golden sets replayed), the slide
+graph with UMAP colours drawn by ``plot_graph``, and the Kather stand-in.
 """
 
 from __future__ import annotations
@@ -298,6 +302,38 @@ GUARDED_RUN = textwrap.dedent(
         field = estimate_bspline_transform(fixed, moving, n_iterations=3, grid_space=32, device="cpu")
         assert field.shape == (128, 128, 2) and np.isfinite(affine).all()
         assert TransformedWSIReader(moving, affine).read_rect((0, 0), (64, 64)).shape == (64, 64, 3)
+
+        # rendering and tiles (the rasteriser's C++), the slide graph, UMAP, Kather info
+        from tiatoolbox_tpu_torch.annotation.geometry import Point, Polygon
+        from tiatoolbox_tpu_torch.annotation.storage import Annotation, SQLiteStore
+        from tiatoolbox_tpu_torch.data.render_golden import check_graph_golden, check_raster_golden
+        from tiatoolbox_tpu_torch.models.dataset.info import KatherPatchDataset
+        from tiatoolbox_tpu_torch.tools.graph import SlideGraphConstructor
+        from tiatoolbox_tpu_torch.tools.pyramid import AnnotationTileGenerator, ZoomifyGenerator
+        from tiatoolbox_tpu_torch.utils.misc import imwrite
+        from tiatoolbox_tpu_torch.utils.visualization import overlay_probability_map, plot_graph
+
+        store = SQLiteStore(f"{tmp}/render.db")
+        store.append(Annotation(Polygon([(10, 10), (300, 40), (200, 300)]), {"type": 1}))
+        store.append(Annotation(Point(400, 200), {"type": 2}))
+        store.commit()
+        store.close()
+        over = WSIReader.open(f"{tmp}/render.db", base_wsi=slide, alpha=0.5)
+        assert type(over).__name__ == "AnnotationStoreReader"
+        assert over.read_rect((0, 0), (128, 128)).shape == (128, 128, 3)
+        AnnotationTileGenerator(reader.info, over.store).dump(f"{tmp}/tiles.zip", container="zip")
+        ZoomifyGenerator(reader, tile_size=128).dump(f"{tmp}/zoomify.tar", container="tar")
+        heat = overlay_probability_map(reader.slide_thumbnail(resolution=5, units="power"),
+                                       np.full(reader.slide_thumbnail(resolution=5, units="power").shape[:2], 0.5))
+        imwrite(f"{tmp}/heat.png", heat)
+        imwrite(f"{tmp}/heat.jpg", heat)
+        assert check_raster_golden() > 0 and check_graph_golden()["edges"] > 0
+        rng = np.random.default_rng(0)
+        graph = SlideGraphConstructor.build(rng.uniform(0, 4000, (40, 2)), rng.random((40, 8)))
+        colours = SlideGraphConstructor._umap_reducer(graph)
+        plot_graph(np.zeros((64, 64, 3), np.uint8), graph["coordinates"] / 64, graph["edge_index"].T,
+                   node_colors=[tuple(int(v) for v in c) for c in colours * 255])
+        assert KatherPatchDataset(f"{tmp}/no_kather")[0]["image"].shape == (224, 224, 3)
 
     leaked = sorted(n for n in sys.modules if n.split(".")[0] in BLOCKED)
     assert not leaked, leaked

@@ -1,0 +1,206 @@
+"""``tools/pyramid.py``: the port's tile pyramids against the JAX package.
+
+Tolerance: none. On a seeded synthetic slide (1024 x 768, and a ragged
+1000 x 700) and a seeded annotation store, every tile of every level, with
+and without overlap, at ``res`` 1 and 2, with each ``pad_mode`` and
+``interpolation`` JAX's tests use, equals JAX's; the level and grid
+arithmetic and the Zoomify tile groups and paths are JAX's; ``dump`` to a
+directory, a ``.zip`` and a ``.tar`` writes the same members with the same
+JPEG bytes (the port's encoder gives ``cv2.imencode``'s stream). The one
+exception is the thumbnail tile where the slide does not shrink to it by an
+integer factor: ``imresize`` shrinks it with OpenCV's cubic, where the port
+is within one level of cv2 on sums that lie within about 4e-4 of a half.
+"""
+
+from __future__ import annotations
+
+import tarfile
+import zipfile
+
+import numpy as np
+import pytest
+
+from tiatoolbox_tpu.annotation import geometry as jax_geometry
+from tiatoolbox_tpu.annotation import storage as jax_storage
+from tiatoolbox_tpu.data.synth import synthetic_he_patch
+from tiatoolbox_tpu.tools import pyramid as jax_pyramid
+from tiatoolbox_tpu.utils import visualization as jax_vis
+from tiatoolbox_tpu.wsicore import wsimeta as jax_wsimeta
+from tiatoolbox_tpu.wsicore import wsireader as jax_wsireader
+from tiatoolbox_tpu_torch.annotation import geometry as port_geometry
+from tiatoolbox_tpu_torch.annotation import storage as port_storage
+from tiatoolbox_tpu_torch.tools import pyramid as port_pyramid
+from tiatoolbox_tpu_torch.utils import visualization as port_vis
+from tiatoolbox_tpu_torch.wsicore import wsimeta as port_wsimeta
+from tiatoolbox_tpu_torch.wsicore import wsireader as port_wsireader
+
+SIZES = [(1024, 768), (1000, 700)]
+
+
+def _info(meta, w: int, h: int):
+    return meta.WSIMeta(
+        slide_dimensions=(w, h),
+        axes="YXS",
+        level_dimensions=[(w, h)],
+        level_downsamples=[1.0],
+        mpp=(0.5, 0.5),
+        objective_power=20,
+        raw={},
+    )
+
+
+def _readers(w: int, h: int):
+    img = synthetic_he_patch((w, h), seed=3)
+    return (
+        jax_wsireader.VirtualWSIReader(img, info=_info(jax_wsimeta, w, h)),
+        port_wsireader.VirtualWSIReader(img, info=_info(port_wsimeta, w, h)),
+    )
+
+
+def _store(geometry, storage):
+    rng = np.random.default_rng(5)
+    store = storage.DictionaryStore()
+    for i in range(120):
+        cx, cy = rng.uniform(0, 1024, 2)
+        ang = np.sort(rng.uniform(0, 2 * np.pi, 8))
+        shell = np.stack([cx + 20 * np.cos(ang), cy + 20 * np.sin(ang)], 1)
+        store.append(storage.Annotation(geometry.Polygon(shell), {"type": i % 3}), key=f"p{i}")
+    store.append(storage.Annotation(geometry.Point(500, 400), {"type": 9}), key="pt")
+    store.append(storage.Annotation(geometry.Polygon.from_bounds(0, 0, 900, 700), {"type": 7}), key="big")
+    return store
+
+
+def _all_tiles(gen, **kwargs):
+    for level in range(gen.level_count):
+        gw, gh = gen.tile_grid_size(level)
+        for y in range(gh):
+            for x in range(gw):
+                yield (level, x, y), gen.get_tile(level, x, y, **kwargs)
+
+
+@pytest.mark.parametrize("size", SIZES)
+@pytest.mark.parametrize("overlap", [0, 3])
+def test_tiles_and_geometry(size, overlap: int) -> None:
+    jax_wsi, port_wsi = _readers(*size)
+    jax_gen = jax_pyramid.TilePyramidGenerator(jax_wsi, tile_size=256, overlap=overlap)
+    port_gen = port_pyramid.TilePyramidGenerator(port_wsi, tile_size=256, overlap=overlap)
+    assert port_gen.level_count == jax_gen.level_count
+    assert port_gen.output_tile_size == jax_gen.output_tile_size
+    assert port_gen.sub_tile_level_count == jax_gen.sub_tile_level_count
+    for level in range(jax_gen.level_count):
+        assert port_gen.level_dimensions(level) == jax_gen.level_dimensions(level)
+        assert port_gen.tile_grid_size(level) == jax_gen.tile_grid_size(level)
+        assert port_gen.level_downsample(level) == jax_gen.level_downsample(level)
+    for (key, want), (_, got) in zip(_all_tiles(jax_gen), _all_tiles(port_gen)):
+        np.testing.assert_array_equal(got, want, err_msg=str(key))
+    want, got = jax_gen.get_thumb_tile(), port_gen.get_thumb_tile()
+    assert got.shape == want.shape
+    if all(d % t == 0 for d, t in zip(size, want.shape[1::-1])):
+        np.testing.assert_array_equal(got, want)
+    else:
+        # cubic shrinking at a non-integer factor: within one level of cv2
+        # where a sum lies near a half (utils/transforms.py::_resize_cubic_u8)
+        assert np.abs(got.astype(int) - want).max() <= 1
+
+
+@pytest.mark.parametrize(
+    "kwargs",
+    [{"res": 2}, {"pad_mode": "none"}, {"interpolation": "linear"}, {"interpolation": "area"}],
+)
+def test_tile_options(kwargs) -> None:
+    """Edge tiles included: ``res=2`` and unpadded edge tiles enlarge by
+    ``INTER_AREA``, which the port's ``imresize`` gives bit for bit on uint8."""
+    jax_wsi, port_wsi = _readers(1000, 700)
+    jax_gen = jax_pyramid.TilePyramidGenerator(jax_wsi, tile_size=256)
+    port_gen = port_pyramid.TilePyramidGenerator(port_wsi, tile_size=256)
+    top = jax_gen.level_count - 1
+    for level, x, y in [(top, 3, 2), (top, 2, 1), (top, 0, 0), (top, 3, 0), (1, 1, 1), (1, 0, 0), (0, 0, 0)]:
+        got, want = port_gen.get_tile(level, x, y, **kwargs), jax_gen.get_tile(level, x, y, **kwargs)
+        if level == 0 and "pad_mode" in kwargs:
+            # the unpadded whole slide shrinks to 250 x 175 by OpenCV's cubic
+            # first: within one level where a sum lies near a half
+            assert got.shape == want.shape and np.abs(got.astype(int) - want).max() <= 1
+        else:
+            np.testing.assert_array_equal(got, want)
+
+
+def test_refusals_as_jax() -> None:
+    jax_wsi, port_wsi = _readers(1024, 768)
+    for gen in (jax_pyramid.TilePyramidGenerator(jax_wsi), port_pyramid.TilePyramidGenerator(port_wsi)):
+        for args in ((-1, 0, 0), (gen.level_count, 0, 0), (0, -1, 0), (0, 5, 0)):
+            with pytest.raises(IndexError):
+                gen.get_tile(*args)
+        with pytest.raises(IndexError):
+            gen.tile_grid_size(99)
+        with pytest.raises(ValueError, match="Unsupported container"):
+            gen.dump("x", container="rar")
+
+
+def test_zoomify_groups_and_paths() -> None:
+    jax_wsi, port_wsi = _readers(1000, 700)
+    jax_gen = jax_pyramid.ZoomifyGenerator(jax_wsi, tile_size=64)
+    port_gen = port_pyramid.ZoomifyGenerator(port_wsi, tile_size=64)
+    assert port_gen.level_count == jax_gen.level_count
+    for level in range(jax_gen.level_count):
+        gw, gh = jax_gen.tile_grid_size(level)
+        for y in range(gh):
+            for x in range(gw):
+                assert port_gen.tile_group(level, x, y) == jax_gen.tile_group(level, x, y)
+                assert port_gen.tile_path(level, x, y) == jax_gen.tile_path(level, x, y)
+    with pytest.raises(IndexError):
+        port_gen.tile_group(0, 5, 0)
+
+
+def _archive_members(path, container: str) -> dict[str, bytes]:
+    if container == "zip":
+        with zipfile.ZipFile(path) as z:
+            return {n: z.read(n) for n in z.namelist()}
+    with tarfile.open(path) as t:
+        return {m.name: t.extractfile(m).read() for m in t.getmembers()}
+
+
+@pytest.mark.parametrize("container", [None, "zip", "tar"])
+def test_dump(container, tmp_path) -> None:
+    jax_wsi, port_wsi = _readers(1000, 700)
+    jax_gen = jax_pyramid.ZoomifyGenerator(jax_wsi, tile_size=256)
+    port_gen = port_pyramid.ZoomifyGenerator(port_wsi, tile_size=256)
+    suffix = "" if container is None else f".{container}"
+    jax_gen.dump(tmp_path / f"jax{suffix}", container=container)
+    port_gen.dump(tmp_path / f"port{suffix}", container=container)
+    if container is None:
+        want = {p.relative_to(tmp_path / "jax"): p.read_bytes() for p in (tmp_path / "jax").rglob("*.jpg")}
+        got = {p.relative_to(tmp_path / "port"): p.read_bytes() for p in (tmp_path / "port").rglob("*.jpg")}
+    else:
+        want = _archive_members(tmp_path / f"jax{suffix}", container)
+        got = _archive_members(tmp_path / f"port{suffix}", container)
+    assert sorted(got) == sorted(want)
+    assert len(got) == sum(int(np.prod(port_gen.tile_grid_size(lv))) for lv in range(port_gen.level_count))
+    for name in want:
+        assert got[name] == want[name], name
+
+
+@pytest.mark.parametrize("renderer_kwargs", [{}, {"thickness": 2, "max_scale": 2}, {"score_prop": "type", "blur_radius": 3}])
+def test_annotation_tiles(renderer_kwargs) -> None:
+    w, h = 1024, 768
+    jax_gen = jax_pyramid.AnnotationTileGenerator(
+        _info(jax_wsimeta, w, h), _store(jax_geometry, jax_storage), jax_vis.AnnotationRenderer(**renderer_kwargs)
+    )
+    port_gen = port_pyramid.AnnotationTileGenerator(
+        _info(port_wsimeta, w, h), _store(port_geometry, port_storage), port_vis.AnnotationRenderer(**renderer_kwargs)
+    )
+    assert port_gen.level_count == jax_gen.level_count
+    n = 0
+    for (key, want), (_, got) in zip(_all_tiles(jax_gen), _all_tiles(port_gen)):
+        assert got.shape == (256, 256, 4)
+        np.testing.assert_array_equal(got, want, err_msg=str(key))
+        n += 1
+    assert n == sum(int(np.prod(port_gen.tile_grid_size(lv))) for lv in range(port_gen.level_count))
+    with pytest.raises(IndexError):
+        port_gen.get_tile(port_gen.level_count, 0, 0)
+
+
+def test_annotation_tiles_dump_zip(tmp_path) -> None:
+    info = (_info(jax_wsimeta, 1024, 768), _info(port_wsimeta, 1024, 768))
+    jax_pyramid.AnnotationTileGenerator(info[0], _store(jax_geometry, jax_storage)).dump(tmp_path / "j.zip", "zip")
+    port_pyramid.AnnotationTileGenerator(info[1], _store(port_geometry, port_storage)).dump(tmp_path / "p.zip", "zip")
+    assert _archive_members(tmp_path / "p.zip", "zip") == _archive_members(tmp_path / "j.zip", "zip")

@@ -713,14 +713,19 @@ def test_dispatch_and_refusals(tmp_path, deflate_slide) -> None:
         with pytest.raises(Exception) as jax_error:
             jax_wsireader.WSIReader.open(bad)
         assert type(jax_error.value).__name__ == error.__name__
-    # JPEG 2000 opens as in JAX; annotation stores wait for their ROADMAP item
+    # JPEG 2000 and annotation stores open as in JAX
     ok, buf = cv2.imencode(".jp2", np.zeros((128, 128, 3), np.uint8))
     (tmp_path / "s.jp2").write_bytes(buf.tobytes())
     assert type(port_wsireader.WSIReader.open(tmp_path / "s.jp2")).__name__ == "JP2WSIReader"
     assert type(jax_wsireader.WSIReader.open(tmp_path / "s.jp2")).__name__ == "JP2WSIReader"
-    (tmp_path / "s.db").write_bytes(b"SQLite format 3\x00" + bytes(100))
-    with pytest.raises(FileNotSupportedError, match="item 4"):
-        port_wsireader.WSIReader.open(tmp_path / "s.db")
+    from tiatoolbox_tpu_torch.annotation.geometry import Polygon
+    from tiatoolbox_tpu_torch.annotation.storage import Annotation, SQLiteStore
+
+    store = SQLiteStore(tmp_path / "s.db")
+    store.append(Annotation(Polygon([(0, 0), (40, 0), (40, 30)]), {"type": 1}))
+    store.close()
+    assert type(port_wsireader.WSIReader.open(tmp_path / "s.db")).__name__ == "AnnotationStoreReader"
+    assert type(jax_wsireader.WSIReader.open(tmp_path / "s.db")).__name__ == "AnnotationStoreReader"
     shutil.rmtree(tmp_path / "empty_dir")
 
 

@@ -419,6 +419,35 @@ def test_imresize_matches_jax(in_hw, out_wh, interp, max_diff, dtype) -> None:
     np.testing.assert_allclose(got.astype(float), want.astype(float), atol=max_diff, rtol=1e-6)
 
 
+@pytest.mark.parametrize("seed", range(6))
+def test_imresize_uint8_area_enlarge_and_cubic_as_cv2(seed: int) -> None:
+    """uint8 ``"area"`` enlarging (``get_tile(res=2)``, unpadded edge tiles) is
+    ``cv2.INTER_AREA`` bit for bit, along either axis or both; ``"cubic"``
+    (``"optimise"`` shrinking to an ``output_size``) is ``cv2.INTER_CUBIC``
+    within one level: under 0.3 % of values differ where both sides are 4
+    pixels or more (sums within about 4e-4 of a half)."""
+    import cv2
+
+    rng = np.random.default_rng(seed)
+    for _ in range(12):
+        h, w = (int(v) for v in rng.integers(1, 90, 2))
+        cn = int(rng.choice([1, 3, 4]))
+        img = rng.integers(0, 256, (h, w, cn) if cn > 1 else (h, w)).astype(np.uint8)
+        out_w, out_h = int(w * rng.uniform(0.4, 4)) + 1, int(h * rng.uniform(0.4, 4)) + 1
+        if out_w > w or out_h > h:
+            want = cv2.resize(img, (out_w, out_h), interpolation=cv2.INTER_AREA)
+            got = port_transforms.imresize(img, output_size=(out_w, out_h), interpolation="area")
+            np.testing.assert_array_equal(got, want.reshape(got.shape))
+            jax = jax_transforms.imresize(img, output_size=(out_w, out_h), interpolation="area")
+            np.testing.assert_array_equal(got, jax.reshape(got.shape))
+        want = cv2.resize(img, (out_w, out_h), interpolation=cv2.INTER_CUBIC)
+        got = port_transforms.imresize(img, output_size=(out_w, out_h), interpolation="cubic")
+        diff = np.abs(got.astype(int) - want.reshape(got.shape))
+        assert diff.max() <= 1
+        if min(h, w) >= 4:  # smaller images differ more often, still by one level
+            assert np.count_nonzero(diff) <= max(1, 0.003 * diff.size)
+
+
 def _packbits_encode(data: bytes) -> bytes:
     out = bytearray()
     i = 0

@@ -5,7 +5,9 @@ from the Ruifrok H&E stain vectors, so stain estimation recovers sensible
 matrices. Smoothing uses ``scipy.ndimage`` and the pyramid is written with
 the port's TIFF writer, JPEG tiles at Q 90 by default as JAX writes them
 (the port's encoder) or deflate tiles. The pixels follow the same recipe
-as the JAX package's but are not bit-identical to them.
+as the JAX package's but are not bit-identical to them;
+``synthetic_he_patch_exact`` gives JAX's pixels (to one level in about one
+value in two million), for ``KatherPatchDataset``'s stand-in.
 
 ``make_synthetic_dicom`` writes a WSI DICOM instance as JAX's
 (``synth.py:142-289``) does, native frames or, with ``compression="jpeg"``,
@@ -80,6 +82,107 @@ def synthetic_he_patch(
         rgb = np.exp(-od) * 255.0
         rgb += rng.normal(0, 2.0, rgb.shape).astype(np.float32)
         out[y0:y1] = np.clip(rgb, 0, 255).astype(np.uint8)
+    return out
+
+
+def _cubic_taps(n_in: int, n_out: int) -> tuple[np.ndarray, np.ndarray]:
+    """Source indices and weights of cv2's ``INTER_CUBIC`` (A = -0.75, edges clamped)."""
+    d = np.arange(n_out)
+    fx = ((d + 0.5) * (n_in / n_out) - 0.5).astype(np.float32)
+    sx = np.floor(fx).astype(int)
+    x = (fx - sx).astype(np.float64)
+    a = -0.75
+    c0 = ((a * (x + 1) - 5 * a) * (x + 1) + 8 * a) * (x + 1) - 4 * a
+    c1 = ((a + 2) * x - (a + 3)) * x * x + 1
+    c2 = ((a + 2) * (1 - x) - (a + 3)) * (1 - x) * (1 - x) + 1
+    weights = np.stack([c0, c1, c2, 1 - c0 - c1 - c2], 1)
+    return np.clip(sx[:, None] - 1 + np.arange(4)[None], 0, n_in - 1), weights
+
+
+def _resize_cubic(src: np.ndarray, width: int, height: int) -> np.ndarray:
+    """cv2's float32 cubic upsampling, summed in float64 and rounded once."""
+    xi, xw = _cubic_taps(src.shape[1], width)
+    yi, yw = _cubic_taps(src.shape[0], height)
+    rows = (src.astype(np.float64)[:, xi] * xw[None]).sum(-1)
+    return (rows[yi] * yw[:, :, None]).sum(1).astype(np.float32)
+
+
+def _gaussian_blur(img: np.ndarray, ksize: int) -> np.ndarray:
+    """``cv2.GaussianBlur(img, (ksize, ksize), 0)`` of a float32 image, in cv2's
+    float32 order: the row pass tap by tap, the column pass by symmetric tap
+    pairs with a fused multiply-add, edges ``BORDER_REFLECT_101``."""
+    if ksize == 5:
+        kernel = np.array([0.0625, 0.25, 0.375, 0.25, 0.0625], np.float32)  # cv2's fixed 5-tap table
+    else:
+        sigma = ((ksize - 1) * 0.5 - 1) * 0.3 + 0.8
+        x = np.arange(ksize) - (ksize - 1) * 0.5
+        t = np.exp(-0.5 / (sigma * sigma) * x * x)
+        kernel = (t / t.sum()).astype(np.float32)
+    r = ksize // 2
+    h, w = img.shape
+    p = np.pad(img, ((0, 0), (r, r)), mode="reflect")
+    rows = (p[:, :w] * kernel[0]).astype(np.float32)
+    for i in range(1, ksize):
+        rows = (rows + p[:, i : i + w] * kernel[i]).astype(np.float32)
+    p = np.pad(rows, ((r, r), (0, 0)), mode="reflect")
+    out = (p[r : r + h] * kernel[r]).astype(np.float32)
+    for i in range(1, r + 1):
+        pair = (p[r + i : r + i + h] + p[r - i : r - i + h]).astype(np.float32)
+        out = (pair.astype(np.float64) * np.float64(kernel[r + i]) + out).astype(np.float32)
+    return out
+
+
+def synthetic_he_patch_exact(
+    size: tuple[int, int] = (256, 256),
+    seed: int = 0,
+    tissue_fraction: float = 0.7,
+) -> np.ndarray:
+    """JAX's ``synthetic_he_patch`` (``tiatoolbox_tpu/data/synth.py:25-93``), its pixels.
+
+    The same draws in the same order as JAX's, with cv2's steps reproduced:
+    the cubic upsampling of the noise fields (summed in float64 where cv2
+    runs Intel IPP's float32 kernel, so a field value may differ by one
+    float32 rounding), the float32 Gaussian blurs, the filled nuclei drawn
+    by the port's rasteriser (``native.circle``). On the 128 patches of 224²
+    of ``KatherPatchDataset``'s stand-in, 10 of 19.3 million values differ
+    from JAX's, each by one level. ``synthetic_he_patch`` keeps its own
+    recipe, which the port's slides and tests are built on.
+    """
+    width, height = size
+    rng = np.random.default_rng(seed)
+
+    def smooth_field(scale: int) -> np.ndarray:
+        small = rng.random((max(2, height // scale), max(2, width // scale))).astype(np.float32)
+        return np.clip(_resize_cubic(small, width, height), 0, 1)
+
+    tissue = smooth_field(32)
+    tissue_mask = tissue > np.quantile(tissue, 1 - tissue_fraction)
+    tissue_soft = _gaussian_blur(tissue_mask.astype(np.float32), 31)
+    eosin_density = smooth_field(16)
+    eosin_density *= tissue_soft
+    eosin_density *= 0.9
+    nuclei = np.zeros((height, width), np.uint8)
+    n_nuclei = min(int(tissue_mask.sum() / 600) + 5, 4000)
+    ys, xs = np.nonzero(tissue_mask)
+    if len(ys):
+        idx = rng.integers(0, len(ys), size=n_nuclei)
+        for y, x in zip(ys[idx], xs[idx]):
+            native.circle(nuclei, (int(x), int(y)), int(rng.integers(3, 7)), (1,))
+    nuclei = _gaussian_blur(nuclei.astype(np.float32), 5)
+    haem = _HE_STAINS[0].astype(np.float32)
+    eos = (_HE_STAINS[1] * 0.8).astype(np.float32)
+    out = np.empty((height, width, 3), np.uint8)
+    block = max(1, (32 << 20) // (width * 3 * 4))
+    for y0 in range(0, height, block):
+        y1 = min(y0 + block, height)
+        od = nuclei[y0:y1, :, None] * haem
+        od += eosin_density[y0:y1, :, None] * eos
+        np.negative(od, out=od)
+        rgb = np.exp(od, out=od)
+        rgb *= 255.0
+        rgb += rng.normal(0, 2.0, rgb.shape).astype(np.float32)
+        np.clip(rgb, 0, 255, out=rgb)
+        out[y0:y1] = rgb.astype(np.uint8)
     return out
 
 

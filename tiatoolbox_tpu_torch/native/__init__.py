@@ -39,6 +39,11 @@ back to another decoder.
   operations; a stream they cannot decode raises ``J2kDecodeError`` naming
   the feature or the fault. ``j2k_header`` reads the geometry without
   decoding.
+- ``csrc/raster.cpp``: ``fill_poly``, ``polylines``, ``line`` and
+  ``circle`` (filled), OpenCV's drawing at ``LINE_8`` into a uint8 canvas in place
+  (``cv2.fillPoly``, ``cv2.polylines``, ``cv2.drawContours``, ``cv2.line``
+  and ``cv2.circle`` of JAX's ``utils/visualization.py``), bit for bit with
+  cv2 5.0 wherever the points lie, on or off the canvas.
 - ``csrc/j2kenc.cpp``: ``encode_j2k``, a tiled codestream written in one
   pass (the role of the cv2 encodes JAX's ``jp2.py:319-384`` stitches):
   lossless by default, with test-stream options for every feature the
@@ -63,6 +68,7 @@ CONTOURS = "contours.cpp"
 PNG = "png.cpp"
 J2K_DECODER = "j2kdec.cpp"
 J2K_ENCODER = "j2kenc.cpp"
+RASTER = "raster.cpp"
 # JAX's batch decoder takes min(cpu_count, n, 16) threads (its __init__.py:168-169)
 MAX_DECODE_THREADS = 16
 
@@ -629,3 +635,107 @@ def encode_j2k(
     finally:
         lib.j2k_encoded_free(handle)
     return out.tobytes()
+
+
+@functools.cache
+def _raster() -> ctypes.CDLL:
+    lib = _build.load(RASTER)
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.raster_fill_poly.argtypes = [ptr, i32, i32, i32, ptr, ptr, i32, ptr]
+    lib.raster_fill_poly.restype = None
+    lib.raster_polylines.argtypes = [ptr, i32, i32, i32, ptr, ptr, i32, i32, ptr, i32]
+    lib.raster_polylines.restype = None
+    lib.raster_line.argtypes = [ptr, i32, i32, i32, i32, i32, i32, i32, ptr, i32]
+    lib.raster_line.restype = None
+    lib.raster_circle.argtypes = [ptr, i32, i32, i32, i32, i32, i32, ptr]
+    lib.raster_circle.restype = None
+    return lib
+
+
+def _canvas(img: np.ndarray) -> tuple[int, int, int]:
+    """(h, w, channels) of a canvas the rasteriser can draw into in place."""
+    if not isinstance(img, np.ndarray) or img.dtype != np.uint8 or img.ndim not in (2, 3):
+        msg = "the canvas must be a uint8 numpy array [h, w] or [h, w, c]."
+        raise TypeError(msg)
+    if not img.flags.c_contiguous or not img.flags.writeable:
+        msg = "the canvas must be C-contiguous and writeable: it is drawn in place."
+        raise ValueError(msg)
+    cn = 1 if img.ndim == 2 else img.shape[2]
+    if not 1 <= cn <= 4:
+        msg = f"the canvas has 1 to 4 channels, got {cn}."
+        raise ValueError(msg)
+    return img.shape[0], img.shape[1], cn
+
+
+def colour_bytes(color, channels: int) -> np.ndarray:
+    """A colour as the canvas's bytes: each component rounded half to even and
+    saturated to 0..255, missing components 0 (OpenCV's ``scalarToRawData``)."""
+    values = np.zeros(4, np.float64)
+    comps = np.asarray(color, np.float64).ravel()[:4]
+    values[: comps.size] = comps
+    return np.ascontiguousarray(np.clip(np.rint(values[:channels]), 0, 255).astype(np.uint8))
+
+
+def _contours_arg(contours) -> tuple[np.ndarray, np.ndarray]:
+    """int32 (x, y) points of every contour, one after the other, and their counts."""
+    arrays = [np.asarray(c).reshape(-1, 2) for c in contours]
+    for a in arrays:
+        if a.dtype != np.int32:
+            msg = f"contour points must be int32, as cv2 takes them, got {a.dtype}."
+            raise TypeError(msg)
+    counts = np.array([len(a) for a in arrays], np.int32)
+    points = np.ascontiguousarray(np.concatenate(arrays) if arrays else np.zeros((0, 2), np.int32))
+    return points, counts
+
+
+def fill_poly(img: np.ndarray, contours, color) -> np.ndarray:
+    """Fill the polygons ``contours`` (each int32 ``[k, 2]`` or ``[k, 1, 2]``
+    (x, y)) into ``img`` with the even-odd rule, as ``cv2.fillPoly(img,
+    contours, color)``; returns ``img``."""
+    h, w, cn = _canvas(img)
+    points, counts = _contours_arg(contours)
+    if len(counts):
+        _raster().raster_fill_poly(
+            _ptr(img), h, w, cn, _ptr(points), _ptr(counts), len(counts), _ptr(colour_bytes(color, cn))
+        )
+    return img
+
+
+def polylines(img: np.ndarray, contours, is_closed: bool, color, thickness: int = 1) -> np.ndarray:
+    """Draw the polylines ``contours`` into ``img`` as ``cv2.polylines(img,
+    contours, is_closed, color, thickness)``; ``cv2.drawContours(img,
+    contours, -1, color, thickness)`` for ``thickness >= 1`` is the closed
+    form. Returns ``img``."""
+    h, w, cn = _canvas(img)
+    if not 0 <= int(thickness) <= 32767:
+        msg = f"thickness must be 0-32767, got {thickness}."
+        raise ValueError(msg)
+    points, counts = _contours_arg(contours)
+    if len(counts):
+        _raster().raster_polylines(
+            _ptr(img), h, w, cn, _ptr(points), _ptr(counts), len(counts), int(bool(is_closed)),
+            _ptr(colour_bytes(color, cn)), int(thickness),
+        )
+    return img
+
+
+def line(img: np.ndarray, pt1, pt2, color, thickness: int = 1) -> np.ndarray:
+    """Draw a line with round caps, as ``cv2.line(img, pt1, pt2, color, thickness)``; returns ``img``."""
+    h, w, cn = _canvas(img)
+    if not 0 < int(thickness) <= 32767:
+        msg = f"thickness must be 1-32767, got {thickness}."
+        raise ValueError(msg)
+    (x0, y0), (x1, y1) = (int(v) for v in pt1), (int(v) for v in pt2)
+    _raster().raster_line(_ptr(img), h, w, cn, x0, y0, x1, y1, _ptr(colour_bytes(color, cn)), int(thickness))
+    return img
+
+
+def circle(img: np.ndarray, center, radius: int, color) -> np.ndarray:
+    """Fill a circle, as ``cv2.circle(img, center, radius, color, -1)``; returns ``img``."""
+    h, w, cn = _canvas(img)
+    if int(radius) < 0:
+        msg = f"radius must be non-negative, got {radius}."
+        raise ValueError(msg)
+    cx, cy = (int(v) for v in center)
+    _raster().raster_circle(_ptr(img), h, w, cn, cx, cy, int(radius), _ptr(colour_bytes(color, cn)))
+    return img

@@ -221,9 +221,27 @@ class ReinhardNormalizer(StainNormalizer):
 
     def get_mean_std(self, img: np.ndarray) -> tuple:
         chan1, chan2, chan3 = self.lab_split(img.astype("uint8"))
-        means = tuple(float(np.mean(c, dtype=np.float64)) for c in (chan1, chan2, chan3))
-        stds = tuple(float(np.std(c, dtype=np.float64)) for c in (chan1, chan2, chan3))
+        stats = [_mean_std_sequential(c) for c in (chan1, chan2, chan3)]
+        means = tuple(m for m, _ in stats)
+        stds = tuple(sd for _, sd in stats)
         return means, stds
+
+
+def _mean_std_sequential(chan: np.ndarray) -> tuple[float, float]:
+    """``cv2.meanStdDev`` of one float32 channel (JAX ``stainnorm.py:198-206``).
+
+    cv2 sums ``v`` and ``v * v`` in float64 in pixel order and takes
+    ``sqrt(max(q / n - mean**2, 0))``. ``np.cumsum`` keeps that order, where
+    ``np.std``'s pairwise sums do not: on a flat channel whose value is not
+    exact in binary (L = 53.72549 for grey 128) cv2 leaves a residual of
+    1.33e-5 that a pairwise sum cancels to 0, and Reinhard's output then
+    differs by up to 2 levels.
+    """
+    values = np.asarray(chan, np.float64).ravel()
+    n = values.size
+    mean = float(np.cumsum(values)[-1]) / n
+    sq = float(np.cumsum(values * values)[-1]) / n
+    return mean, float(np.sqrt(max(sq - mean * mean, 0.0)))
 
 
 def get_normalizer(

@@ -12,7 +12,8 @@ the 2**24 RGB colours.
 path: L and a/b lookup tables, 14-bit fixed-point XYZ, a 4096-entry inverse
 gamma table), for ``ReinhardNormalizer``; ``imread`` (:41-60) reads
 ``.npy``, PNG, JPEG and BMP through the port's own codecs
-(``utils/imagecodec.py``).
+(``utils/imagecodec.py``), and ``imwrite`` (:66-76) writes JPEG through the
+port's encoder (OpenCV's bytes) and PNG through ``zlib``.
 
 ``get_bounding_box`` (:165) is the box of a mask's nonzero pixels.
 
@@ -25,12 +26,14 @@ from __future__ import annotations
 
 import csv
 import json
+import struct
+import zlib
 from pathlib import Path
 
 import numpy as np
 
 from tiatoolbox_tpu_torch.utils.exceptions import FileNotSupportedError
-from tiatoolbox_tpu_torch.utils.imagecodec import imdecode
+from tiatoolbox_tpu_torch.utils.imagecodec import PNG_SIGNATURE, imdecode
 
 # mpp of a 40x objective; power <-> mpp as 10 / x (``misc.py:97-122``).
 _COMMON_POWERS = (1, 1.25, 2, 2.5, 4, 5, 10, 20, 40, 60, 90, 100)
@@ -62,6 +65,57 @@ def imread(image_path, as_uint8: bool = True) -> np.ndarray:
     if as_uint8 and image.dtype != np.uint8:
         image = np.clip(image, 0, 255).astype(np.uint8)
     return image
+
+
+def _png_bytes(img: np.ndarray) -> bytes:
+    """A PNG stream of a grey, grey+alpha, RGB or RGBA uint8 image: one IDAT,
+    filter 0 on every row, zlib at its default level."""
+    if img.dtype != np.uint8:
+        msg = f"the port writes PNG of uint8 samples, got {img.dtype}."
+        raise FileNotSupportedError(msg)
+    arr = img if img.ndim == 3 else img[:, :, None]
+    h, w, cn = arr.shape
+    colour_type = {1: 0, 2: 4, 3: 2, 4: 6}.get(cn)
+    if colour_type is None:
+        msg = f"PNG holds 1 to 4 channels, got {cn}."
+        raise FileNotSupportedError(msg)
+    rows = np.ascontiguousarray(arr).reshape(h, -1)
+    raw = np.concatenate([np.zeros((h, 1), np.uint8), rows], axis=1).tobytes()
+
+    def chunk(kind: bytes, body: bytes) -> bytes:
+        return struct.pack(">I", len(body)) + kind + body + struct.pack(">I", zlib.crc32(kind + body))
+
+    header = struct.pack(">IIBBBBB", w, h, 8, colour_type, 0, 0, 0)
+    return PNG_SIGNATURE + chunk(b"IHDR", header) + chunk(b"IDAT", zlib.compress(raw)) + chunk(b"IEND", b"")
+
+
+def imwrite(image_path, img: np.ndarray) -> None:
+    """Write an RGB(A) or grey numpy array to an image file (JAX ``misc.py:66-76``).
+
+    ``.jpg``/``.jpeg`` go through the port's JPEG encoder at OpenCV's default
+    quality 95: the bytes ``cv2.imwrite`` writes (an alpha channel is
+    dropped, as OpenCV drops it). ``.png`` (uint8) is written with ``zlib``;
+    its pixels read back as written, its bytes are not OpenCV's.
+
+    Raises:
+        FileNotSupportedError: another suffix, or samples other than uint8.
+    """
+    from tiatoolbox_tpu_torch import native
+
+    image_path = Path(image_path)
+    img = np.asarray(img)
+    suffix = image_path.suffix.lower()
+    if suffix in (".jpg", ".jpeg"):
+        if img.dtype != np.uint8:
+            msg = f"JPEG holds uint8 samples, got {img.dtype}."
+            raise FileNotSupportedError(msg)
+        data = native.encode_jpeg(img[..., :3] if img.ndim == 3 and img.shape[2] == 4 else img, 95)
+    elif suffix == ".png":
+        data = _png_bytes(img)
+    else:
+        msg = f"imwrite writes .jpg, .jpeg and .png in the port, not {image_path.suffix!r}: {image_path}"
+        raise FileNotSupportedError(msg)
+    image_path.write_bytes(data)
 
 
 def objective_power2mpp(objective_power) -> float | np.ndarray:
@@ -380,19 +434,15 @@ def write_probability_heatmap_as_ome_tiff(
     with the port's ``imresize``: bit for bit with ``cv2.INTER_AREA`` where
     the sizes are even, within one grey level where a size is odd.
     """
-    from tiatoolbox_tpu_torch.utils.store_conversion import colour_tables
     from tiatoolbox_tpu_torch.utils.transforms import imresize
+    from tiatoolbox_tpu_torch.utils.visualization import apply_color_map
     from tiatoolbox_tpu_torch.wsicore.tiffio import TiffPyramidWriter
 
     prob = np.asarray(probability_map)
     if prob.dtype != np.uint8:
         prob = np.clip(prob * 255.0, 0, 255).astype(np.uint8)
     if colormap is not None:
-        tables = colour_tables()
-        if f"cv2_{int(colormap)}" not in tables:
-            msg = f"Unknown OpenCV colormap id {colormap}."
-            raise ValueError(msg)
-        rgb = tables[f"cv2_{int(colormap)}"][prob]
+        rgb = apply_color_map(prob, colormap)
     else:
         rgb = np.stack([prob] * 3, axis=-1)
 

@@ -9,13 +9,20 @@ copied as they are. ``imresize`` (:110) is written without OpenCV:
   block area and round half to even);
 - ``"area"`` at other factors averages with exact overlap weights and
   rounds half to even, which may differ from OpenCV by one level;
+- ``"area"`` enlarging a uint8 image along either axis is OpenCV's
+  ``INTER_AREA`` there (a fixed-point linear pair), bit for bit;
 - ``"nearest"`` reproduces ``INTER_NEAREST``;
 - ``"linear"`` goes through ``utils.warp.resize_linear``: bit for bit
   with ``INTER_LINEAR`` on uint8 (OpenCV's 11-bit fixed point), within one
   float32 rounding of it on float32 and 1e-13 on float64;
-- ``"linear"`` on other types (int16, uint16) and ``"cubic"`` go through
+- ``"cubic"`` on uint8 is OpenCV 5.0's ``INTER_CUBIC`` (A = -0.75,
+  unquantised weights) summed in float64: its pixels but for sums within
+  about 4e-4 of a half, one level apart (about 2 values in 10^5);
+- ``"linear"`` on other types (int16, uint16), ``"cubic"`` and enlarging
+  ``"area"`` on types other than uint8 go through
   ``torch.nn.functional.interpolate`` (half-pixel centres, the same cubic
-  coefficient -0.75 as OpenCV) and may differ from OpenCV by rounding.
+  coefficient -0.75 as OpenCV) and may differ from OpenCV (its float32
+  cubic runs Intel IPP's kernel).
 
 ``shrink_linear_exact`` is OpenCV's fixed-point ``INTER_LINEAR_EXACT`` for
 uint8 images, bit for bit: what ``cv2.IMREAD_REDUCED_*`` gives for a JPEG
@@ -121,6 +128,66 @@ def _resize_nearest(img: np.ndarray, out_w: int, out_h: int) -> np.ndarray:
     return img[ys][:, xs]
 
 
+def _area_enlarge_taps(n_in: int, n_out: int) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """OpenCV's ``INTER_AREA`` taps where it enlarges: a linear pair at
+    ``floor(d * in / out)`` whose fraction is what ``d + 1`` reaches past the
+    next source pixel, in 11-bit fixed point; the last pixel is repeated."""
+    inv = n_out / n_in
+    d = np.arange(n_out)
+    sx = np.floor(d * (1.0 / inv)).astype(np.int64)
+    fx = ((d + 1) - (sx + 1) * inv).astype(np.float32)
+    fx = np.where(fx <= 0, np.float32(0), fx - np.floor(fx)).astype(np.float32)
+    last = sx >= n_in - 1
+    fx = np.where(last, np.float32(0), fx)
+    sx = np.where(last, n_in - 1, sx)
+    w1 = np.rint(fx * np.float32(2048)).astype(np.int64)
+    w0 = np.rint((np.float32(1) - fx) * np.float32(2048)).astype(np.int64)
+    return sx, w0, w1
+
+
+def _resize_area_enlarge_u8(img: np.ndarray, out_w: int, out_h: int) -> np.ndarray:
+    """``cv2.resize(img, (out_w, out_h), interpolation=INTER_AREA)`` of a uint8
+    image enlarged along either axis, bit for bit: the rows are summed in
+    integers, then each output is OpenCV's vector rounding of the column
+    pair, ``((s0 >> 4) * b0 >> 16) + ((s1 >> 4) * b1 >> 16)``, plus 2, over 4."""
+    h, w = img.shape[:2]
+    x = img.reshape(h, w, -1).astype(np.int64)
+    sx, a0, a1 = _area_enlarge_taps(w, out_w)
+    sy, b0, b1 = _area_enlarge_taps(h, out_h)
+    rows = x[:, sx] * a0[None, :, None] + x[:, np.minimum(sx + 1, w - 1)] * a1[None, :, None]
+    s0, s1 = rows[sy], rows[np.minimum(sy + 1, h - 1)]
+    out = (((s0 >> 4) * b0[:, None, None]) >> 16) + (((s1 >> 4) * b1[:, None, None]) >> 16)
+    return np.clip((out + 2) >> 2, 0, 255).astype(np.uint8).reshape((out_h, out_w, *img.shape[2:]))
+
+
+def _cubic_taps(n_in: int, n_out: int) -> tuple[np.ndarray, np.ndarray]:
+    """OpenCV's ``INTER_CUBIC`` taps: four source indices (clamped at the
+    edges) and the weights of A = -0.75 at each output's half-pixel centre."""
+    f = (np.arange(n_out) + 0.5) * (1.0 / (n_out / n_in)) - 0.5
+    s = np.floor(f).astype(np.int64)
+    x = f - s
+    a = -0.75
+    c0 = ((a * (x + 1) - 5 * a) * (x + 1) + 8 * a) * (x + 1) - 4 * a
+    c1 = ((a + 2) * x - (a + 3)) * x * x + 1
+    c2 = ((a + 2) * (1 - x) - (a + 3)) * (1 - x) * (1 - x) + 1
+    weights = np.stack([c0, c1, c2, 1 - c0 - c1 - c2], 1)
+    return np.clip(s[:, None] - 1 + np.arange(4)[None], 0, n_in - 1), weights
+
+
+def _resize_cubic_u8(img: np.ndarray, out_w: int, out_h: int) -> np.ndarray:
+    """``cv2.resize(img, (out_w, out_h), interpolation=INTER_CUBIC)`` of a uint8
+    image within one level: cv2 5.0 weighs uint8 pixels with unquantised
+    cubic weights, so a float64 sum rounded half to even gives its pixels
+    but where the sum lies within about 4e-4 of a half (about 2 values in
+    10^5 on random images of 4 pixels a side or more; a few % below that)."""
+    xi, xw = _cubic_taps(img.shape[1], out_w)
+    yi, yw = _cubic_taps(img.shape[0], out_h)
+    x = img.reshape(img.shape[0], img.shape[1], -1).astype(np.float64)
+    rows = np.einsum("hwkc,wk->hwc", x[:, xi], xw)
+    out = np.einsum("hkwc,hk->hwc", rows[yi], yw)
+    return np.clip(np.rint(out), 0, 255).astype(np.uint8).reshape((out_h, out_w, *img.shape[2:]))
+
+
 def _resize_torch(img: np.ndarray, out_w: int, out_h: int, mode: str) -> np.ndarray:
     x = torch.from_numpy(np.ascontiguousarray(img, dtype=np.float64))
     x = x[None, None] if img.ndim == 2 else x.permute(2, 0, 1)[None]
@@ -216,8 +283,12 @@ def imresize(
         return _resize_nearest(img, out_w, out_h)
     if interpolation == "area" and out_w <= img.shape[1] and out_h <= img.shape[0]:
         return _resize_area(img, out_w, out_h)
+    if interpolation == "area" and img.dtype == np.uint8:
+        return _resize_area_enlarge_u8(img, out_w, out_h)
     if interpolation == "linear" and img.dtype in (np.uint8, np.float32, np.float64):
         return resize_linear(img, (out_w, out_h))
+    if interpolation == "cubic" and img.dtype == np.uint8:
+        return _resize_cubic_u8(img, out_w, out_h)
     mode = "bicubic" if interpolation == "cubic" else "bilinear"
     return _resize_torch(img, out_w, out_h, mode)
 

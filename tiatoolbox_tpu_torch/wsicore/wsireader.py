@@ -21,12 +21,10 @@ dispatches on the input as JAX's does. Concrete readers:
   ``DICOMWSIReader`` (:1211, ``wsicore/dicom.py``), ``ZarrWSIReader``
   (:1252, on the port's ``utils/zarrlite.py``) and ``NGFFWSIReader``
   (:1295);
-- ``FsspecJsonWSIReader`` and ``TransformedWSIReader`` (a slide read
-  through a registration transform) in ``wsicore/store_reader.py``.
-
-``.db`` annotation stores (``AnnotationStoreReader``) wait for ``ROADMAP.md``
-section 1 item 4 (rendering): ``open`` raises ``FileNotSupportedError``
-naming it.
+- ``FsspecJsonWSIReader``, ``TransformedWSIReader`` (a slide read
+  through a registration transform) and ``AnnotationStoreReader`` (a
+  ``.db`` annotation store rendered as a slide) in
+  ``wsicore/store_reader.py``.
 """
 
 from __future__ import annotations
@@ -76,8 +74,7 @@ class WSIReader:
 
         Raises:
             FileNotFoundError: no such path.
-            FileNotSupportedError: a format the port does not read, ``.db``
-                stores among them (named).
+            FileNotSupportedError: a format the port does not read.
         """
         if isinstance(input_img, np.ndarray):
             return VirtualWSIReader(input_img, mpp=mpp, power=power, post_proc=post_proc, **kwargs)
@@ -107,11 +104,9 @@ class WSIReader:
         if magic.is_jp2(path) or last == ".jp2":
             return JP2WSIReader(path, mpp=mpp, power=power)
         if magic.is_sqlite3(path) or last == ".db":
-            msg = (
-                f"{path}: annotation stores as slides (AnnotationStoreReader) are "
-                "not ported yet (ROADMAP.md section 1 item 4)."
-            )
-            raise FileNotSupportedError(msg)
+            from tiatoolbox_tpu_torch.wsicore.store_reader import AnnotationStoreReader
+
+            return AnnotationStoreReader(path, mpp=mpp, power=power, **kwargs)
         if last in (".png", ".jpg", ".jpeg", ".webp", ".bmp"):
             return VirtualWSIReader(path, mpp=mpp, power=power, **kwargs)
         msg = f"File {path} is not a supported file format."
