@@ -212,6 +212,8 @@ available.
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import os
 import shutil
@@ -220,6 +222,8 @@ import subprocess
 import sys
 import tempfile
 import time
+import urllib.parse
+import urllib.request
 import zipfile
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -231,7 +235,11 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
-from tiatoolbox_tpu_torch import PRETRAINED_MODELS, _build, native  # noqa: E402
+from tiatoolbox_tpu_torch import PRETRAINED_MODELS, _build, native, rcParam  # noqa: E402
+from tiatoolbox_tpu_torch.cli import main as cli_main  # noqa: E402
+from tiatoolbox_tpu_torch.utils import yaml_lite  # noqa: E402
+from tiatoolbox_tpu_torch.utils.misc import imread, imwrite  # noqa: E402
+from tiatoolbox_tpu_torch.visualization.tileserver import TileServer, region_ioconfig  # noqa: E402
 from tiatoolbox_tpu_torch.data.synth import (  # noqa: E402
     make_synthetic_dicom,
     make_synthetic_slide,
@@ -908,6 +916,7 @@ def phase_predict(slide: Path, card: str) -> None:
     )
     # kept for the outputs phase off the card, so later phases' peaks are their own
     model.to("cpu")
+    KEPT["cli"] = {"model": model, "slide": slide, "result": output}
 
 
 # -- phase C: whole-slide semantic segmentation ---------------------------------
@@ -4072,6 +4081,7 @@ def phase_sam(slide: Path, tmp: Path, card: str) -> None:
     check(seconds <= SAM_PHASE_LIMIT_S, f"the sam phase took {seconds:.1f} s")
     release(sam.model)
     shutil.rmtree(root)
+    KEPT["sam"] = engine  # the serve phase's prompt segmentor
 
 
 # -- whole-slide registration ---------------------------------------------------
@@ -4284,7 +4294,7 @@ def psnr_db(a: np.ndarray, b: np.ndarray) -> float:
 
 def phase_render(tmp: Path, card: str) -> None:
     """Stores as slides and tile pyramids, drawn by the port's host rasteriser."""
-    kept = KEPT.pop("render")
+    kept = KEPT["render"]  # the serve phase takes it after
     t_start = time.perf_counter()
     line: dict = {"phase": "render"}
 
@@ -4484,6 +4494,252 @@ def phase_graph(slide: Path, tmp: Path, card: str) -> None:
     emit(line)
 
 
+# -- the tile server and the CLI ------------------------------------------------
+
+SERVE_BOX = 1024  # segment_on_box over a 1024^2 box of D's slide (0.25 mpp, the model's)
+SERVE_TILE_LEVELS = 3  # slide and D-store tiles at the three finest zoomify levels
+SERVE_TILES_PER_LEVEL = 4
+SERVE_PROMPT_BOX = 384  # SAM's prompt box, px, inside the segmented box
+SERVE_CLI_LIMIT_S = 45.0  # the serve and cli phases together
+CLI_PREDICT_TOL = 1e-5  # the CLI's probabilities against phase B's, same weights and batch
+
+
+def http(url: str, method: str = "GET", params: dict | None = None, timeout: float = 600) -> tuple[str, bytes]:
+    """(content type, body) of one request to the local server."""
+    data = urllib.parse.urlencode(params).encode() if params is not None else None
+    req = urllib.request.Request(url, data=data, method=method)
+    with urllib.request.urlopen(req, timeout=timeout) as resp:
+        return resp.headers["Content-Type"], resp.read()
+
+
+def http_json(url: str, method: str = "GET", params: dict | None = None) -> dict:
+    kind, body = http(url, method, params)
+    check(kind == "application/json", f"{url} answered {kind}")
+    return json.loads(body)
+
+
+def phase_serve(tmp: Path, card: str) -> float:
+    """The port's TileServer on a thread over D's slide and store (the overlay): tiles, info,
+    taps and control routes over HTTP, one segment_on_box with HoVer-Net at
+    full width on the card held to a direct engine run of the same region,
+    one SAM box prompt through the sam phase's seeded ViT-B, then shutdown."""
+    kept = KEPT.pop("render")
+    sam_engine = KEPT.pop("sam")
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    reset_all_counts()
+    stain_transform.launches = stain_augment.launches = 0
+    t_start = time.perf_counter()
+    line: dict = {"phase": "serve"}
+    home = tmp / "serve_home"
+    (home / "models").mkdir(parents=True)
+    torch.save(functional_hovernet_state_dict(), home / "models" / f"{INST_MODEL}.pth")
+    old_home = rcParam["TIATOOLBOX_HOME"]
+    rcParam["TIATOOLBOX_HOME"] = home
+    server = TileServer(title="chip_smoke", layers={"slide": str(kept["D_slide"])}, prompt_segmentor=sam_engine)
+    httpd, port = server.run_in_thread()
+    url = f"http://127.0.0.1:{port}/tileserver"
+    try:
+        check(http_json(f"{url}/healthcheck") == {"status": "OK"}, "healthcheck")
+        types = http_json(f"{url}/annotations", "PUT", {"file_path": str(kept["D_store"])})["types"]
+        check(len(types) >= 1, f"D's store has types {types}")
+        check(http_json(f"{url}/layers") == {"layers": ["slide", "overlay"]}, "layers")
+        info = http_json(f"{url}/info/slide")
+        check(info["slide_dimensions"] == list(INST_SLIDE_WH), f"info {info['slide_dimensions']}")
+        check(http_json(f"{url}/info/overlay") == {"type": "annotation", "count": kept["D_instances"]}, "store info")
+
+        # slide and store tiles at the three finest levels, each slide tile
+        # byte for byte the encoder's bytes of the pyramid's own tile
+        pyramid = server.pyramids["slide"]
+        levels = list(range(pyramid.level_count - SERVE_TILE_LEVELS, pyramid.level_count))
+        t0 = time.perf_counter()
+        n_tiles = 0
+        for level in levels:
+            gw, gh = pyramid.tile_grid_size(level)
+            for i in range(SERVE_TILES_PER_LEVEL):
+                x, y = (gw // 2 + i) % gw, (gh // 2 + i // 2) % gh
+                kind, body = http(f"{url}/layer/slide/default/zoomify/TileGroup0/{level}-{x}-{y}.jpg")
+                check(kind == "image/jpeg", f"slide tile {level}-{x}-{y} is {kind}")
+                check(body == native.encode_jpeg(pyramid.get_tile(level, x, y), 85), f"slide tile {level}-{x}-{y}")
+                kind, body = http(f"{url}/layer/overlay/default/zoomify/TileGroup0/{level}-{x}-{y}.jpg")
+                check(kind == "image/png" and imdecode(body, "unchanged").shape[2] == 4, f"D tile {level}-{x}-{y}")
+                n_tiles += 2
+        tile_seconds = time.perf_counter() - t0
+
+        # a tap on an instance's centre, and the control routes the viewer uses
+        first = next(iter(server.layers["overlay"].values()))
+        cx, cy = np.asarray(first.geometry.shell, float).mean(axis=0)
+        taps = http_json(f"{url}/tap_query/overlay/{cx}/{cy}")["annotations"]
+        check(len(taps) >= 1, f"tap at ({cx:.1f}, {cy:.1f}) found nothing")
+        check(http_json(f"{url}/color_prop", "PUT", {"prop": "type"}) == {"color_prop": "type"}, "color_prop")
+        check(http_json(f"{url}/cmap", "PUT", {"cmap": "viridis"}) == {"cmap": "viridis"}, "cmap")
+        check("type" in http_json(f"{url}/prop_names")["prop_names"], "prop_names")
+        check(http_json(f"{url}/sessions") == {"sessions": {"default": str(kept["D_slide"])}}, "sessions")
+
+        # segment_on_box on the card, then the same region through the engine directly
+        x0, y0 = (INST_SLIDE_WH[0] - SERVE_BOX) // 2, (INST_SLIDE_WH[1] - SERVE_BOX) // 2
+        box = {"x0": x0, "y0": y0, "x1": x0 + SERVE_BOX, "y1": y0 + SERVE_BOX}
+        before = all_counts()
+        t0 = time.perf_counter()
+        seg = http_json(f"{url}/segment_on_box", "PUT", box)
+        box_seconds = time.perf_counter() - t0
+        box_counts = {name: n - before[name] for name, n in all_counts().items()}
+        for name in ("scatter_accumulate", "hv_energy", "pack_fg_tp"):
+            check(box_counts[name] > 0, f"segment_on_box launched no {name}: {box_counts}")
+        check(seg["layer"] == "segment" and seg["count"] > 0, f"segment_on_box {seg}")
+        model, ioconfig = get_pretrained_model(INST_MODEL)
+        region = server.layers["slide"].read_bounds(tuple(box.values()), resolution=0.25, units="mpp")
+        engine = MultiTaskSegmentor(model, batch_size=4, num_loader_workers=0, verbose=False)
+        t0 = time.perf_counter()
+        direct = next(iter(engine.run([region], patch_mode=False, ioconfig=region_ioconfig(ioconfig),
+                                      auto_get_mask=False).values()))["instances"]
+        direct_seconds = time.perf_counter() - t0
+        direct_summary = dict(engine.last_stage_summary or {})
+
+        def order(row):
+            return (row[0], *row[1].min(axis=0), *row[1].max(axis=0), len(row[1]))
+
+        want = sorted(((int(i["type"]), np.asarray(i["contours"], float) + [x0, y0])
+                       for i in direct.values() if len(i["contours"]) >= 3), key=order)
+        got = sorted(((a.properties["type"], np.asarray(a.geometry.shell, float)[:-1])
+                      for a in server.layers["segment"].values()), key=order)
+        check(len(got) == len(want) == seg["count"], f"segment layer {len(got)}, direct run {len(want)}")
+        check(all(g[0] == w[0] and np.array_equal(g[1], w[1]) for g, w in zip(got, want)),
+              "segment layer's contours differ from the direct run's")
+        release(model)
+
+        # one SAM box prompt through the sam phase's seeded ViT-B
+        px, py = x0 + 200, y0 + 200
+        t0 = time.perf_counter()
+        prompt = http_json(f"{url}/prompt_segment", "PUT",
+                           {"box": json.dumps([px, py, px + SERVE_PROMPT_BOX, py + SERVE_PROMPT_BOX])})
+        prompt_seconds = time.perf_counter() - t0
+        check(prompt["layer"] == "prompt" and prompt["count"] >= 0, f"prompt_segment {prompt}")
+        bounds = [a.geometry.bounds for a in server.layers["prompt"].values()]
+        check(all(px - 1 <= b[0] and b[2] <= px + SERVE_PROMPT_BOX + 1 for b in bounds), "prompt outside its box")
+        kind, body = http(f"{url}/layer/segment/default/zoomify/TileGroup0/{levels[-1]}-"
+                          f"{(x0 + SERVE_BOX // 2) // 256}-{(y0 + SERVE_BOX // 2) // 256}.jpg")
+        check(kind == "image/png", "segment tile")
+        stopped = http_json(f"{url}/shutdown", "PUT")
+        check(stopped["servers"] == 1, f"shutdown {stopped}")
+    finally:
+        rcParam["TIATOOLBOX_HOME"] = old_home
+        release(sam_engine.model.model)
+    for _ in range(100):
+        if not server._servers:  # noqa: SLF001 - the stopper thread has closed the socket
+            break
+        time.sleep(0.05)
+    check(not server._servers, "the server is still listening after shutdown")  # noqa: SLF001
+    line.update({
+        "tiles": n_tiles, "tile_seconds": tile_seconds, "tiles_per_s": n_tiles / tile_seconds,
+        "tile_levels": levels,
+        "segment_on_box": {"box": [SERVE_BOX, SERVE_BOX], "seconds": box_seconds, "instances": seg["count"],
+                           "types": seg["types"], "direct_run_seconds": direct_seconds, "launches": box_counts,
+                           "direct_run_path": direct_summary.get("path"),
+                           "direct_run_stages": {k: v for k, v in direct_summary.items() if isinstance(v, dict)}},
+        "prompt_segment": {"box": [SERVE_PROMPT_BOX, SERVE_PROMPT_BOX], "seconds": prompt_seconds,
+                           "annotations": prompt["count"]},
+        "kernel_launches": {**all_counts(), "stain_transform": stain_transform.launches,
+                            "stain_augment": stain_augment.launches},
+        "seconds": time.perf_counter() - t_start,
+        "card": card,
+    })
+    emit(line)
+    return line["seconds"]
+
+
+def cli(*args: str) -> str:
+    """``main(args)`` in this process; its printed output."""
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        code = cli_main([str(a) for a in args])
+    check(code == 0, f"cli {args[0]} returned {code}")
+    return out.getvalue()
+
+
+def phase_cli(tmp: Path, card: str, serve_seconds: float) -> None:
+    """The port's CLI in this process on phase A/B's slide: slide-info,
+    slide-thumbnail, read-bounds, tissue-mask, save-tiles, stain-norm, then
+    patch-predictor on the card with phase B's weights under
+    TIATOOLBOX_HOME/models, held to phase B's predictions; and
+    ``python -m tiatoolbox_tpu_torch.cli version`` in a subprocess. The
+    serve phase (``serve_seconds``) and this one share one budget."""
+    kept = KEPT.pop("cli")
+    slide = kept["slide"]
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    reset_all_counts()
+    stain_transform.launches = stain_augment.launches = 0
+    t_start = time.perf_counter()
+    out = tmp / "cli"
+    seconds: dict = {}
+
+    def timed(name: str, *args) -> str:
+        t0 = time.perf_counter()
+        text = cli(name, *args)
+        seconds[name] = time.perf_counter() - t0
+        return text
+
+    timed("slide-info", "--img-input", slide, "--mode", "save", "--output-path", out / "info")
+    info = yaml_lite.load((out / "info" / f"{slide.stem}.yaml").read_text())
+    check(info["slide_dimensions"] == str(tuple(SLIDE_WH)), f"slide-info {info['slide_dimensions']}")
+    timed("slide-thumbnail", "--img-input", slide, "--output-path", out / "thumb")
+    thumb = imread(out / "thumb" / f"{slide.stem}_thumb.png")
+    check(thumb.shape == (SLIDE_WH[1] // 16, SLIDE_WH[0] // 16, 3), f"thumbnail {thumb.shape}")
+    timed("read-bounds", "--img-input", slide, "--region", "1000,800,3000,2800", "--output-path", out / "region.jpg")
+    check(imread(out / "region.jpg").shape == (2000, 2000, 3), "read-bounds")
+    timed("tissue-mask", "--img-input", slide, "--output-path", out / "mask")
+    mask = imread(out / "mask" / f"{slide.stem}_mask.png")
+    check(mask.shape[:2] == thumb.shape[:2] and 0 < float((mask > 0).mean()) < 1, f"tissue mask {mask.shape}")
+    timed("save-tiles", "--img-input", slide, "--output-path", out / "tiles", "--tile-objective-value", "10",
+          "--tile-read-size", "1024", "768")
+    tiles = sorted((out / "tiles" / slide.name).glob("Tile_*.jpg"))
+    n_tiles = -(-SLIDE_WH[0] // 2 // 1024) * -(-SLIDE_WH[1] // 2 // 768)  # at 10x, half of the 20x slide
+    check(len(tiles) == n_tiles and imread(tiles[0]).shape == (768, 1024, 3), f"save-tiles wrote {len(tiles)}")
+    patch = out / "patch.png"
+    imwrite(patch, WSIReader.open(slide).read_rect((1024, 1024), (512, 512)))
+    timed("stain-norm", "--img-input", patch, "--method", "macenko", "--output-path", out / "stain")
+    normed = imread(out / "stain" / "patch_normalized.png")
+    check(normed.shape == (512, 512, 3) and float(np.abs(normed.astype(int) - imread(patch)).mean()) > 0, "stain-norm")
+
+    # patch-predictor on the card with phase B's weights
+    home = tmp / "cli_home"
+    (home / "models").mkdir(parents=True)
+    torch.save(kept["model"].state_dict(), home / "models" / "resnet18-kather100k.pth")
+    old_home = rcParam["TIATOOLBOX_HOME"]
+    rcParam["TIATOOLBOX_HOME"] = home
+    try:
+        timed("patch-predictor", "--img-input", slide, "--output-path", out / "pp", "--batch-size", BATCH,
+              "--return-probabilities", "true", "--output-type", "zarr", "--quiet")
+    finally:
+        rcParam["TIATOOLBOX_HOME"] = old_home
+    group = open_zarr(out / "pp" / "raw" / f"{slide.stem}.zarr")
+    want = kept["result"]
+    predictions, probs = group["predictions"][:], group["probabilities"][:]
+    check(np.array_equal(group["coordinates"][:], want["coordinates"]), "patch-predictor coordinates")
+    check(np.array_equal(predictions, want["predictions"]), "patch-predictor predictions differ from phase B's")
+    prob_err = float(np.abs(probs - want["probabilities"]).max())
+    check(prob_err <= CLI_PREDICT_TOL, f"patch-predictor probabilities {prob_err} from phase B's")
+
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "tiatoolbox_tpu_torch.cli", "version"], cwd=ROOT,
+                          env={**os.environ, "PYTHONPATH": str(ROOT)}, capture_output=True, text=True, timeout=120,
+                          check=False)
+    seconds["python -m ... version"] = time.perf_counter() - t0
+    check(proc.returncode == 0 and proc.stdout.startswith("tiatoolbox-tpu-torch "), f"module entry: {proc.stderr[-300:]}")
+    cli_seconds = time.perf_counter() - t_start
+    line = {
+        "phase": "cli", "seconds_per_command": seconds, "patches": int(len(predictions)),
+        "probabilities_max_abs_diff": prob_err,
+        "kernel_launches": {**all_counts(), "stain_transform": stain_transform.launches,
+                            "stain_augment": stain_augment.launches},
+        "seconds": cli_seconds, "serve_and_cli_seconds": serve_seconds + cli_seconds, "card": card,
+    }
+    emit(line)
+    check(line["serve_and_cli_seconds"] <= SERVE_CLI_LIMIT_S,
+          f"the serve and cli phases took {line['serve_and_cli_seconds']:.1f} s together")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; nothing was run.", file=sys.stderr)
@@ -4543,6 +4799,10 @@ def main() -> int:
         mark("render")
         phase_graph(slide, Path(tmp), card)
         mark("graph")
+        serve_seconds = phase_serve(Path(tmp), card)
+        mark("serve")
+        phase_cli(Path(tmp), card, serve_seconds)
+        mark("cli")
     # seconds since the start at the end of each group of phases
     emit({"phase": "timeline", "seconds_at_end": marks})
     # K2 to K4 run on phases C and D: their rows count both phases' launches

@@ -25,7 +25,10 @@ DFBR, B-spline steps, a read through the transform); then rendering (an
 annotation store opened as a slide over the slide, an annotation pyramid
 to a zip and a Zoomify pyramid to a tar through the rasteriser's C++, an
 overlay written as PNG and JPEG, the golden sets replayed), the slide
-graph with UMAP colours drawn by ``plot_graph``, and the Kather stand-in.
+graph with UMAP colours drawn by ``plot_graph``, and the Kather stand-in;
+then the CLI (``version``, ``slide-info`` to YAML, ``save-tiles``) and the
+tile server on a thread (a slide tile and a store tile over HTTP, then
+``/tileserver/shutdown``), with click and joblib refused too.
 """
 
 from __future__ import annotations
@@ -45,7 +48,7 @@ GUARDED_RUN = textwrap.dedent(
 
     BLOCKED = {"jax", "jaxlib", "flax", "cv2", "yaml", "PIL", "pandas", "tqdm",
                "psutil", "sklearn", "fsspec", "matplotlib", "transformers", "safetensors",
-               "huggingface_hub", "tiatoolbox_tpu"}
+               "huggingface_hub", "click", "joblib", "tiatoolbox_tpu"}
 
     class Refuse(MetaPathFinder):
         def find_spec(self, name, path=None, target=None):
@@ -335,6 +338,32 @@ GUARDED_RUN = textwrap.dedent(
                    node_colors=[tuple(int(v) for v in c) for c in colours * 255])
         assert KatherPatchDataset(f"{tmp}/no_kather")[0]["image"].shape == (224, 224, 3)
 
+        # the CLI on argparse and the tile server on wsgiref, with the YAML
+        # writer and reader of the port's own
+        import contextlib, io, urllib.request
+        from pathlib import Path
+        from tiatoolbox_tpu_torch.cli import main
+        from tiatoolbox_tpu_torch.utils import yaml_lite
+        from tiatoolbox_tpu_torch.visualization.tileserver import TileServer
+
+        slide_path = str(reader.input_path)
+        with contextlib.redirect_stdout(io.StringIO()):
+            assert main(["version"]) == 0
+            assert main(["slide-info", "--img-input", slide_path, "--mode", "save",
+                         "--output-path", f"{tmp}/info"]) == 0
+            assert main(["save-tiles", "--img-input", slide_path, "--output-path", f"{tmp}/saved",
+                         "--tile-objective-value", "10"]) == 0
+        info = yaml_lite.load(next(Path(f"{tmp}/info").glob("*.yaml")).read_text())
+        assert int(info["level_count"]) >= 1
+        server = TileServer(layers={"slide": slide_path, "anns": f"{tmp}/render.db"})
+        httpd, port = server.run_in_thread()
+        url = f"http://127.0.0.1:{port}/tileserver"
+        with urllib.request.urlopen(f"{url}/layer/slide/default/zoomify/TileGroup0/0-0-0.jpg") as resp:
+            assert resp.read()[:2] == bytes((0xFF, 0xD8))
+        with urllib.request.urlopen(f"{url}/layer/anns/default/zoomify/TileGroup0/0-0-0.jpg") as resp:
+            assert resp.read()[:4] == bytes((0x89,)) + b"PNG"
+        urllib.request.urlopen(urllib.request.Request(f"{url}/shutdown", data=b"", method="PUT")).read()
+
     leaked = sorted(n for n in sys.modules if n.split(".")[0] in BLOCKED)
     assert not leaked, leaked
     print("GUARDED_OK", len(names))
@@ -362,7 +391,7 @@ def test_no_top_level_import_of_refused_packages() -> None:
 
     pattern = re.compile(
         r"^\s*(import|from) (jax|flax|cv2|yaml|PIL|sklearn|fsspec|matplotlib|transformers|safetensors|"
-        r"huggingface_hub|tiatoolbox_tpu)\b",
+        r"huggingface_hub|click|joblib|tiatoolbox_tpu)\b",
         re.M,
     )
     sources = [REPO / "chip_smoke.py", *sorted((REPO / "tiatoolbox_tpu_torch").rglob("*.py"))]

@@ -8,6 +8,10 @@ its shape). The detectors' peak tools (:61-114),
 ``peak_detection_map_overlap`` and ``nms_on_detection_maps``, run on the
 host with the same numpy and scipy calls in the same order, so their
 results, the order of tied peaks included, are JAX's.
+
+``is_torch_compile_compatible`` and ``compile_model`` (:115-137) are shims
+in JAX; here they wrap ``torch.compile`` as upstream tiatoolbox does, with
+JAX's check of ``mode``. Nothing on the port's paths calls them.
 """
 
 from __future__ import annotations
@@ -145,3 +149,40 @@ def peak_map(block: np.ndarray, min_distance: int, threshold_abs: float) -> np.n
         if len(coords):
             out[coords[:, 0], coords[:, 1], c] = 1.0
     return out
+
+
+_COMPILE_MODES = ("default", "reduce-overhead", "max-autotune", "disable")
+
+
+def is_torch_compile_compatible() -> bool:
+    """Whether ``torch.compile`` may be used: a CUDA card of compute capability 7.0, 8.0 or 9.0.
+
+    Upstream's gate; the CPU is not compatible (JAX's shim answers True).
+    """
+    from tiatoolbox_tpu_torch import logger
+
+    if not torch.cuda.is_available():
+        logger.warning("No GPU detected: torch.compile is not used.")
+        return False
+    capability = torch.cuda.get_device_capability()
+    if capability not in ((7, 0), (8, 0), (9, 0)):
+        logger.warning("GPU of compute capability %s is not compatible with torch.compile.", capability)
+        return False
+    return True
+
+
+def compile_model(model=None, *, mode: str = "default"):
+    """``torch.compile(model, mode=mode)``, or ``model`` itself where compiling does not apply.
+
+    ``mode`` is one of "default", "reduce-overhead", "max-autotune" and
+    "disable" (JAX's check); "disable", an incompatible device and a model
+    compiled already return ``model`` unchanged.
+    """
+    if mode not in _COMPILE_MODES:
+        msg = f"Invalid mode: {mode}."
+        raise ValueError(msg)
+    if model is None or mode == "disable" or not is_torch_compile_compatible():
+        return model
+    if isinstance(model, torch._dynamo.eval_frame.OptimizedModule):  # noqa: SLF001
+        return model
+    return torch.compile(model, mode=mode)

@@ -23,6 +23,7 @@ import time
 from abc import ABC
 from collections import deque
 from pathlib import Path
+from typing import TypedDict
 
 import numpy as np
 
@@ -56,6 +57,32 @@ def prepare_engines_save_dir(save_dir, *, patch_mode: bool, overwrite: bool = Fa
         shutil.rmtree(save_dir)
     save_dir.mkdir(parents=True, exist_ok=True)
     return save_dir
+
+
+class EngineABCRunParams(TypedDict, total=False):
+    """Keyword arguments ``EngineABC.run`` takes (JAX ``engine_abc.py:60-65``, with keys).
+
+    JAX's ``output_type`` is ``run``'s own argument here, and its
+    ``transfer_threads`` (the relay link's threads) has no counterpart.
+    """
+
+    batch_size: int
+    num_loader_workers: int
+    resolution: float
+    units: str
+    patch_input_shape: tuple
+    stride_shape: tuple
+    min_mask_ratio: float
+    auto_get_mask: bool
+    return_labels: bool
+    scale_factor: tuple
+    class_dict: dict
+    verbose: bool
+    device: str
+    num_workers: int
+    output_file: str
+    wsireader_kwargs: dict
+    max_inflight_batches: int
 
 
 class EngineABC(ABC):
@@ -124,25 +151,7 @@ class EngineABC(ABC):
         msg = "`model` must be a registry name or a ModelABC instance."
         raise TypeError(msg)
 
-    _RUN_PARAMS = (
-        "batch_size",
-        "num_loader_workers",
-        "resolution",
-        "units",
-        "patch_input_shape",
-        "stride_shape",
-        "min_mask_ratio",
-        "auto_get_mask",
-        "return_labels",
-        "scale_factor",
-        "class_dict",
-        "verbose",
-        "device",
-        "num_workers",
-        "output_file",
-        "wsireader_kwargs",
-        "max_inflight_batches",
-    )
+    _RUN_PARAMS = tuple(EngineABCRunParams.__annotations__)
 
     def _update_run_params(self, **kwargs) -> None:
         for key, value in kwargs.items():

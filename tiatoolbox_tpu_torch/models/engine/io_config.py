@@ -1,6 +1,7 @@
 """Model I/O configuration (counterpart of ``tiatoolbox_tpu/models/engine/io_config.py``).
 
-``ModelIOConfigABC`` (:16), ``IOPatchPredictorConfig`` (:108),
+``ModelIOConfigABC`` (:16, with ``scale_to_highest`` :62 and
+``to_baseline`` :77), ``IOPatchPredictorConfig`` (:108),
 ``IOSegmentorConfig`` (:113-125) and ``IOInstanceSegmentorConfig``
 (:127-130), copied: resolution lists per input/output
 head, patch and stride shapes, the highest-input-resolution selection, and
@@ -10,7 +11,7 @@ for instance segmentation the tile margin.
 
 from __future__ import annotations
 
-from dataclasses import dataclass, field
+from dataclasses import dataclass, field, replace
 
 import numpy as np
 
@@ -60,6 +61,51 @@ class ModelIOConfigABC:
         if units.pop() not in ("power", "baseline", "mpp"):
             msg = f"Invalid resolution units `{units}`."
             raise ValueError(msg)
+
+    @staticmethod
+    def scale_to_highest(resolutions: list, units: str) -> np.ndarray:
+        """Scale factor of each resolution relative to the highest one."""
+        old_vals = [v["resolution"] for v in resolutions]
+        if units not in ("baseline", "mpp", "power"):
+            msg = (
+                f"Unknown units `{units}`. Units should be one of "
+                f"'baseline', 'mpp' or 'power'."
+            )
+            raise ValueError(msg)
+        if units == "baseline":
+            return np.array(old_vals)
+        if units == "mpp":
+            return np.min(old_vals) / np.array(old_vals)
+        return np.array(old_vals) / np.max(old_vals)
+
+    def to_baseline(self) -> "ModelIOConfigABC":
+        """New config with resolutions converted to baseline units."""
+        resolutions = self.input_resolutions + self.output_resolutions
+        save_resolution = getattr(self, "save_resolution", None)
+        if save_resolution is not None:
+            resolutions = [*resolutions, save_resolution]
+        scale_factors = self.scale_to_highest(resolutions, self.resolution_unit)
+        n_in = len(self.input_resolutions)
+        n_out = len(self.output_resolutions)
+        input_resolutions = [
+            {"units": "baseline", "resolution": float(v)}
+            for v in scale_factors[:n_in]
+        ]
+        output_resolutions = [
+            {"units": "baseline", "resolution": float(v)}
+            for v in scale_factors[n_in : n_in + n_out]
+        ]
+        new = replace(
+            self,
+            input_resolutions=input_resolutions,
+            output_resolutions=output_resolutions,
+        )
+        if save_resolution is not None:
+            new.save_resolution = {
+                "units": "baseline",
+                "resolution": float(scale_factors[-1]),
+            }
+        return new
 
 
 @dataclass

@@ -57,6 +57,7 @@ import torch
 from tiatoolbox_tpu_torch import logger
 from tiatoolbox_tpu_torch.models.engine.semantic_segmentor import (
     SemanticSegmentor,
+    SemanticSegmentorRunParams,
     add_patches,
     spill_bytes,
     to_pinned_host,
@@ -66,6 +67,15 @@ from tiatoolbox_tpu_torch.parallel import BatchLoader
 from tiatoolbox_tpu_torch.tools.patchextraction import PatchExtractor
 from tiatoolbox_tpu_torch.utils.profiling import StageTimer
 from tiatoolbox_tpu_torch.utils.zarrlite import ZarrArray, ZarrGroup
+
+
+class MultiTaskSegmentorRunParams(SemanticSegmentorRunParams, total=False):
+    """``MultiTaskSegmentor.run`` keyword arguments (JAX ``multi_task_segmentor.py:28-30``, with keys).
+
+    JAX's ``drain_during_loop`` (its ``BlockDrain`` overlap) has no counterpart.
+    """
+
+    return_predictions: bool
 
 
 class MultiTaskSegmentor(SemanticSegmentor):
@@ -101,7 +111,7 @@ class MultiTaskSegmentor(SemanticSegmentor):
         self.full_postproc_limit = 4096 * 4096  # pixels; a larger canvas goes tile by tile
         self.return_predictions = False
 
-    _RUN_PARAMS = (*SemanticSegmentor._RUN_PARAMS, "return_predictions")
+    _RUN_PARAMS = tuple(MultiTaskSegmentorRunParams.__annotations__)
 
     # -- inference and merge --------------------------------------------------------
 

@@ -28,10 +28,19 @@ from tiatoolbox_tpu_torch.models.architecture.utils import (
     nms_on_detection_maps,
     peak_detection_map_overlap,
 )
-from tiatoolbox_tpu_torch.models.engine.semantic_segmentor import SemanticSegmentor
+from tiatoolbox_tpu_torch.models.engine.semantic_segmentor import SemanticSegmentor, SemanticSegmentorRunParams
 
 BAND_ROWS = 4096
 BAND_OVERLAP = 32
+
+
+class NucleusDetectorRunParams(SemanticSegmentorRunParams, total=False):
+    """``NucleusDetector.run`` keyword arguments (JAX ``nucleus_detector.py:21-24``, with keys)."""
+
+    min_distance: int
+    threshold_abs: float
+    threshold_rel: float
+    postproc_tile_shape: tuple
 
 
 class NucleusDetector(SemanticSegmentor):
@@ -44,13 +53,7 @@ class NucleusDetector(SemanticSegmentor):
     to that share of each band's maximum.
     """
 
-    _RUN_PARAMS = (
-        *SemanticSegmentor._RUN_PARAMS,
-        "min_distance",
-        "threshold_abs",
-        "threshold_rel",
-        "postproc_tile_shape",
-    )
+    _RUN_PARAMS = tuple(NucleusDetectorRunParams.__annotations__)
 
     def __init__(self, *args, **kwargs) -> None:
         super().__init__(*args, **kwargs)

@@ -6,7 +6,13 @@ engine's softmax outputs.
 
 from __future__ import annotations
 
-from tiatoolbox_tpu_torch.models.engine.engine_abc import EngineABC, argmax_probabilities
+from tiatoolbox_tpu_torch.models.engine.engine_abc import EngineABC, EngineABCRunParams, argmax_probabilities
+
+
+class PredictorRunParams(EngineABCRunParams, total=False):
+    """``PatchPredictor.run`` keyword arguments (JAX ``patch_predictor.py:15-17``, with keys)."""
+
+    return_probabilities: bool
 
 
 class PatchPredictor(EngineABC):
@@ -36,7 +42,7 @@ class PatchPredictor(EngineABC):
         )
         self.return_probabilities = True
 
-    _RUN_PARAMS = (*EngineABC._RUN_PARAMS, "return_probabilities")
+    _RUN_PARAMS = tuple(PredictorRunParams.__annotations__)
 
     def post_process_patches(self, raw_predictions: dict, **kwargs) -> dict:  # noqa: ARG002
         """Add argmax ``predictions``; drop probabilities if not wanted."""

@@ -46,7 +46,7 @@ import torch
 
 from tiatoolbox_tpu_torch import logger
 from tiatoolbox_tpu_torch.models.dataset import WSIPatchDataset
-from tiatoolbox_tpu_torch.models.engine.engine_abc import EngineABC
+from tiatoolbox_tpu_torch.models.engine.engine_abc import EngineABC, EngineABCRunParams
 from tiatoolbox_tpu_torch.models.models_abc import ModelABC
 from tiatoolbox_tpu_torch.ops.canvas import DeviceCanvas, normalize_rows
 from tiatoolbox_tpu_torch.ops.region import BandPlan, extract_patches
@@ -112,6 +112,15 @@ def spill_bytes(*arrays) -> int:
     )
 
 
+class SemanticSegmentorRunParams(EngineABCRunParams, total=False):
+    """``SemanticSegmentor.run`` keyword arguments (JAX ``semantic_segmentor.py:27-29``, with keys)."""
+
+    memory_threshold: float
+    canvas_wire_dtype: str
+    region_feed: str
+    band_wire: str
+
+
 class SemanticSegmentor(EngineABC):
     """Whole-slide semantic segmentation with canvas stitching.
 
@@ -150,13 +159,7 @@ class SemanticSegmentor(EngineABC):
         self.spill_bytes = 0
         self._probe_cache: dict = {}
 
-    _RUN_PARAMS = (
-        *EngineABC._RUN_PARAMS,
-        "memory_threshold",
-        "canvas_wire_dtype",
-        "region_feed",
-        "band_wire",
-    )
+    _RUN_PARAMS = tuple(SemanticSegmentorRunParams.__annotations__)
 
     # -- data ----------------------------------------------------------------
 

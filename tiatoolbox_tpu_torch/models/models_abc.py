@@ -21,6 +21,10 @@ methods keep the JAX names:
 - ``postproc_func`` (:330) is the host post-processing the engines apply
   to the model's outputs: ``postproc`` (the identity) unless the caller
   sets one.
+
+``load_torch_model`` (:386) loads a ``.pth`` ``state_dict`` (or a flax
+``.npz``, through the converter) into a model, and ``model_to`` (:396)
+moves it to a device; JAX's is a no-op, as JAX places arrays itself.
 """
 
 from __future__ import annotations
@@ -142,3 +146,26 @@ class ModelABC(nn.Module):
     def infer_batch(cls, model: "ModelABC", batch_data, device=None) -> np.ndarray:
         """Forward a uint8 NHWC batch and return the output as numpy."""
         return cls.infer_batch_device(model, batch_data, device).cpu().numpy()
+
+
+def load_torch_model(model: ModelABC, weights) -> ModelABC:
+    """Load a checkpoint into ``model`` and return it (JAX ``models_abc.py:386-393``).
+
+    ``weights`` is a torch ``state_dict`` file (``.pth``, strict, as upstream's
+    ``torch.load`` + ``load_state_dict``) or a flax ``.npz``, which goes through
+    the port's converter.
+    """
+    from tiatoolbox_tpu_torch.models.architecture import load_weights
+
+    load_weights(model, weights)
+    return model
+
+
+def model_to(model: ModelABC, device: str | torch.device | None = None) -> ModelABC:
+    """Move ``model`` to ``device`` (``rcParam["device"]`` by default) and return it
+    (JAX ``models_abc.py:396-403``).
+
+    Raises:
+        RuntimeError: CUDA is asked for and absent (``resolve_device``).
+    """
+    return model.to(resolve_device(device))

@@ -1,8 +1,9 @@
 """Region-read helpers on arrays (counterpart of ``tiatoolbox_tpu/utils/image.py``).
 
 Copied from ``tiatoolbox_tpu/utils/image.py:26-420``: the padding and
-overlap algebra and ``sub_pixel_read``, which ``VirtualWSIReader`` reads
-through. Resampling goes through the port's ``imresize``.
+overlap algebra, ``conv_out_size`` (:50), ``crop_and_pad_edges`` (:96),
+``safe_padded_read`` (:129) and ``sub_pixel_read``, which
+``VirtualWSIReader`` reads through. Resampling goes through the port's ``imresize``.
 """
 
 from __future__ import annotations
@@ -19,6 +20,9 @@ from tiatoolbox_tpu_torch.utils.transforms import (
     locsize2bounds,
     pad_bounds,
 )
+
+PADDING_TO_BOUNDS = np.array([-1, -1, 1, 1])
+
 
 def normalize_padding_size(padding) -> np.ndarray:
     """Normalize padding to length-4 (left, top, right, bottom).
@@ -37,6 +41,11 @@ def normalize_padding_size(padding) -> np.ndarray:
     if size == 2:
         return np.tile(padding, 2)
     return np.array(padding)
+
+
+def conv_out_size(in_size, kernel_size=1, padding=0, stride=1) -> np.ndarray:
+    """Convolution output-size formula (floor((n - k + 2p) / s) + 1)."""
+    return (np.floor((in_size - kernel_size + 2 * padding) / stride) + 1).astype(int)
 
 
 def find_padding(read_location, read_size, image_size) -> np.ndarray:
@@ -78,6 +87,110 @@ def make_bounds_size_positive(bounds) -> tuple:
         top, bottom = bottom, top
         flip_ud = True
     return np.array([left, top, right, bottom]), flip_lr, flip_ud
+
+
+def crop_and_pad_edges(
+    bounds,
+    max_dimensions,
+    region: np.ndarray,
+    pad_mode: str | None = "constant",
+    pad_constant_values=0,
+) -> np.ndarray:
+    """Crop a region to valid image area then pad back to requested size."""
+    loc, size = bounds2locsize(bounds)
+    if np.min(max_dimensions) < 0:
+        msg = "Max dimensions must be >= 0."
+        raise ValueError(msg)
+    if np.min(size) <= 0:
+        msg = "Bounds must have size (width and height) > 0."
+        raise ValueError(msg)
+
+    padding = find_padding(loc, size, max_dimensions)
+    if region.ndim > 2:
+        padding = np.concatenate([padding, [[0, 0]]])
+    if np.all(padding == 0):
+        return region
+
+    overlap = find_overlap(loc, size, max_dimensions)
+    overlap = np.maximum(overlap - np.tile(loc, 2), 0)
+    crop = region[bounds2slices(overlap)]
+    if pad_mode in ("none", None):
+        return crop
+    crop = np.array(crop)
+    if pad_mode == "constant":
+        return np.pad(crop, padding, mode="constant", constant_values=pad_constant_values)
+    return np.pad(crop, padding, mode=pad_mode)
+
+
+def safe_padded_read(
+    image: np.ndarray,
+    bounds,
+    stride=1,
+    padding=0,
+    pad_mode: str | None = "constant",
+    pad_constant_values=0,
+    pad_kwargs: dict | None = None,
+) -> np.ndarray:
+    """Read integer bounds from an array, padding out-of-bounds areas.
+
+    Same contract as reference ``image.py:298-444``: bounds may extend
+    outside the image; the outside area is filled via np.pad with
+    ``pad_mode`` (or cropped away when pad_mode is None/"none").
+    """
+    if pad_kwargs is None:
+        pad_kwargs = {}
+    if pad_mode == "constant" and "constant_values" not in pad_kwargs:
+        pad_kwargs["constant_values"] = pad_constant_values
+
+    if not issubclass(np.array(bounds).dtype.type, (int, np.integer)):
+        msg = "Bounds must be integers."
+        raise TypeError(msg)
+    padding_array = np.array(padding)
+    if np.any(padding_array < 0):
+        msg = "Padding cannot be negative."
+        raise ValueError(msg)
+    padding_array = normalize_padding_size(padding_array)
+
+    if np.size(stride) not in (1, 2):
+        msg = "Stride must be of size 1 or 2."
+        raise ValueError(msg)
+    stride_arr = np.tile(stride, 2) if np.size(stride) == 1 else np.array(stride)
+    x_stride, y_stride = stride_arr
+
+    padded_bounds = bounds + (padding_array * PADDING_TO_BOUNDS)
+    img_size = np.array(image.shape[:2][::-1])
+    limits = np.tile(img_size, 2)
+    over = padded_bounds >= limits
+    under = padded_bounds < 0
+    if not np.any(over | under):
+        left, top, right, bottom = padded_bounds
+        return image[top:bottom:y_stride, left:right:x_stride, ...]
+
+    clamped = np.clip(padded_bounds, 0, limits)
+    clamped = np.round(clamped).astype(int)
+    left, top, right, bottom = clamped
+    region = image[top:bottom:y_stride, left:right:x_stride, ...]
+
+    if not np.all(np.isin(stride_arr, [None, 1])):
+        bounds = conv_out_size(np.array(bounds), stride=np.tile(stride_arr, 2))
+        padded_bounds = bounds + (padding_array * PADDING_TO_BOUNDS)
+        img_size = conv_out_size(img_size, stride=stride_arr)
+
+    if pad_mode in ("none", None):
+        return region
+
+    # Edge padding required to fill gaps between clamped and padded bounds.
+    before = np.minimum([0, 0], padded_bounds[2:])
+    after = np.maximum(img_size, padded_bounds[:2] - img_size)
+    edge = padded_bounds - np.concatenate([before, after])
+    edge[:2] = np.minimum(edge[:2], [0, 0])
+    edge[2:] = np.maximum(edge[2:], [0, 0])
+    edge = np.abs(edge)
+    left, top, right, bottom = edge
+    pad_width = [(top, bottom), (left, right)]
+    if region.ndim == 3:
+        pad_width += [(0, 0)]
+    return np.pad(np.array(region), pad_width, mode=pad_mode or "constant", **pad_kwargs)
 
 
 def sub_pixel_read(

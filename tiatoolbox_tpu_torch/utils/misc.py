@@ -20,18 +20,36 @@ port's encoder (OpenCV's bytes) and PNG through ``zlib``.
 ``read_locations`` (:193) reads point annotations from an ndarray, ``.npy``,
 ``.csv`` or ``.json`` into a ``LocationTable``, a small numpy-backed table
 with the columns of JAX's DataFrame (the card machine has no pandas).
+
+The file and data helpers are JAX's, copied (:24-40, :176-190, :244-330,
+:401-586): ``split_path_name_ext``, ``grab_files_from_dir``,
+``cast_to_min_dtype``, ``unzip_data`` (``zipfile``), ``save_yaml`` (the
+port's YAML writer, ``utils/yaml_lite.py``: ``yaml.dump``'s text),
+``save_as_json``, ``download_data`` (``urllib``), ``select_device``
+(``"cuda"`` or ``"cpu"``), ``string_to_tuple``, ``ppu2mpp``,
+``get_zarr_array`` (on ``zarrlite``), and the HoVer-Net ``.dat`` helpers
+``make_valid_poly``, ``anns_from_hoverdict``, ``make_default_dict``,
+``add_from_dat``, ``store_from_dat``, ``save_annotations`` and
+``save_qupath_json``. JAX reads a ``.dat`` with ``joblib.load``; the port
+reads the same uncompressed joblib stream (a pickle whose arrays follow
+their ``NumpyArrayWrapper`` as raw bytes) with ``pickle``, and a plain
+pickle too. ``load_stain_matrix`` is re-exported from
+``tools/stainnorm.py``.
 """
 
 from __future__ import annotations
 
 import csv
 import json
+import pickle
 import struct
+import zipfile
 import zlib
 from pathlib import Path
 
 import numpy as np
 
+from tiatoolbox_tpu_torch import logger
 from tiatoolbox_tpu_torch.utils.exceptions import FileNotSupportedError
 from tiatoolbox_tpu_torch.utils.imagecodec import PNG_SIGNATURE, imdecode
 
@@ -478,3 +496,332 @@ def write_probability_heatmap_as_ome_tiff(
     )
     writer.write(levels)
     return Path(image_path)
+
+
+def __getattr__(name: str):
+    """``load_stain_matrix`` lives in ``tools/stainnorm.py``, which imports this module."""
+    if name == "load_stain_matrix":
+        from tiatoolbox_tpu_torch.tools.stainnorm import load_stain_matrix
+
+        return load_stain_matrix
+    msg = f"module {__name__!r} has no attribute {name!r}"
+    raise AttributeError(msg)
+
+
+def split_path_name_ext(full_path) -> tuple[Path, str, list[str]]:
+    """Split a path into directory, basename, and list of suffixes."""
+    input_path = Path(full_path)
+    return input_path.parent.absolute(), input_path.name, input_path.suffixes
+
+
+def grab_files_from_dir(input_path, file_types=("*.jpg", "*.png", "*.tif")) -> list:
+    """List files in a directory matching the given glob patterns."""
+    input_path = Path(input_path)
+    if isinstance(file_types, str):
+        file_types = tuple(file_types.split(","))
+    files_grabbed: list[Path] = []
+    for files in file_types:
+        files_grabbed.extend(input_path.glob(str(files)))
+    return list(files_grabbed)
+
+
+def cast_to_min_dtype(array: np.ndarray) -> np.ndarray:
+    """Cast an integer array to the smallest dtype that holds its range."""
+    if array.size == 0:
+        return array
+    lo, hi = array.min(), array.max()
+    for dtype in (np.uint8, np.int8, np.uint16, np.int16, np.uint32, np.int32):
+        info = np.iinfo(dtype)
+        if info.min <= lo and hi <= info.max:
+            return array.astype(dtype)
+    return array
+
+
+def unzip_data(zip_path, save_path, *, del_zip: bool = True) -> None:
+    """Extract a zip archive to a directory."""
+    with zipfile.ZipFile(zip_path, "r") as zf:
+        zf.extractall(path=save_path)
+    if del_zip:
+        Path(zip_path).unlink()
+
+
+def save_yaml(input_dict: dict, output_path="output.yaml", *, parents: bool = False, exist_ok: bool = False) -> None:
+    """Write a dict to a YAML file: the text ``yaml.dump`` writes (``utils/yaml_lite.py``)."""
+    from tiatoolbox_tpu_torch.utils import yaml_lite
+
+    path = Path(output_path)
+    if parents:
+        path.parent.mkdir(parents=True, exist_ok=True)
+    if not exist_ok and path.exists():
+        msg = "File already exists."
+        raise FileExistsError(msg)
+    text = yaml_lite.dump(input_dict)
+    with path.open("w") as fh:
+        fh.write(text)
+
+
+def save_as_json(data: dict | list, save_path, *, parents: bool = False, exist_ok: bool = False) -> None:
+    """Write JSON-safe data to a file, converting numpy scalars/arrays."""
+
+    def walk(obj):
+        if isinstance(obj, dict):
+            return {(k.item() if isinstance(k, np.generic) else k): walk(v) for k, v in obj.items()}
+        if isinstance(obj, (list, tuple)):
+            return [walk(v) for v in obj]
+        if isinstance(obj, np.ndarray):
+            return walk(obj.tolist())
+        if isinstance(obj, np.generic):
+            return obj.item()
+        if isinstance(obj, Path):
+            return str(obj)
+        return obj
+
+    path = Path(save_path)
+    if parents:
+        path.parent.mkdir(parents=True, exist_ok=True)
+    if not exist_ok and path.exists():
+        msg = "File already exists."
+        raise FileExistsError(msg)
+    with path.open("w") as fh:
+        json.dump(walk(data), fh)
+
+
+def download_data(url: str, save_path, *, overwrite: bool = False) -> Path:
+    """Download a file from a URL (no-op if cached and not overwrite).
+
+    A failed download raises ``ConnectionError`` naming the URL.
+    """
+    save_path = Path(save_path)
+    if save_path.exists() and not overwrite:
+        return save_path
+    save_path.parent.mkdir(parents=True, exist_ok=True)
+    import urllib.request
+
+    try:
+        urllib.request.urlretrieve(url, str(save_path))  # noqa: S310
+    except Exception as exc:
+        msg = f"Could not download {url}: {exc}"
+        raise ConnectionError(msg) from exc
+    return save_path
+
+
+def select_device(*, on_gpu: bool | None = None) -> str:
+    """``"cpu"`` when ``on_gpu`` is False, ``"cuda"`` when it is True, else
+    ``rcParam["device"]``.
+
+    The answer goes through ``resolve_device``, so asking for the card where
+    there is none raises instead of falling back to the CPU. JAX's returns
+    its platform name (``"tpu"``, ``"gpu"`` or ``"cpu"``).
+    """
+    from tiatoolbox_tpu_torch import resolve_device
+
+    if on_gpu is False:
+        return "cpu"
+    return str(resolve_device("cuda" if on_gpu else None))
+
+
+def string_to_tuple(in_str: str) -> tuple[str, ...]:
+    """Split a comma separated string into a tuple of strings."""
+    return tuple(substring.strip() for substring in in_str.split(","))
+
+
+def ppu2mpp(ppu: float, units: str | int) -> float:
+    """Pixels-per-unit to microns-per-pixel.
+
+    Args:
+        ppu: Pixels per unit.
+        units: "m"/"cm"/"mm"/"inch" or TIFF ResolutionUnit codes
+            2 (inch) / 3 (cm).
+    """
+    microns_per_unit = {
+        "meter": 1e6,
+        "m": 1e6,
+        "centimeter": 1e4,
+        "cm": 1e4,
+        "mm": 1e3,
+        "inch": 25400,
+        "in": 25400,
+        2: 25400,
+        3: 1e4,
+    }
+    if units not in microns_per_unit:
+        msg = f"Invalid units: {units}"
+        raise ValueError(msg)
+    return 1 / ppu * microns_per_unit[units]
+
+
+def get_zarr_array(zarr_array) -> np.ndarray:
+    """Materialise a zarr-backed / array-like object as a numpy array."""
+    from tiatoolbox_tpu_torch.utils.zarrlite import ZarrArray
+
+    if isinstance(zarr_array, ZarrArray):
+        return zarr_array[:]
+    return np.array(zarr_array).astype(float)
+
+
+def make_valid_poly(poly, origin: tuple[float, float] | None = None):
+    """Translate to ``origin`` and repair degenerate polygons.
+
+    Validity means at least 3 distinct points and nonzero ring area; an
+    invalid polygon is fixed with a small buffer.
+    """
+    from tiatoolbox_tpu_torch.annotation.geometry import Polygon
+
+    if origin is not None and tuple(origin) != (0, 0):
+        shift = np.asarray(origin, dtype=float)
+        if isinstance(poly, Polygon):
+            poly = Polygon(poly.shell - shift, [h - shift for h in poly.holes])
+        else:
+            poly = type(poly)(poly.coords - shift)
+    if isinstance(poly, Polygon):
+        distinct = np.unique(poly.shell[:-1], axis=0)
+        if len(distinct) < 3 or poly.area == 0:
+            logger.warning("Invalid geometry found, fix using buffer().")
+            return poly.buffer(0.01)
+    return poly
+
+
+def anns_from_hoverdict(data: dict, props: list, typedict: dict | None, origin: tuple[float, float], scale_factor) -> list:
+    """HoVer-Net-style detection dict to an ``Annotation`` list."""
+    from tiatoolbox_tpu_torch.annotation.geometry import geojson_to_geometry
+    from tiatoolbox_tpu_torch.annotation.storage import Annotation
+
+    annotations = []
+    for ann in data.values():
+        geom = geojson_to_geometry(
+            {
+                "type": ann.get("geom_type", "Polygon"),
+                "coordinates": (np.asarray(scale_factor) * np.array([ann["contour"]])).tolist(),
+            }
+        )
+        properties = {
+            prop: (typedict[ann[prop]] if prop == "type" and typedict is not None else ann[prop])
+            for prop in props[3:]
+            if prop in ann
+        }
+        annotations.append(Annotation(make_valid_poly(geom, origin), properties))
+    return annotations
+
+
+def make_default_dict(data: dict, subcat: str) -> dict:
+    """Auto type-name dict for one head of a multi-head ``.dat``."""
+    types = {data[subcat][ann_id]["type"] for ann_id in data[subcat] if "type" in data[subcat][ann_id]}
+    num_chars = min(3, len(subcat))
+    return {t: f"{subcat[:num_chars]}: {t}" for t in types}
+
+
+class _JoblibArray:
+    """Stand-in for ``joblib.numpy_pickle.NumpyArrayWrapper``: the raw array follows it."""
+
+    def __setstate__(self, state: dict) -> None:
+        self.__dict__.update(state)
+
+    def read(self, fh) -> np.ndarray:
+        count = int(np.prod(self.shape, dtype=np.int64)) if len(self.shape) else 1
+        if self.dtype.hasobject:
+            return pickle.load(fh)  # noqa: S301 - the .dat file is the caller's
+        if self.__dict__.get("numpy_array_alignment_bytes") is not None:
+            padding = int.from_bytes(fh.read(1), byteorder="little")
+            fh.read(padding)
+        data = fh.read(count * self.dtype.itemsize)
+        if len(data) != count * self.dtype.itemsize:
+            msg = "the .dat file ends inside an array."
+            raise FileNotSupportedError(msg)
+        array = np.frombuffer(data, dtype=self.dtype, count=count).copy()
+        if self.order == "F":
+            return array.reshape(self.shape[::-1]).transpose()
+        return array.reshape(self.shape)
+
+
+class _DatUnpickler(pickle._Unpickler):  # noqa: SLF001 - the pure-Python unpickler lets BUILD be overridden
+    """Reads a plain pickle, or an uncompressed joblib stream, as ``joblib.load`` does."""
+
+    dispatch = pickle._Unpickler.dispatch.copy()  # noqa: SLF001
+
+    def __init__(self, fh) -> None:
+        super().__init__(fh)
+        self.file_handle = fh
+
+    def find_class(self, module: str, name: str):
+        if module == "joblib.numpy_pickle" and name == "NumpyArrayWrapper":
+            return _JoblibArray
+        if module.startswith("joblib"):
+            msg = f"the port reads joblib's NumpyArrayWrapper only, not {module}.{name}."
+            raise FileNotSupportedError(msg)
+        return super().find_class(module, name)
+
+    def load_build(self) -> None:
+        pickle._Unpickler.load_build(self)  # noqa: SLF001
+        if isinstance(self.stack[-1], _JoblibArray):
+            self.stack.append(self.stack.pop().read(self.file_handle))
+
+    dispatch[pickle.BUILD[0]] = load_build
+
+
+_COMPRESSED_MAGIC = {b"\x78": "zlib", b"Z": "zlib", b"\x1f": "gzip", b"B": "bz2", b"\xfd": "xz", b"\x5d": "lzma",
+                     b"\x04": "lz4"}  # a pickle starts with b"\x80" (protocol 2+) or an opcode
+
+
+def _load_dat(fp) -> dict:
+    """The dict of a ``.dat`` file: a pickle, or joblib's uncompressed stream."""
+    with Path(fp).open("rb") as fh:
+        head = fh.read(1)
+        if head in _COMPRESSED_MAGIC:
+            msg = f"compressed joblib files ({_COMPRESSED_MAGIC[head]}) are not read by the port: {fp}"
+            raise FileNotSupportedError(msg)
+        fh.seek(0)
+        return _DatUnpickler(fh).load()
+
+
+def add_from_dat(store, fp, scale_factor=(1, 1), typedict: dict | None = None, origin: tuple[float, float] = (0, 0)) -> None:
+    """Load a HoVer-Net/cerberus ``.dat`` detection file into a store.
+
+    A dict of instances (or category -> instances for multi-head cerberus
+    output); the scale factor is inferred from stored base/proc resolutions
+    when present.
+    """
+    data = _load_dat(fp)
+    props = list(data[next(iter(data.keys()))].keys())
+    if "base_resolution" in data and "proc_resolution" in data:
+        scale_factor = data["proc_resolution"]["resolution"] / data["base_resolution"]["resolution"]
+        logger.info("Scale factor inferred from resolutions: %s", scale_factor)
+    if "contour" not in props:
+        # cerberus format: objects subdivided into categories
+        anns = []
+        for subcat in data:
+            if subcat in {"resolution", "proc_dimensions", "base_dimensions"} or "resolution" in subcat:
+                continue
+            sub_props = next(iter(data[subcat].values()))
+            if not isinstance(sub_props, dict):
+                continue
+            sub_props = list(sub_props.keys())
+            typedict_sub = make_default_dict(data, subcat) if typedict is None else typedict[subcat]
+            anns.extend(anns_from_hoverdict(data[subcat], sub_props, typedict_sub, origin, scale_factor))
+    else:
+        anns = anns_from_hoverdict(data, props, typedict, origin, scale_factor)
+    logger.info("Added %d annotations.", len(anns))
+    store.append_many(anns)
+
+
+def store_from_dat(fp, scale_factor=(1, 1), typedict: dict | None = None, origin: tuple[float, float] = (0, 0), cls=None):
+    """New annotation store populated from a ``.dat`` detection file."""
+    from tiatoolbox_tpu_torch.annotation.storage import SQLiteStore
+
+    store = (cls or SQLiteStore)()
+    add_from_dat(store, fp, scale_factor, typedict=typedict, origin=origin)
+    return store
+
+
+def save_annotations(save_path: Path, store) -> Path:
+    """Persist a store to ``save_path`` (forced ``.db`` extension)."""
+    save_path = Path(save_path).with_suffix(".db")
+    store.dump(str(save_path))
+    return save_path
+
+
+def save_qupath_json(save_path: Path, qupath_json: dict) -> Path:
+    """Write a QuPath GeoJSON dict to ``save_path`` (forced ``.json``)."""
+    save_path = Path(save_path).with_suffix(".json")
+    with save_path.open("w") as fh:
+        json.dump(qupath_json, fh, indent=2)
+    return save_path

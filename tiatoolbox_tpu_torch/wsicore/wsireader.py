@@ -2,7 +2,8 @@
 
 ``WSIReader`` keeps the resolution algebra and the template ``read_rect``
 (:414) / ``read_bounds`` (:479) over an in-bounds level read, plus
-``read_region``, ``slide_thumbnail`` and ``tissue_mask`` (:534), and the
+``read_region``, ``slide_thumbnail``, ``tissue_mask`` (:534),
+``convert_resolution_units`` (:335) and ``save_tiles`` (:563), and the
 read-time post-processing ``post_proc`` (:115-146; ``"auto"`` composites
 multiplex TIFF and array slides to RGB through
 ``utils.postproc_defs.MultichannelToRGB``). ``WSIReader.open`` (:60-113)
@@ -299,6 +300,76 @@ class WSIReader:
         output_size = np.round(level_size * post_read_scale).astype(int)
         return (read_level, level_bounds, output_size, post_read_scale)
 
+    @staticmethod
+    def _check_unit_conversion_integrity(
+        input_unit, output_unit, baseline_mpp, baseline_power
+    ) -> None:
+        if input_unit not in {"mpp", "power", "level", "baseline"}:
+            msg = (
+                "Invalid input_unit: argument accepts only one of the following "
+                "options: `'mpp'`, `'power'`, `'level'`, `'baseline'`."
+            )
+            raise ValueError(msg)
+        if output_unit not in {"mpp", "power", "baseline", None}:
+            msg = (
+                "Invalid output_unit: argument accepts only one of the following "
+                "options: `'mpp'`, `'power'`, `'baseline'`, or None (to return "
+                "all units)."
+            )
+            raise ValueError(msg)
+        if baseline_mpp is None and input_unit == "mpp":
+            msg = (
+                "Missing 'mpp': `input_unit` has been set to 'mpp' while there "
+                "is no information about 'mpp' in WSI meta data."
+            )
+            raise ValueError(msg)
+        if baseline_power is None and input_unit == "power":
+            msg = (
+                "Missing 'objective_power': `input_unit` has been set to 'power' "
+                "while there is no information about 'objective_power' in WSI "
+                "meta data."
+            )
+            raise ValueError(msg)
+
+    def convert_resolution_units(self, input_res, input_unit, output_unit=None):
+        """Convert a resolution between mpp/power/baseline unit systems (JAX ``wsireader.py:335-378``)."""
+        baseline_mpp = self.info.mpp
+        baseline_power = self.info.objective_power
+        self._check_unit_conversion_integrity(
+            input_unit, output_unit, baseline_mpp, baseline_power
+        )
+        out: dict = {"mpp": None, "power": None, "baseline": None}
+        if input_unit == "mpp":
+            if isinstance(input_res, (list, tuple, np.ndarray)):
+                out["mpp"] = np.array(input_res)
+            else:
+                out["mpp"] = np.array([input_res, input_res])
+            out["baseline"] = baseline_mpp[0] / out["mpp"][0]
+            if baseline_power is not None:
+                out["power"] = out["baseline"] * baseline_power
+        elif input_unit == "power":
+            out["baseline"] = input_res / baseline_power
+            out["power"] = input_res
+        elif input_unit == "level":
+            scales = self.info.relative_level_scales(input_res, input_unit)
+            out["baseline"] = scales[0]
+            if baseline_power is not None:
+                out["power"] = out["baseline"] * baseline_power
+        else:  # baseline
+            out["baseline"] = input_res
+            if baseline_power is not None:
+                out["power"] = baseline_power * out["baseline"]
+        if baseline_mpp is not None and input_unit != "mpp":
+            out["mpp"] = baseline_mpp / out["baseline"]
+        result = out[output_unit] if output_unit is not None else out
+        if result is None:
+            logger.warning(
+                "Although unit conversion from input_unit has been done, the "
+                "requested output_unit is returned as None. Probably due to "
+                "missing 'mpp' or 'objective_power' in slide's meta data.",
+            )
+        return result
+
     # -- reading -----------------------------------------------------------------
 
     def _read_level_within(self, location, size, level: int) -> np.ndarray:
@@ -480,6 +551,65 @@ class WSIReader:
             masker = tissuemask.OtsuTissueMasker(**masker_kwargs)
         mask_img = masker.fit_transform([thumbnail])[0]
         return VirtualWSIReader(mask_img.astype(np.uint8), info=self.info, mode="bool")
+
+
+    def save_tiles(
+        self,
+        output_dir,
+        tile_objective_value: int,
+        tile_read_size: tuple[int, int],
+        tile_format: str = ".jpg",
+        *,
+        verbose: bool = False,
+    ) -> None:
+        """Save slide tiles at a given objective power to a directory (JAX ``wsireader.py:563-609``).
+
+        Tiles and the thumbnail are written through the port's ``imwrite``
+        (its JPEG encoder gives cv2's bytes), with ``Output.csv`` beside them.
+        """
+        from tiatoolbox_tpu_torch.utils.misc import imwrite
+
+        output_dir = Path(output_dir)
+        if self.input_path is not None:
+            output_dir = output_dir / self.input_path.name
+        output_dir.mkdir(parents=True, exist_ok=True)
+
+        rescale = self.info.objective_power / tile_objective_value
+        if not float(rescale).is_integer():
+            msg = (
+                "Tile objective value must be an integer multiple of the "
+                "objective power of the slide."
+            )
+            raise ValueError(msg)
+        w, h = self.slide_dimensions(tile_objective_value, "power")
+        tw, th = int(tile_read_size[0]), int(tile_read_size[1])
+        import csv
+
+        rows = []
+        iter_idx = 0
+        for y in range(0, h, th):
+            for x in range(0, w, tw):
+                cw, ch = min(tw, w - x), min(th, h - y)
+                tile = self.read_rect(
+                    location=(int(x * rescale), int(y * rescale)),
+                    size=(cw, ch),
+                    resolution=tile_objective_value,
+                    units="power",
+                )
+                name = f"Tile_{tile_objective_value}_{x}_{y}{tile_format}"
+                imwrite(output_dir / name, tile)
+                rows.append([iter_idx, name, x, y, cw, ch])
+                iter_idx += 1
+                if verbose:
+                    logger.info("Saved tile %s", name)
+        thumb = self.slide_thumbnail()
+        imwrite(output_dir / "slide_thumbnail.jpg", thumb)
+        with (output_dir / "Output.csv").open("w", newline="") as fh:
+            writer = csv.writer(fh)
+            writer.writerow(
+                ["iter", "Tile_Name", "start_w", "start_h", "end_w", "end_h"]
+            )
+            writer.writerows(rows)
 
 
 class VirtualWSIReader(WSIReader):
