@@ -40,13 +40,28 @@ temporary directory, and drives the port's entry points on them:
   on the card, the per-patch feed with the Otsu mask, and tile mode with
   the host Sobel front-end; the watershed and contours run on the host in
   the port's C++;
+- "wire", the yuv420 wire: K8 (csrc/colorconv.cu) held against its plain
+  version bit for bit (the batch entry at B's 64x224^2 in float32 and
+  bfloat16 and over every (Y, Cb, Cr) triple, the band entry at C's first
+  band and a ragged band) and timed beside its bound; phase B with
+  wire_format="yuv420" (one K8 launch a batch, its first patches against
+  the CPU run of the same path) and phase C's region feed with
+  band_wire="yuv420" (one K8 launch a band, its first batch of patches
+  against the CPU's pack, unpack and cut bit for bit), each against its
+  RGB run (probabilities, classes, pack and wire seconds and bytes);
+- "dp", batch data parallelism: B, C and D under a mesh of two replicas on
+  cuda:0 and under the mesh of every card, against one device (B within
+  1e-5, C within 1e-4, D's instances identical on the spill phase's
+  2048x1536 slide, which this phase writes); wire and dp together must
+  take 25 s at most;
 - "outputs", the engines' writers: phase B's, C's and D's results saved as
-  zarr, an SQLite AnnotationStore, QuPath JSON (B, D) and an OME-TIFF
-  heatmap (C), each read back with the port's readers (zarr arrays bit for
+  zarr, an SQLite AnnotationStore (B, D), QuPath JSON (B, D) and an
+  OME-TIFF heatmap (C), each read back with the port's readers (zarr arrays bit for
   bit, one box a patch, one polygon an instance, the heatmap's level 0 bit
   for bit), with each writer's seconds and bytes and SQLite's compile
   options (the R*Tree module is required), then one
-  run(output_type="annotationstore", save_dir=...) each for C and D;
+  run(output_type="annotationstore", save_dir=...) each for C and D (C's
+  store written there only, one polygon set of the map's classes);
 - "spill", the host canvas with the device canvas refused: phase C's engine
   on its slide and phase D's on bench config 5's 2048x1536 slide, each in
   RAM (memory_threshold 1.0) and spilled to zarr under save_dir/cache
@@ -138,8 +153,8 @@ temporary directory, and drives the port's entry points on them:
   SAM(dir) and the port's own safetensors reader), PromptSegmentor.run on
   two tiles of phase A's slide (a 1024^2 tile at baseline, and a 2400x1600
   area read at the mpp calc_mpp gives, 1500x1000) with two points, one box,
-  and a point and a box; the 1500x1000 tile's runs held against the same
-  checkpoint on the CPU (low-resolution logits and IoU scores, the share
+  and a point and a box; the 1500x1000 tile's point-and-box run held
+  against the same checkpoint on the CPU (low-resolution logits and IoU scores, the share
   of mask pixels that agree, the stores' annotation counts); the image
   encoder's ms per image and images/s at batch 4, the prompt encoder and
   mask decoder's ms per prompt, post_process_masks' ms and the peak
@@ -199,8 +214,9 @@ instances (the reference's scheme on these maps, 2004 of 2386 in JAX and
 the port on the CPU); every kernel is timed beside its
 plain version, a library call where one computes the same function, and its
 bound (the normalise kernel also beside a device copy of its bytes). The
-classifier's, the U-Net's and HoVer-Net's first batch, and each nucleus
-model's first patches, are held against the same model on the CPU, and one bfloat16 batch of each
+classifier's first batch, the U-Net's and HoVer-Net's first patches (2 and
+4), and each nucleus model's first patches, are held against the same model
+on the CPU, and one bfloat16 batch of each
 segmentation model against float32. The script prints a "kernels" line
 (K2 to K5 also at each nucleus model's, KongNet's, the tissue masks' and
 the tsef U-Net's shapes, named ``kernel[model]``),
@@ -273,6 +289,7 @@ from tiatoolbox_tpu_torch.models.engine.patch_predictor import PatchPredictor  #
 from tiatoolbox_tpu_torch.models.engine.prompt_segmentor import PromptSegmentor  # noqa: E402
 from tiatoolbox_tpu_torch.models.models_abc import ModelABC  # noqa: E402
 from tiatoolbox_tpu_torch.ops import canvas as canvas_ops  # noqa: E402
+from tiatoolbox_tpu_torch.ops import colorconv  # noqa: E402
 from tiatoolbox_tpu_torch.ops import hv_energy as energy_ops  # noqa: E402
 from tiatoolbox_tpu_torch.ops import region as region_ops  # noqa: E402
 from tiatoolbox_tpu_torch.ops.stain import (  # noqa: E402
@@ -282,7 +299,7 @@ from tiatoolbox_tpu_torch.ops.stain import (  # noqa: E402
     stain_transform,
     stain_transform_reference,
 )
-from tiatoolbox_tpu_torch.parallel import BatchLoader  # noqa: E402
+from tiatoolbox_tpu_torch.parallel import BatchLoader, mesh  # noqa: E402
 from tiatoolbox_tpu_torch.tools.patchextraction import get_patch_extractor  # noqa: E402
 from tiatoolbox_tpu_torch.tools.registration.wsi_registration import (  # noqa: E402
     DFBRegister,
@@ -851,7 +868,8 @@ def phase_predict(slide: Path, card: str) -> None:
     seconds = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated()
 
-    KEPT["B"] = {"engine": predictor, "slide": slide, "ioconfig": ioconfig, "result": output}
+    KEPT["B"] = {"engine": predictor, "slide": slide, "ioconfig": ioconfig, "result": output,
+                 "seconds": seconds, "stages": predictor.stages, "first": first}
     probs = output["probabilities"]
     check(len(probs) == len(expected), f"patch count {len(probs)} vs {len(expected)}")
     check(np.array_equal(output["coordinates"], expected.inputs), "patch coordinates")
@@ -927,6 +945,7 @@ SEG_SLIDE_WH = (6144, 4608)  # 0.25 mpp, 40x: 154 patches of 1024^2 at stride 45
 SEG_BATCH = 16
 # the per-patch run keeps the patches whose output cell is at least half tissue
 SEG_MIN_MASK_RATIO = 0.5
+SEG_CPU_PATCHES = 2  # of the first batch, held against the CPU
 SEG_KERNELS = {
     "scatter_accumulate": canvas_ops.scatter_accumulate,
     "normalize_rows": canvas_ops.normalize_rows,
@@ -1121,9 +1140,10 @@ def held_bitwise(got: torch.Tensor, want: torch.Tensor, what: str) -> float:
     bit; returns the largest absolute difference between them."""
     torch.cuda.synchronize()
     check(got.shape == want.shape and got.dtype == want.dtype, f"{what}: shape or dtype")
-    err = float((got.double() - want.double()).abs().max()) if got.numel() else 0.0
-    check(torch.equal(got, want), f"{what}: kernel != plain version, max abs diff {err}")
-    return err
+    if torch.equal(got, want):
+        return 0.0
+    err = float((got.double() - want.double()).abs().max())
+    check(False, f"{what}: kernel != plain version, max abs diff {err}")
 
 
 def sparsest_batch(recorder: CanvasRecorder) -> int:
@@ -1378,7 +1398,8 @@ def phase_segment(tmp: Path, card: str) -> list[dict]:
     region, region_rec, region_counts, region_result = run_segment_path(
         model, slide, ioconfig, card, "device-canvas+region-feed", n_slots, auto_get_mask=False
     )
-    KEPT["C"] = {"model": model, "slide": slide, "ioconfig": ioconfig, "result": region_result}
+    KEPT["C"] = {"model": model, "slide": slide, "ioconfig": ioconfig, "result": region_result,
+                 "seconds": region["seconds"], "stages": region["stages"]}
     check(all(n > 0 for n in region_counts.values()), f"region-feed launches {region_counts}")
     # K2 and K3 against their plain versions on the run's first batch and
     # canvas, which then go, so the next run's peak is its own
@@ -1412,17 +1433,18 @@ def phase_segment(tmp: Path, card: str) -> list[dict]:
         )
     scatter["max_abs_err"] = max(scatter["max_abs_err"], scatter_pp["max_abs_err"])
 
-    # the first batch of the region-feed run against the same model on the CPU
+    # the first patches of the region-feed run against the same model on the CPU
     kwargs = PRETRAINED_MODELS[SEG_MODEL]["architecture"]["kwargs"]
     cpu_model = UNetModel(**kwargs, device="cpu")
     cpu_model.load_state_dict(model.state_dict())
     t_cpu = time.perf_counter()
-    cpu_probs = UNetModel.infer_batch(cpu_model, first)
+    cpu_first = first[:SEG_CPU_PATCHES]
+    cpu_probs = UNetModel.infer_batch(cpu_model, cpu_first)
     with torch.inference_mode():
-        card_logits = model(on_card.float() / 255.0).cpu().double()
-        cpu_logits = cpu_model(torch.from_numpy(first).float() / 255.0).double()
+        card_logits = model(on_card[:SEG_CPU_PATCHES].float() / 255.0).cpu().double()
+        cpu_logits = cpu_model(torch.from_numpy(cpu_first).float() / 255.0).double()
     cpu_seconds = time.perf_counter() - t_cpu
-    cpu_err = float(np.abs(cpu_probs - card_probs).max())
+    cpu_err = float(np.abs(cpu_probs - card_probs[:SEG_CPU_PATCHES]).max())
     logit_err = float((card_logits - cpu_logits).abs().max())
     logit_scale = float(cpu_logits.abs().max())
     logit_spread = float((cpu_logits - cpu_logits.mean(dim=0)).abs().max())
@@ -1452,6 +1474,7 @@ def phase_segment(tmp: Path, card: str) -> list[dict]:
         {
             "phase": "segment_check",
             "first_batch": list(first.shape),
+            "cpu_patches": SEG_CPU_PATCHES,
             "cpu_seconds": cpu_seconds,
             "cpu_max_abs_diff": cpu_err,
             "cpu_logit_max_abs_diff": logit_err,
@@ -1501,6 +1524,7 @@ INST_MODEL = "hovernet_fast-pannuke"
 INST_SLIDE_WH = (4096, 3072)  # 0.25 mpp, 40x: 25 x 19 output cells of 164^2
 INST_BATCH = 32
 INST_MIN_MASK_RATIO = 0.5
+INST_CPU_PATCHES = 4  # of the first batch, held against the CPU
 # tile mode: a limit below the 12.6 Mpix canvas sends post-processing through
 # the 4-pass tile scheme (2048^2 tiles, the host Sobel front-end per tile)
 INST_TILE_LIMIT = 4096 * 2048
@@ -1924,14 +1948,14 @@ def phase_instance(tmp: Path, card: str) -> tuple[list[dict], dict]:
     )
     emit(tiled)
 
-    # the first batch against the same model on the CPU, and in bfloat16
+    # the first patches against the same model on the CPU, and the first batch in bfloat16
     kwargs = PRETRAINED_MODELS[INST_MODEL]["architecture"]["kwargs"]
     cpu_model = HoVerNet(**kwargs, device="cpu")
     cpu_model.load_state_dict(model.state_dict())
     t_cpu = time.perf_counter()
     with torch.inference_mode():
-        cpu_logits = cpu_model(torch.from_numpy(first).float())
-        card_logits = model(on_card.float())
+        cpu_logits = cpu_model(torch.from_numpy(first[:INST_CPU_PATCHES]).float())
+        card_logits = model(on_card[:INST_CPU_PATCHES].float())
     cpu_seconds = time.perf_counter() - t_cpu
     cpu_heads = [x.numpy() for x in HoVerNet._head_outputs(cpu_logits)]
     card_heads = [x.cpu().numpy() for x in HoVerNet._head_outputs(card_logits)]
@@ -1950,20 +1974,22 @@ def phase_instance(tmp: Path, card: str) -> tuple[list[dict], dict]:
     model_bf16.load_state_dict(model.state_dict())
     bf16_heads = HoVerNet.infer_batch(model_bf16, on_card)
     bf16_ms = time_ms(lambda: HoVerNet.infer_batch_device(model_bf16, on_card), 5)
-    fg_agree = float(((bf16_heads[0] >= 0.5) == (card_heads[0] >= 0.5)).mean())
+    f32_heads = HoVerNet.infer_batch(model, on_card)
+    fg_agree = float(((bf16_heads[0] >= 0.5) == (f32_heads[0] >= 0.5)).mean())
     check(all(bool(np.isfinite(x).all()) for x in bf16_heads), "bf16 heads finite")
     check(fg_agree >= 0.95, f"bf16 vs float32 foreground agreement {fg_agree} < 0.95")
     emit(
         {
             "phase": "instance_check",
             "first_batch": list(first.shape),
+            "cpu_patches": INST_CPU_PATCHES,
             "cpu_seconds": cpu_seconds,
             "cpu_relative_max_abs_diff": errs,
             "cpu_tp_agreement": float((card_heads[2] == cpu_heads[2]).mean()),
             "bf16_forward_ms_per_batch": bf16_ms,
-            "bf16_np_max_abs_diff": float(np.abs(bf16_heads[0] - card_heads[0]).max()),
-            "bf16_np_mean_abs_diff": float(np.abs(bf16_heads[0] - card_heads[0]).mean()),
-            "bf16_hv_max_abs_diff": float(np.abs(bf16_heads[1] - card_heads[1]).max()),
+            "bf16_np_max_abs_diff": float(np.abs(bf16_heads[0] - f32_heads[0]).max()),
+            "bf16_np_mean_abs_diff": float(np.abs(bf16_heads[0] - f32_heads[0]).mean()),
+            "bf16_hv_max_abs_diff": float(np.abs(bf16_heads[1] - f32_heads[1]).max()),
             "bf16_foreground_agreement": fg_agree,
             "card": card,
         }
@@ -2091,17 +2117,15 @@ def phase_outputs(tmp: Path, card: str) -> None:
     model, slide, ioconfig, result = kept["model"], kept["slide"], kept["ioconfig"], kept["result"]
     seg = SemanticSegmentor(model, batch_size=SEG_BATCH, verbose=False)
     scale = seg._calculate_scale_factor(seg.get_dataloader(slide, ioconfig=ioconfig, patch_mode=False))
-    written = write_each(seg, result, ("zarr", "annotationstore", "ome-tiff"), out / "C", slide.stem, scale)
+    # C's AnnotationStore is written once, by the engine's run below (about
+    # 40 s for its 235,000 polygons), not also by save_predictions
+    written = write_each(seg, result, ("zarr", "ome-tiff"), out / "C", slide.stem, scale)
     group = open_zarr(written["zarr"]["path"])
     t0 = time.perf_counter()
     for key in ("probabilities", "predictions"):
         check(np.array_equal(np.asarray(group[key]), result[key]), f"C zarr {key} bit for bit")
     zarr_read_seconds = time.perf_counter() - t0
-    rows = store_rows(written["annotationstore"]["path"])
     classes = {int(c) for c in np.unique(result["predictions"]) if c != 0}
-    types = {json.loads(props)["type"] for _, props in rows}
-    # a class seen only in specks of under 3 contour points has no polygon
-    check(len(rows) > 0 and types <= classes, f"C store classes {types} vs the map's {classes}")
     level0 = tiffio.TiffFile(written["ome-tiff"]["path"])
     page = level0.pages[0]
     heat = level0.read_region(0, (0, 0), (page.width, page.height))
@@ -2117,18 +2141,18 @@ def phase_outputs(tmp: Path, card: str) -> None:
     run_counts = all_counts()
     check(Path(ran) == out / "C_run" / f"{slide.stem}.db", f"C run wrote {ran}")
     check(run_counts["scatter_accumulate"] > 0 and run_counts["extract_patches"] > 0, f"C run launches {run_counts}")
-    ran_rows = store_rows(ran)
-    check(abs(len(ran_rows) - len(rows)) <= 0.005 * len(rows),
-          f"C run's store holds {len(ran_rows)} polygons, save_predictions' {len(rows)}")
+    rows = store_rows(ran)
+    types = {json.loads(props)["type"] for _, props in rows}
+    # a class seen only in specks of under 3 contour points has no polygon
+    check(len(rows) > 0 and types <= classes, f"C store classes {types} vs the map's {classes}")
     KEPT["render"] = {"C_store": Path(ran), "C_slide": slide, "C_predictions": result["predictions"],
                       "C_probabilities": result["probabilities"][..., 1]}
     line["C"] = {
-        "polygons": len(rows), "classes": sorted(classes), "scale_factor": list(scale),
+        "classes": sorted(classes), "scale_factor": list(scale),
         "writers": timing(written), "zarr_read_seconds": zarr_read_seconds,
-        "run_annotationstore": {"seconds": run_seconds, "polygons": len(ran_rows),
-                                "identical": ran_rows == rows, "launches": run_counts},
+        "run_annotationstore": {"seconds": run_seconds, "polygons": len(rows), "launches": run_counts},
     }
-    del group, heat, want, rows, ran_rows
+    del group, heat, want, rows
 
     # D: run 1's instances
     kept = KEPT["D"]
@@ -2218,9 +2242,7 @@ def phase_spill(tmp: Path, card: str) -> None:
     del ram, spilled, kept
 
     kept = KEPT.pop("D")
-    t0 = time.perf_counter()
-    slide = make_synthetic_slide(tmp / "config5.tiff", size=SPILL_SLIDE_WH, mpp=0.25, objective_power=40)
-    slide_seconds = time.perf_counter() - t0
+    slide, slide_seconds = KEPT.pop("spill_D_slide")  # written by the dp phase
     seg = HostCanvasMultiTask(kept["model"], batch_size=INST_BATCH, verbose=False)
     ram, spilled, runs = spill_pair(seg, slide, kept["ioconfig"], tmp / "spill_D")
     check(runs["zarr"]["path"] == "multitask-host-stitch", f"D spill path {runs['zarr']['path']}")
@@ -2230,6 +2252,354 @@ def phase_spill(tmp: Path, card: str) -> None:
     line["D"] = {**runs, "instances": n, "slide_seconds": slide_seconds}
     line["card"] = card
     emit(line)
+
+
+# -- the yuv420 wire and batch data parallelism ----------------------------------
+
+WIRE_DP_LIMIT_S = 25.0  # the wire and dp phases together
+WIRE_CPU_PATCHES = 8  # of B's first yuv batch, held against the CPU
+K8_SOURCE = "tiatoolbox_tpu_torch/csrc/colorconv.cu"
+# per pixel K8 reads 1.5 bytes of planes and writes 3 values
+K8_BYTES_PER_PIX = {torch.float32: 13.5, torch.bfloat16: 7.5, torch.uint8: 4.5}
+
+
+def every_yuv_triple() -> np.ndarray:
+    """Planes ``[64, 192, 2048]`` holding every (Y, Cb, Cr) triple: each image's
+    chroma is all 65,536 pairs, image k's 2x2 blocks hold luma 4k to 4k + 3."""
+    h, w = 128, 2048
+    pairs = np.arange(1 << 16)
+    planes = np.empty((64, h + h // 2, w), np.uint8)
+    offset = (np.arange(h)[:, None] % 2) * 2 + np.arange(w)[None, :] % 2
+    for k in range(64):
+        planes[k, :h] = 4 * k + offset
+    planes[:, h : h + h // 4] = (pairs & 255).astype(np.uint8).reshape(h // 4, w)
+    planes[:, h + h // 4 :] = (pairs >> 8).astype(np.uint8).reshape(h // 4, w)
+    return planes
+
+
+def k8_measured(fn, plain, pixels: int, dtype: torch.dtype, max_abs_err: float) -> dict:
+    """K8's row numbers: its time and its plain version's on the same input,
+    and the byte bound of ``pixels`` pixels out in ``dtype``."""
+    n_bytes = pixels * K8_BYTES_PER_PIX[dtype]
+    return {
+        "max_abs_err": max_abs_err,
+        "ms": time_ms(fn, 20),
+        "plain_ms": time_ms(plain, 5),
+        "bound_ms": _bound(n_bytes),
+        "bytes": n_bytes,
+        "library_ms": None,  # no single PyTorch call unpacks 4:2:0 planes
+    }
+
+
+def band_planes(slide: Path, dataset, plan) -> tuple[np.ndarray, np.ndarray]:
+    """The first band of ``plan`` read from ``slide``, and its packed planes."""
+    band = plan.bands[0]
+    img = WSIReader.open(slide).read_rect(
+        location=(band.read_x, band.read_y), size=(band.band_w, band.band_h),
+        resolution=dataset.resolution, units=dataset.units, coord_space="resolution",
+    )
+    return img, colorconv.rgb_image_to_yuv420(img)
+
+
+def check_k8(b_first: np.ndarray, c_band: np.ndarray, band_hw: tuple[int, int]) -> tuple[dict, dict, dict]:
+    """K8 against its plain version on the card, bit for bit: the batch entry
+    at B's 64x224^2 (float32 and bfloat16, divided by 255, and float32 over
+    every (Y, Cb, Cr) triple), the band entry at C's first band and at a
+    ragged band; and each entry's time beside its bound."""
+    planes = torch.from_numpy(colorconv.rgb_batch_to_yuv420(b_first)).to(DEVICE)
+    errs = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        errs[str(dtype)] = held_bitwise(
+            colorconv.yuv420_to_rgb(planes, dtype, scale=True),
+            colorconv.yuv420_batch_to_rgb_reference(planes, dtype, scale=True),
+            f"K8 batch {dtype} at B's first batch",
+        )
+    triples = torch.from_numpy(every_yuv_triple()).to(DEVICE)
+    errs["every_triple"] = held_bitwise(
+        colorconv.yuv420_to_rgb(triples), colorconv.yuv420_batch_to_rgb_reference(triples),
+        "K8 batch over every (Y, Cb, Cr)",
+    )
+    del triples
+    band = torch.from_numpy(c_band).to(DEVICE)
+    ragged = torch.from_numpy(colorconv.rgb_image_to_yuv420(synthetic_he_patch((113, 70), seed=3))).to(DEVICE)
+    for what, x, hw in (("C's first band", band, band_hw), ("a ragged 70x113 band", ragged, (70, 113))):
+        errs[what] = held_bitwise(
+            colorconv.yuv420_to_rgb(x, band_hw=hw), colorconv.unpack_yuv420_band_reference(x, hw),
+            f"K8 band at {what}",
+        )
+    n_pix = b_first.shape[0] * b_first.shape[1] * b_first.shape[2]
+    batch = k8_measured(
+        lambda: colorconv.yuv420_to_rgb(planes, torch.float32, scale=True),
+        lambda: colorconv.yuv420_batch_to_rgb_reference(planes, torch.float32, scale=True),
+        n_pix, torch.float32, max(errs.values()),
+    )
+    batch["bf16_ms"] = time_ms(lambda: colorconv.yuv420_to_rgb(planes, torch.bfloat16, scale=True), 20)
+    batch["bf16_bound_ms"] = _bound(n_pix * K8_BYTES_PER_PIX[torch.bfloat16])
+    band_row = k8_measured(
+        lambda: colorconv.yuv420_to_rgb(band, band_hw=band_hw),
+        lambda: colorconv.unpack_yuv420_band_reference(band, band_hw),
+        band_hw[0] * band_hw[1], torch.uint8, max(errs.values()),
+    )
+    band_row["band_hw"] = list(band_hw)
+    return batch, band_row, errs
+
+
+def max_abs_diff(a: np.ndarray, b: np.ndarray, rows: int = 256) -> float:
+    """``np.abs(a - b).max()`` a block of rows at a time, in one reused
+    buffer: a slide-sized map then costs no slide-sized temporary."""
+    buf = np.empty((min(rows, len(a)), *a.shape[1:]), np.result_type(a, b))
+    most = 0.0
+    for i in range(0, len(a), rows):
+        out = buf[: min(rows, len(a) - i)]
+        np.subtract(a[i : i + rows], b[i : i + rows], out=out)
+        most = max(most, float(np.abs(out, out=out).max()))
+    return most
+
+
+@contextlib.contextmanager
+def cudnn_tf32():
+    """cuDNN's TF32 convolutions, PyTorch's default, for runs held against
+    each other on the card rather than against the CPU."""
+    before = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32 = before
+
+
+@contextlib.contextmanager
+def step(steps: dict, name: str):
+    """Adds the seconds of the ``with`` body to ``steps[name]``."""
+    t0 = time.perf_counter()
+    try:
+        yield
+    finally:
+        steps[name] = steps.get(name, 0.0) + time.perf_counter() - t0
+
+
+def phase_wire(tmp: Path, card: str) -> list[dict]:
+    """The yuv420 wire: K8 held and timed, phase B with ``wire_format="yuv420"``
+    and phase C's region feed with ``band_wire="yuv420"``, each against its
+    RGB run. Returns K8's rows of the ``kernels`` line."""
+    t_phase = time.perf_counter()
+    line: dict = {"phase": "wire"}
+    steps: dict[str, float] = {}
+    # B: the predictor's model, slide and RGB result
+    kept_b = KEPT["B"]
+    model, slide, ioconfig, b_first = kept_b["engine"].model, kept_b["slide"], kept_b["ioconfig"], kept_b["first"]
+    # C: the U-Net, its slide and its region-feed result
+    kept_c = KEPT["C"]
+    seg_model, seg_slide, seg_ioconfig = kept_c["model"], kept_c["slide"], kept_c["ioconfig"]
+    res = seg_ioconfig.highest_input_resolution
+    with step(steps, "k8_inputs"):
+        seg_dataset = WSIPatchDataset(
+            seg_slide, patch_input_shape=tuple(seg_ioconfig.patch_input_shape),
+            stride_shape=tuple(seg_ioconfig.stride_shape), resolution=res["resolution"], units=res["units"],
+            patch_output_shape=tuple(seg_ioconfig.patch_output_shape), auto_get_mask=False,
+        )
+        plan = region_ops.BandPlan.build(
+            np.asarray(seg_dataset.inputs), seg_dataset.patch_input_shape, seg_dataset.stride_shape
+        )
+        band_rgb, c_band = band_planes(seg_slide, seg_dataset, plan)
+    hw = (plan.bands[0].band_h, plan.bands[0].band_w)
+    with step(steps, "k8_checks"):
+        batch_row, band_row, errs = check_k8(b_first, c_band, hw)
+    line["k8_max_abs_err"] = errs
+
+    # B on the yuv420 wire: one K8 launch a batch
+    model.to(DEVICE)
+    model.wire_format = "yuv420"
+    colorconv.yuv420_to_rgb.launches = 0
+    t0 = time.perf_counter()
+    predictor = PatchPredictor(model=model, batch_size=BATCH, verbose=False)
+    out = predictor.run([slide], patch_mode=False, ioconfig=ioconfig)[str(slide)]
+    b_seconds = steps["B_yuv_run"] = time.perf_counter() - t0
+    b_launches = colorconv.yuv420_to_rgb.launches
+    model.wire_format = "rgb"
+    rgb = kept_b["result"]
+    probs = out["probabilities"]
+    n_batches = -(-len(rgb["probabilities"]) // BATCH)
+    check(b_launches == n_batches, f"B on the yuv wire launched K8 {b_launches} times, not {n_batches}")
+    check(np.array_equal(out["coordinates"], rgb["coordinates"]), "B yuv coordinates")
+    check(bool(np.isfinite(probs).all()) and probs.shape == rgb["probabilities"].shape, "B yuv probabilities")
+    # its first patches against the CPU run of the same path: pack, plain unpack, forward
+    with step(steps, "B_cpu_check"):
+        cpu_model = CNNModel("resnet18", num_classes=9, device="cpu")
+        cpu_model.load_state_dict(model.state_dict())
+        cpu_planes = model.pack_wire(b_first[:WIRE_CPU_PATCHES])
+        cpu_probs = CNNModel.infer_batch(cpu_model, cpu_planes)
+    cpu_err = float(np.abs(cpu_probs - probs[:WIRE_CPU_PATCHES]).max())
+    check(cpu_err <= 1e-3, f"B yuv card vs CPU probabilities max abs diff {cpu_err} > 1e-3")
+    model.to("cpu")
+    b_stages = predictor.stages
+    line["B"] = {
+        "seconds": b_seconds, "rgb_seconds": kept_b["seconds"], "patches": len(probs),
+        "k8_launches": b_launches, "cpu_max_abs_diff": cpu_err,
+        "max_abs_diff_vs_rgb": float(np.abs(probs - rgb["probabilities"]).max()),
+        "argmax_agreement_vs_rgb": float((probs.argmax(1) == rgb["predictions"]).mean()),
+        "stages": b_stages, "rgb_stages": kept_b["stages"],
+    }
+    check(b_stages["wire"]["items"] * 2 == b_stages["pack"]["items"], f"B wire bytes {b_stages}")
+
+    # C's region feed on the yuv420 wire: one K8 launch a band
+    seg_model.to(DEVICE)
+    reset_segment_counts()
+    colorconv.yuv420_to_rgb.launches = 0
+    t0 = time.perf_counter()
+    seg = SemanticSegmentor(seg_model, batch_size=SEG_BATCH, verbose=False)
+    result = seg.run([seg_slide], patch_mode=False, ioconfig=seg_ioconfig, auto_get_mask=False,
+                     band_wire="yuv420")[str(seg_slide)]
+    c_seconds = steps["C_yuv_run"] = time.perf_counter() - t0
+    c_launches = colorconv.yuv420_to_rgb.launches
+    counts = segment_counts()
+    summary = seg.last_stage_summary
+    check(summary["path"] == "device-canvas+region-feed" and summary["band_wire"] == "yuv420",
+          f"C yuv path {summary['path']}, wire {summary.get('band_wire')}")
+    check(c_launches == len(plan.bands) == summary["n_bands"],
+          f"C on the yuv wire launched K8 {c_launches} times for {len(plan.bands)} bands")
+    check(all(n > 0 for n in counts.values()), f"C yuv launches {counts}")
+    rgb_c = kept_c["result"]
+    c_probs = result["probabilities"]
+    with step(steps, "C_map_checks"):
+        check(c_probs.shape == rgb_c["probabilities"].shape and bool(np.isfinite(c_probs).all()), "C yuv map")
+        # printed, not held: the seeded U-Net's classes move with a few levels of
+        # chroma, as with bf16 (held only to 0.8 agreement in the segment phase);
+        # the wire itself is held by K8 and the first batch below
+        c_agree = float((result["predictions"] == rgb_c["predictions"]).mean())
+        c_diff = max_abs_diff(c_probs, rgb_c["probabilities"])
+    # the first batch the model saw, against the CPU: the band packed, unpacked
+    # and cut by the plain versions, bit for bit
+    starts = plan.bands[0].starts_local[:SEG_BATCH]
+    with step(steps, "C_first_batch_check"):
+        card_first = region_ops.extract_patches(
+            colorconv.unpack_yuv420_band(torch.from_numpy(c_band).to(DEVICE), hw), starts,
+            (plan.patch_h, plan.patch_w),
+        )
+        cpu_first = region_ops.extract_patches_reference(
+            colorconv.unpack_yuv420_band_reference(torch.from_numpy(c_band), hw), starts,
+            (plan.patch_h, plan.patch_w),
+        )
+        first_err = held_bitwise(card_first.cpu(), cpu_first, "C's first yuv batch, card against CPU")
+        rgb_first = region_ops.extract_patches_reference(
+            torch.from_numpy(band_rgb), starts, (plan.patch_h, plan.patch_w)
+        )
+        first_diff_rgb = int((cpu_first.to(torch.int16) - rgb_first.to(torch.int16)).abs().max())
+    seg_model.to("cpu")
+    stages = {k: v for k, v in summary.items() if isinstance(v, dict)}
+    line["C"] = {
+        "seconds": c_seconds, "rgb_seconds": kept_c["seconds"], "k8_launches": c_launches,
+        "launches": counts, "n_bands": summary["n_bands"], "first_batch_cpu_max_abs_diff": first_err,
+        "first_batch_max_abs_diff_vs_rgb": first_diff_rgb, "max_abs_diff_vs_rgb": c_diff,
+        "class_agreement_vs_rgb": c_agree,
+        "pack": stages["pack"], "wire": stages["wire"], "rgb_wire": kept_c["stages"]["wire"],
+        "stages": stages,
+    }
+    check(stages["wire"]["items"] <= 0.52 * kept_c["stages"]["wire"]["items"], "C yuv wire bytes about half")
+    batch_row["launches"], band_row["launches"] = b_launches, c_launches
+    line.update(k8_batch=batch_row, k8_band=band_row, steps=steps, seconds=time.perf_counter() - t_phase, card=card)
+    emit(line)
+    replaces = "tiatoolbox_tpu/ops/colorconv.py:118"
+    return [
+        kernel_row("yuv420_to_rgb", K8_SOURCE, replaces, b_launches, batch_row),
+        kernel_row("yuv420_to_rgb[band]", K8_SOURCE, "tiatoolbox_tpu/ops/colorconv.py:107", c_launches, band_row),
+    ]
+
+
+def phase_dp(tmp: Path, card: str) -> float:
+    """Batch data parallelism: a mesh of two replicas on ``cuda:0`` and the
+    mesh of every local card, each running B, C and D against one device;
+    on a one-card host the second mesh runs B only (one replica on the one
+    card, C and D's code path already run by the two replicas). Each
+    replica takes the single-device run's batch, so cuDNN picks the same
+    algorithms. D's runs, held only against each other, use cuDNN's TF32
+    (PyTorch's default); B and C are held against TF32-free runs. Writes the
+    spill phase's 2048x1536 slide, where D runs. Returns the phase's
+    seconds, less the slide's."""
+    t_phase = time.perf_counter()
+    line: dict = {"phase": "dp"}
+    steps: dict[str, float] = {}
+    t0 = time.perf_counter()
+    d_slide = make_synthetic_slide(tmp / "config5.tiff", size=SPILL_SLIDE_WH, mpp=0.25, objective_power=40)
+    slide_seconds = time.perf_counter() - t0
+    KEPT["spill_D_slide"] = (d_slide, slide_seconds)
+    real_devices = mesh.local_devices
+    meshes = {
+        "two_replicas_on_cuda0": lambda: [torch.device("cuda", 0)] * 2,
+        "every_card": real_devices,
+    }
+    kept_b, kept_c, kept_d = KEPT["B"], KEPT["C"], KEPT["D"]
+    b_model, c_model, d_model = kept_b["engine"].model, kept_c["model"], kept_d["model"]
+
+    def d_run(batch: int) -> tuple[list, float]:
+        seg = MultiTaskSegmentor(d_model, batch_size=batch, verbose=False)
+        t = time.perf_counter()
+        with cudnn_tf32():
+            out = seg.run([d_slide], patch_mode=False, ioconfig=kept_d["ioconfig"], auto_get_mask=False)
+        return instance_rows(out[str(d_slide)]["instances"]), time.perf_counter() - t
+
+    # D on one device, at the batch each replica takes under two replicas:
+    # the instances must be the same
+    with step(steps, "moves"):
+        d_model.to(DEVICE)
+    d_single, d_single_seconds = d_run(INST_BATCH // 2)
+    steps["D_single_run"] = d_single_seconds
+    check(len(d_single) > 0, "D on one device: no instances")
+    line["D_single"] = {"instances": len(d_single), "seconds": d_single_seconds, "batch": INST_BATCH // 2}
+    def under_mesh(name: str) -> dict:
+        m = mesh.get_data_mesh()
+        entry = {"devices": [str(d) for d in m.devices], "size": m.size}
+        # B: probabilities within 1e-5 of the single-device run (TF32 off)
+        with step(steps, "replicas"):
+            b_model.enable_data_parallel()
+        t0 = time.perf_counter()
+        out = PatchPredictor(model=b_model, batch_size=BATCH, verbose=False).run(
+            [kept_b["slide"]], patch_mode=False, ioconfig=kept_b["ioconfig"]
+        )[str(kept_b["slide"])]
+        b_err = float(np.abs(out["probabilities"] - kept_b["result"]["probabilities"]).max())
+        check(b_err <= 1e-5, f"B under {name}: {b_err} > 1e-5")
+        entry["B"] = {"max_abs_diff": b_err, "seconds": time.perf_counter() - t0}
+        steps[f"B_{name}_run"] = entry["B"]["seconds"]
+        if name == "every_card" and m.size == 1:
+            return entry
+        # C: within 1e-4 of phase C's map, each replica at phase C's batch
+        with step(steps, "replicas"):
+            c_model.enable_data_parallel()
+        t0 = time.perf_counter()
+        seg = SemanticSegmentor(c_model, batch_size=SEG_BATCH * m.size, verbose=False)
+        out = seg.run([kept_c["slide"]], patch_mode=False, ioconfig=kept_c["ioconfig"],
+                      auto_get_mask=False)[str(kept_c["slide"])]
+        c_err = max_abs_diff(out["probabilities"], kept_c["result"]["probabilities"])
+        check(seg.last_stage_summary["path"] == "device-canvas+region-feed", f"C under {name}")
+        check(c_err <= 1e-4, f"C under {name}: {c_err} > 1e-4")
+        entry["C"] = {"max_abs_diff": c_err, "seconds": time.perf_counter() - t0}
+        steps[f"C_{name}_run"] = entry["C"]["seconds"]
+        # D: the same instances, each replica at the single run's batch
+        with step(steps, "replicas"):
+            d_model.enable_data_parallel()
+        d_dp, d_seconds = d_run(INST_BATCH // 2 * m.size)
+        steps[f"D_{name}_run"] = d_seconds
+        check(d_dp == d_single, f"D under {name}: {len(d_dp)} instances, one device {len(d_single)}")
+        entry["D"] = {"instances": len(d_dp), "identical": True, "seconds": d_seconds}
+        return entry
+
+    for name, devices in meshes.items():
+        mesh.local_devices = devices
+        try:
+            line[name] = under_mesh(name)
+        finally:
+            mesh.local_devices = real_devices
+            for model in (b_model, c_model, d_model):
+                model.mesh = None
+        with step(steps, "moves"):
+            torch.cuda.empty_cache()
+    with step(steps, "moves"):
+        for model in (b_model, c_model, d_model):
+            model.to("cpu")
+    seconds = time.perf_counter() - t_phase - slide_seconds
+    line.update(steps=steps, seconds=seconds, slide_seconds=slide_seconds, card=card)
+    emit(line)
+    return seconds
 
 
 # -- nucleus detection and the rest of the nucleus zoo --------------------------
@@ -3899,7 +4269,8 @@ SAM_PROMPTS = {
         "point_box": {"point_coords": np.array([[[750, 500]]]), "box_coords": np.array([[[520, 260, 1010, 770]]])},
     },
 }
-SAM_CPU_TILE = "wide"  # the tile whose three runs are held against the CPU
+SAM_CPU_TILE = "wide"  # the tile whose run with a point and a box is held against the CPU
+SAM_CPU_KINDS = ("point_box",)  # both prompt encoders in one run
 SAM_PIXEL_AGREEMENT = 0.999  # share of output mask pixels, card against the CPU
 SAM_LOGIT_TOL = 1e-3  # low-resolution logits and IoU scores, card against the CPU, absolute
 SAM_ENCODER_REPS = 10
@@ -4009,7 +4380,8 @@ def phase_sam(slide: Path, tmp: Path, card: str) -> None:
     # the CPU on the same checkpoint, the same tile and prompts
     cpu_engine = PromptSegmentor(model=KeepingSAM(root / "checkpoint", device="cpu"))
     held = {}
-    for kind, prompts in SAM_PROMPTS[SAM_CPU_TILE].items():
+    for kind in SAM_CPU_KINDS:
+        prompts = SAM_PROMPTS[SAM_CPU_TILE][kind]
         card_run = runs[SAM_CPU_TILE, kind]
         cpu_run = sam_run(cpu_engine, tiles[SAM_CPU_TILE], prompts, root / f"cpu_{kind}", "cpu")
         logit_err = float((card_run["logits"]["low_res_masks"].cpu() - cpu_run["logits"]["low_res_masks"]).abs().max())
@@ -4771,6 +5143,14 @@ def main() -> int:
         mark("C")
         instance, held = phase_instance(Path(tmp), card)
         mark("D")
+        t_wire = time.perf_counter()
+        wire = phase_wire(Path(tmp), card)
+        wire_seconds = time.perf_counter() - t_wire
+        mark("wire")
+        dp_seconds = phase_dp(Path(tmp), card)
+        mark("dp")
+        check(wire_seconds + dp_seconds <= WIRE_DP_LIMIT_S,
+              f"the wire and dp phases took {wire_seconds:.1f} + {dp_seconds:.1f} s, over {WIRE_DP_LIMIT_S} s")
         phase_outputs(Path(tmp), card)
         mark("outputs")
         phase_spill(Path(tmp), card)
@@ -4810,7 +5190,7 @@ def main() -> int:
     for row in segment:
         row["launches"] += held[row["name"]]["launches"]
         row["max_abs_err"] = max(row["max_abs_err"], held[row["name"]]["max_abs_err"])
-    print(json.dumps({"kernels": [stain, *segment, *instance, *detect, *zoo, *tail, augment]}), flush=True)
+    print(json.dumps({"kernels": [stain, *segment, *instance, *detect, *zoo, *tail, augment, *wire]}), flush=True)
     print(card, flush=True)
     print(
         json.dumps(

@@ -165,8 +165,6 @@ def test_what_is_not_ported_raises(models, slide: str, monkeypatch, tmp_path) ->
     _, port = models
     seg = SemanticSegmentor(port, batch_size=8, device="cpu", verbose=False)
     ioconfig = _ioconfigs(0.5, 64, 48)[1]
-    with pytest.raises(NotImplementedError, match="yuv420"):
-        seg.run([slide], patch_mode=False, ioconfig=ioconfig, auto_get_mask=False, band_wire="yuv420")
     # outputs but "dict" need a save_dir, as in JAX
     with pytest.raises(ValueError, match="output_type"):
         seg.run([slide], patch_mode=False, ioconfig=ioconfig, output_type="zarr", band_wire="rgb")

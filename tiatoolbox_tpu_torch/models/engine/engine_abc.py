@@ -12,12 +12,15 @@ resolution, so store coordinates are at baseline), and ``_run_wsi_mode``'s
 output names, ``<slide stem><suffix>`` (:442-473). ``infer_patches``
 keeps a ``StageTimer`` in ``stages`` after each run: the batch loader's
 "decode" (tile prefetch and patch reads, with "prefetch", the native tile
-decode, inside it) and "wire" (the copy to the device), and "infer", the
-whole loop.
+decode, inside it), "pack" (the yuv420 wire's host pack, where the model's
+``wire_format`` asks for it) and "wire" (the copy to the device), and
+"infer", the whole loop. Patch-mode coordinates are each patch's extent,
+recovered from packed planes as JAX does (:307-320).
 """
 
 from __future__ import annotations
 
+import functools
 import shutil
 import time
 from abc import ABC
@@ -254,7 +257,12 @@ class EngineABC(ABC):
         dataloader.timer = timer
         t_start = time.perf_counter()
         pin = self.model.device.type == "cuda"
-        for batch in dataloader.iter_staged(self.model.stage_batch, pin_memory=pin):
+        pack = (
+            functools.partial(self.model.pack_wire, pin_memory=pin)
+            if self.model.resolved_wire_format == "yuv420"
+            else None
+        )
+        for batch in dataloader.iter_staged(self.model.stage_batch, pin_memory=pin, pack_fn=pack):
             n_valid = batch["n_valid"]
             # dispatch without a sync: the next batch's read and copy overlap
             # this batch's forward (``run`` has put the model on its device)
@@ -267,8 +275,10 @@ class EngineABC(ABC):
                 if "coords" in batch:
                     coordinates.append(batch["coords"][:n_valid])
                 else:
-                    h, w = int(batch["image"].shape[1]), int(batch["image"].shape[2])
-                    coordinates.append(np.tile([0, 0, w, h], (n_valid, 1)))
+                    # each patch's own extent; packed yuv420 planes are [B, 1.5 H, W]
+                    shape = batch["image"].shape
+                    h = int(shape[1]) * 2 // 3 if len(shape) == 3 else int(shape[1])
+                    coordinates.append(np.tile([0, 0, int(shape[2]), h], (n_valid, 1)))
             if self.return_labels and "label" in batch:
                 labels.append(np.asarray(batch["label"])[:n_valid])
         while inflight:

@@ -27,6 +27,10 @@ needs:
   ``save_dir/cache`` (``create_smart_array``); tile mode then reads them tile
   by tile, and semantic task maps go the same way (:740-752).
 
+The region feed is the semantic engine's, ``band_wire="yuv420"`` (packed
+bands unpacked on the card by K8) included, and the stage summary names the
+band wire on either feed (:368, :422).
+
 ``post_process_wsi`` (:449) runs the model's ``postproc`` on the whole map,
 or, above ``full_postproc_limit``, the reference's 4-pass tile scheme
 (:505-787) on a thread pool: grid tiles, vertical and horizontal boundary
@@ -297,9 +301,10 @@ class MultiTaskSegmentor(SemanticSegmentor):
         summary = timer.summary()
         summary["path"] = path_name
         summary["wire_pixels"] = wire_pixels
+        # the band feed's wire, as JAX reports it on either feed (:368, :422)
+        summary["band_wire"] = getattr(self, "_resolved_band_wire", self.band_wire)
         if plan is not None:
             summary["n_bands"] = len(plan.bands)
-            summary["band_wire"] = self._resolved_band_wire
         self._finish(summary)
         return {"head_maps": head_maps, "canvas_wh": canvas_wh}
 

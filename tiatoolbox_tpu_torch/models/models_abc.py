@@ -5,9 +5,18 @@ module, ``forward`` takes an NHWC float batch, and the engine-facing
 methods keep the JAX names:
 
 - ``stage_batch`` (:268) copies a host uint8 batch to the model's device,
-  from pinned memory on a side stream, without waiting for the copy;
-- ``apply_u8`` (:229, RGB branch) casts uint8 to the compute dtype,
-  divides by 255 and runs ``forward``;
+  from pinned memory on a side stream, without waiting for the copy; with
+  ``wire_format="yuv420"`` (:54-66) a 4-D uint8 host batch is first packed
+  into full-range BT.601 4:2:0 planes (``pack_wire``, :296-303: half the
+  bytes), never a 3-D band;
+- ``apply_u8`` (:229) casts uint8 to the compute dtype, divides by 255 and
+  runs ``forward``; a 3-D uint8 batch is packed planes, unpacked into the
+  compute dtype and divided by 255 in one pass of kernel K8 (:245-257);
+- ``enable_data_parallel`` (:105-121) splits every forward's batch axis over
+  a mesh of devices (``parallel/mesh.py``): one replica a device, each
+  running its chunk on a stream of its own, the outputs gathered in batch
+  order on the first device, where the model itself stays; ``shard_batch``
+  (:123-135) places a padded host batch chunk by chunk;
 - ``infer_batch`` (:349) returns host numpy outputs, ``infer_batch_device``
   the device tensor without a synchronisation. A ``device`` given to either
   moves the model there first (through ``resolve_device``, which raises
@@ -22,7 +31,9 @@ methods keep the JAX names:
   to the model's outputs: ``postproc`` (the identity) unless the caller
   sets one.
 
-``load_torch_model`` (:386) loads a ``.pth`` ``state_dict`` (or a flax
+``wire_format="auto"`` resolves to ``"rgb"``: JAX probes a TPU relay link
+for it (``parallel/pipeline.py:27-91``), which one local card does not
+have. ``load_torch_model`` (:386) loads a ``.pth`` ``state_dict`` (or a flax
 ``.npz``, through the converter) into a model, and ``model_to`` (:396)
 moves it to a device; JAX's is a no-op, as JAX places arrays itself.
 """
@@ -52,6 +63,131 @@ class ModelABC(nn.Module):
         self._preproc_func: Callable | None = None
         self._postproc_func: Callable | None = None
         self._transfer_streams: dict[torch.device, torch.cuda.Stream] = {}
+        # "rgb" ships raw uint8 NHWC; "yuv420" packed 4:2:0 planes, 1.5 bytes a pixel
+        self.wire_format = "rgb"
+        self.mesh = None  # set by enable_data_parallel()
+
+    def __getstate__(self) -> dict:
+        """The module's state without its streams and data-parallel replicas
+        (a copy, a replica included, makes its own)."""
+        state = dict(super().__getstate__())
+        state.update(_transfer_streams={}, _mesh=None, _replicas=[], _replica_streams=[],
+                     _replica_signature=None)
+        return state
+
+    # -- the wire ----------------------------------------------------------------
+
+    @property
+    def resolved_wire_format(self) -> str:
+        """The wire a host batch takes: "yuv420" where asked for, else "rgb"
+        ("auto" included: the link probe behind it is TPU-only)."""
+        return "yuv420" if self.wire_format == "yuv420" else "rgb"
+
+    @staticmethod
+    def pack_wire(batch, *, pin_memory: bool = False) -> torch.Tensor:
+        """Pack a uint8 RGB ``[B, H, W, 3]`` host batch into ``[B, 1.5 H, W]``
+        planes, written straight into a pinned buffer where ``pin_memory``."""
+        from tiatoolbox_tpu_torch.ops.colorconv import rgb_batch_to_yuv420
+
+        arr = batch.numpy() if isinstance(batch, torch.Tensor) else np.asarray(batch)
+        n, h, w, _ = arr.shape
+        out = torch.empty((n, h + h // 2, w), dtype=torch.uint8, pin_memory=pin_memory)
+        rgb_batch_to_yuv420(arr, out=out.numpy())
+        return out
+
+    # -- data parallelism -----------------------------------------------------------
+
+    @property
+    def mesh(self):
+        """The data mesh forwards are split over, or None (one device)."""
+        return self._mesh
+
+    @mesh.setter
+    def mesh(self, value) -> None:
+        self._mesh = value
+        if value is None:
+            self._replicas, self._replica_streams, self._replica_signature = [], [], None
+
+    def enable_data_parallel(self, n_devices: int | None = None) -> "ModelABC":
+        """Split the batch axis of every forward over the local device mesh.
+
+        Moves the model to the mesh's first device and makes one replica on
+        each mesh device (outside the module registry, so ``state_dict()``
+        keeps its names); weights changed later reach the replicas before
+        the next forward.
+        """
+        from tiatoolbox_tpu_torch.parallel.mesh import get_data_mesh
+
+        mesh = get_data_mesh(n_devices)
+        self.to(mesh.devices[0])
+        self.mesh = mesh
+        self._sync_replicas()
+        return self
+
+    def _sync_replicas(self) -> list:
+        """The replicas, made or brought up to date with this module's weights."""
+        from tiatoolbox_tpu_torch.parallel.mesh import shard_model_variables, state_signature, sync_replicas
+
+        signature = state_signature(self)
+        if signature != self._replica_signature:
+            same_types = self._replicas and all(
+                a.dtype == b.dtype for a, b in zip(self._replicas[0].parameters(), self.parameters())
+            )
+            if same_types:
+                sync_replicas(self, self._replicas)
+            else:
+                self._replicas = shard_model_variables(self, self.mesh)
+                self._replica_streams = []
+            self._replica_signature = signature
+        return self._replicas
+
+    def shard_batch(self, batch):
+        """A host batch padded to the mesh size and placed chunk by chunk on
+        its devices (a list, one chunk a device); the batch itself without a mesh."""
+        if self.mesh is None:
+            return batch
+        from tiatoolbox_tpu_torch.parallel.mesh import pad_to_multiple, shard_batch
+
+        arr = batch.numpy() if isinstance(batch, torch.Tensor) else np.asarray(batch)
+        padded, _ = pad_to_multiple(arr, self.mesh.size)
+        return shard_batch(padded, self.mesh)
+
+    def __call__(self, *args, **kwargs):
+        """``forward``, split over the mesh's replicas where there is a mesh."""
+        if self.mesh is None or kwargs or len(args) != 1:
+            return super().__call__(*args, **kwargs)
+        return self._forward_data_parallel(args[0])
+
+    def _forward_data_parallel(self, batch: torch.Tensor):
+        """Pad the batch to the mesh size, run one chunk on each replica (each
+        on a stream of its own on a card), and gather the outputs in batch
+        order on the batch's device, cut back to the batch."""
+        from tiatoolbox_tpu_torch.parallel.mesh import shard_batch
+
+        replicas = self._sync_replicas()
+        n = batch.shape[0]
+        pad = (-n) % len(replicas)
+        if pad:
+            batch = torch.cat([batch, batch[-1:].expand(pad, *batch.shape[1:])])
+        chunks = shard_batch(batch, self.mesh)
+        home = batch.device
+        if home.type != "cuda":
+            return _gather([replica(chunk) for replica, chunk in zip(replicas, chunks)], n)
+        while len(self._replica_streams) < len(replicas):
+            device = self.mesh.devices[len(self._replica_streams)]
+            self._replica_streams.append(torch.cuda.Stream(device))
+        current = torch.cuda.current_stream(home)
+        outs = []
+        for replica, chunk, stream in zip(replicas, chunks, self._replica_streams):
+            stream.wait_stream(torch.cuda.current_stream(chunk.device))
+            with torch.cuda.stream(stream):
+                out = _to_device(replica(chunk), home)
+            chunk.record_stream(stream)
+            _record(out, current)
+            outs.append(out)
+        for stream in self._replica_streams[: len(replicas)]:
+            current.wait_stream(stream)
+        return _gather(outs, n)
 
     def place(self, device: str | torch.device | None = None) -> None:
         """Move to ``resolve_device(device)`` in channels_last, cast to the
@@ -79,6 +215,12 @@ class ModelABC(nn.Module):
         dev = self.device
         if isinstance(batch, torch.Tensor) and batch.device == dev:
             return batch
+        if (
+            self.resolved_wire_format == "yuv420"
+            and getattr(batch, "ndim", 0) == 4
+            and batch.dtype in (np.uint8, torch.uint8)
+        ):
+            batch = self.pack_wire(batch, pin_memory=dev.type == "cuda")
         host = batch if isinstance(batch, torch.Tensor) else torch.from_numpy(
             np.ascontiguousarray(batch)
         )
@@ -101,10 +243,15 @@ class ModelABC(nn.Module):
         """uint8 NHWC batch -> compute dtype -> /255 -> ``forward``.
 
         A floating batch is taken as model-ready (a host preproc already
-        scaled it) and only cast.
+        scaled it) and only cast. A 3-D uint8 batch is packed yuv420 planes:
+        K8 unpacks them into the compute dtype, divided by 255, in one pass.
         """
         if batch.is_floating_point():
             return self(batch.to(self.compute_dtype))
+        if batch.ndim == 3:
+            from tiatoolbox_tpu_torch.ops.colorconv import yuv420_batch_to_rgb
+
+            return self(yuv420_batch_to_rgb(batch, self.compute_dtype, scale=True))
         return self(batch.to(self.compute_dtype).div_(255.0))
 
     @property
@@ -146,6 +293,34 @@ class ModelABC(nn.Module):
     def infer_batch(cls, model: "ModelABC", batch_data, device=None) -> np.ndarray:
         """Forward a uint8 NHWC batch and return the output as numpy."""
         return cls.infer_batch_device(model, batch_data, device).cpu().numpy()
+
+
+def _to_device(out, device: torch.device):
+    """A forward's output (a tensor, or a dict, tuple or list of them) on ``device``."""
+    if isinstance(out, torch.Tensor):
+        return out.to(device, non_blocking=True)
+    if isinstance(out, dict):
+        return {k: _to_device(v, device) for k, v in out.items()}
+    return type(out)(_to_device(v, device) for v in out)
+
+
+def _record(out, stream) -> None:
+    """Mark every tensor of ``out`` as used on ``stream``."""
+    if isinstance(out, torch.Tensor):
+        out.record_stream(stream)
+    else:
+        for v in out.values() if isinstance(out, dict) else out:
+            _record(v, stream)
+
+
+def _gather(outs: list, n: int):
+    """The replicas' outputs, on one device, concatenated along the batch axis: the first ``n`` rows."""
+    first = outs[0]
+    if isinstance(first, torch.Tensor):
+        return torch.cat(outs)[:n]
+    if isinstance(first, dict):
+        return {k: _gather([o[k] for o in outs], n) for k in first}
+    return type(first)(_gather([o[i] for o in outs], n) for i in range(len(first)))
 
 
 def load_torch_model(model: ModelABC, weights) -> ModelABC:

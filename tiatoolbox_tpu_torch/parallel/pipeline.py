@@ -10,7 +10,10 @@ free pinned slot, which "slot_wait" counts), "prefetch" (the tile decode
 alone) and "wire" (``iter_staged``'s stage function). For a CUDA consumer, ``iter_staged`` writes the
 images into a ring of pinned host slots; the stage function copies a slot
 to the device asynchronously, and the slot is reused once the device has
-passed an event recorded after that copy.
+passed an event recorded after that copy. With a pack function (the
+yuv420 wire, ``ModelABC.pack_wire``) the reader thread packs each batch
+into a buffer of its own under a "pack" stage, and the RGB slot goes back
+to the ring as soon as the pack has read it: the device never reads it.
 """
 
 from __future__ import annotations
@@ -59,6 +62,10 @@ class _SlotRing:
             except queue.Empty:
                 continue
         return None
+
+    def give_back(self, slot: _PinnedSlot) -> None:
+        """Return ``slot``, which no device work reads."""
+        self._free.put(slot)
 
     def release(self, slot: _PinnedSlot, device: torch.device) -> None:
         """Return ``slot``; it is rewritten only after work queued on ``device`` so far."""
@@ -113,9 +120,17 @@ class BatchLoader:
         pool,
         slots: _SlotRing | None = None,
         stop: threading.Event | None = None,
+        pack_fn: Callable | None = None,
     ) -> dict:
         with self._stage("decode", len(batch_indices)):
-            return self._read_batch(batch_indices, pool, slots, stop)
+            batch = self._read_batch(batch_indices, pool, slots, stop)
+        if pack_fn is not None:
+            with self._stage("pack", batch["image"].nbytes):
+                batch["image"] = pack_fn(batch["image"])
+            slot = batch.pop("_slot", None)
+            if slot is not None:
+                slots.give_back(slot)
+        return batch
 
     def _stage(self, name: str, items: int):
         return self.timer.stage(name, items) if self.timer is not None else contextlib.nullcontext()
@@ -160,7 +175,7 @@ class BatchLoader:
             batch[key] = buf
         return batch
 
-    def _batches(self, slots: _SlotRing | None) -> Iterator[dict]:
+    def _batches(self, slots: _SlotRing | None, pack_fn: Callable | None = None) -> Iterator[dict]:
         batch_indices_list = [
             self.indices[i * self.batch_size : (i + 1) * self.batch_size]
             for i in range(len(self))
@@ -168,7 +183,7 @@ class BatchLoader:
         stop = threading.Event()
         if self.num_workers <= 0:
             for batch_indices in batch_indices_list:
-                yield self._load_batch(batch_indices, None, slots, stop)
+                yield self._load_batch(batch_indices, None, slots, stop, pack_fn)
             return
 
         out_queue: queue.Queue = queue.Queue(maxsize=self.prefetch)
@@ -179,7 +194,7 @@ class BatchLoader:
                     if stop.is_set():
                         return
                     try:
-                        out_queue.put(self._load_batch(batch_indices, pool, slots, stop))
+                        out_queue.put(self._load_batch(batch_indices, pool, slots, stop, pack_fn))
                     except _Stopped:
                         return
                     except Exception as exc:  # handed to the consumer, which raises it
@@ -210,7 +225,7 @@ class BatchLoader:
         return self._batches(None)
 
     def iter_staged(
-        self, stage_fn: Callable, *, pin_memory: bool = False
+        self, stage_fn: Callable, *, pin_memory: bool = False, pack_fn: Callable | None = None
     ) -> Iterator[dict]:
         """Iterate batches with "image" replaced by ``stage_fn(image)``.
 
@@ -219,10 +234,13 @@ class BatchLoader:
         to a CUDA device can be asynchronous. ``stage_fn`` must return a
         CUDA tensor; the slot is reused after the work queued on that
         device's current stream when ``stage_fn`` returns. Without
-        ``pin_memory``, ``stage_fn`` gets the numpy batch.
+        ``pin_memory``, ``stage_fn`` gets the numpy batch. ``pack_fn``, where
+        given, turns each numpy batch into what ``stage_fn`` gets (pinned
+        where the consumer is a card) on the reader thread; "wire" then
+        counts its bytes.
         """
         slots = _SlotRing(self.prefetch + 2) if pin_memory else None
-        for batch in self._batches(slots):
+        for batch in self._batches(slots, pack_fn):
             slot = batch.pop("_slot", None)
             host = slot.tensor if slot is not None else batch["image"]
             with self._stage("wire", host.nbytes):

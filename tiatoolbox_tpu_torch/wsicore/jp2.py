@@ -23,6 +23,7 @@ that a file carries its mpp (which ``JP2WSIReader`` reads as JAX's does).
 from __future__ import annotations
 
 import struct
+import threading
 from collections import OrderedDict
 from dataclasses import dataclass, field
 from pathlib import Path
@@ -214,8 +215,11 @@ class J2KCodestream:
 
     # -- decoding ------------------------------------------------------------
 
-    def _cache(self) -> OrderedDict:
-        return self.__dict__.setdefault("_tile_cache", OrderedDict())
+    def _cache(self) -> tuple[OrderedDict, threading.Lock]:
+        """The decoded-tile LRU and the lock that guards it: a slide's
+        reader threads decode through one codestream."""
+        state = self.__dict__
+        return state.setdefault("_tile_cache", OrderedDict()), state.setdefault("_tile_lock", threading.Lock())
 
     def decode_tile(self, index: int, reduce: int = 1) -> np.ndarray:
         """Decode one tile (RGB or grey uint8), at 1/reduce scale (1, 2, 4, 8).
@@ -229,18 +233,20 @@ class J2KCodestream:
         if reduce not in (1, 2, 4, 8):
             msg = f"reduce must be 1, 2, 4 or 8, got {reduce}."
             raise ValueError(msg)
-        cache = self._cache()
-        missing = [i for i in dict.fromkeys(indices) if (i, reduce) not in cache]
-        if missing:
-            for index, img in zip(missing, self._decode_tiles_uncached(missing, reduce)):
-                cache[(index, reduce)] = img
-        out = []
-        for index in indices:
-            cache.move_to_end((index, reduce))
-            out.append(cache[(index, reduce)])
-        while sum(v.nbytes for v in cache.values()) > TILE_CACHE_BYTES and len(cache) > 1:
-            cache.popitem(last=False)
-        return out
+        cache, lock = self._cache()
+        keys = [(index, reduce) for index in indices]
+        with lock:
+            tiles = {key: cache[key] for key in keys if key in cache}
+        missing = [key[0] for key in dict.fromkeys(keys) if key not in tiles]
+        if missing:  # decoded outside the lock, so readers decode in parallel
+            tiles.update(zip([(index, reduce) for index in missing], self._decode_tiles_uncached(missing, reduce)))
+        with lock:
+            for key in keys:
+                cache[key] = tiles[key]
+                cache.move_to_end(key)
+            while sum(v.nbytes for v in cache.values()) > TILE_CACHE_BYTES and len(cache) > 1:
+                cache.popitem(last=False)
+        return [tiles[key] for key in keys]
 
     def _decode_tiles_uncached(self, indices: list[int], reduce: int) -> list[np.ndarray]:
         for index in indices:
