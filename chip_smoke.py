@@ -43,7 +43,8 @@ temporary directory, and drives the port's entry points on them:
 - "wire", the yuv420 wire: K8 (csrc/colorconv.cu) held against its plain
   version bit for bit (the batch entry at B's 64x224^2 in float32 and
   bfloat16 and over every (Y, Cb, Cr) triple, the band entry at C's first
-  band and a ragged band) and timed beside its bound; phase B with
+  band and a ragged band) and timed warm and with the L2 cache cold beside
+  its bound, its rows naming the design; phase B with
   wire_format="yuv420" (one K8 launch a batch, its first patches against
   the CPU run of the same path) and phase C's region feed with
   band_wire="yuv420" (one K8 launch a band, its first batch of patches
@@ -2259,6 +2260,7 @@ def phase_spill(tmp: Path, card: str) -> None:
 WIRE_DP_LIMIT_S = 25.0  # the wire and dp phases together
 WIRE_CPU_PATCHES = 8  # of B's first yuv batch, held against the CPU
 K8_SOURCE = "tiatoolbox_tpu_torch/csrc/colorconv.cu"
+K8_DESIGN = "row-pair strips through shared memory: 16-byte cp.async loads, 4-pixel cells, 16-byte stores"
 # per pixel K8 reads 1.5 bytes of planes and writes 3 values
 K8_BYTES_PER_PIX = {torch.float32: 13.5, torch.bfloat16: 7.5, torch.uint8: 4.5}
 
@@ -2278,12 +2280,14 @@ def every_yuv_triple() -> np.ndarray:
 
 
 def k8_measured(fn, plain, pixels: int, dtype: torch.dtype, max_abs_err: float) -> dict:
-    """K8's row numbers: its time and its plain version's on the same input,
-    and the byte bound of ``pixels`` pixels out in ``dtype``."""
+    """K8's row numbers: its time warm and with the L2 cache cold, its plain
+    version's on the same input, and the byte bound of ``pixels`` pixels out
+    in ``dtype``."""
     n_bytes = pixels * K8_BYTES_PER_PIX[dtype]
     return {
         "max_abs_err": max_abs_err,
         "ms": time_ms(fn, 20),
+        "cold_ms": cold_ms(fn),
         "plain_ms": time_ms(plain, 5),
         "bound_ms": _bound(n_bytes),
         "bytes": n_bytes,
@@ -2334,6 +2338,7 @@ def check_k8(b_first: np.ndarray, c_band: np.ndarray, band_hw: tuple[int, int]) 
         n_pix, torch.float32, max(errs.values()),
     )
     batch["bf16_ms"] = time_ms(lambda: colorconv.yuv420_to_rgb(planes, torch.bfloat16, scale=True), 20)
+    batch["bf16_cold_ms"] = cold_ms(lambda: colorconv.yuv420_to_rgb(planes, torch.bfloat16, scale=True))
     batch["bf16_bound_ms"] = _bound(n_pix * K8_BYTES_PER_PIX[torch.bfloat16])
     band_row = k8_measured(
         lambda: colorconv.yuv420_to_rgb(band, band_hw=band_hw),
@@ -2499,11 +2504,13 @@ def phase_wire(tmp: Path, card: str) -> list[dict]:
     batch_row["launches"], band_row["launches"] = b_launches, c_launches
     line.update(k8_batch=batch_row, k8_band=band_row, steps=steps, seconds=time.perf_counter() - t_phase, card=card)
     emit(line)
-    replaces = "tiatoolbox_tpu/ops/colorconv.py:118"
-    return [
-        kernel_row("yuv420_to_rgb", K8_SOURCE, replaces, b_launches, batch_row),
+    rows = [
+        kernel_row("yuv420_to_rgb", K8_SOURCE, "tiatoolbox_tpu/ops/colorconv.py:118", b_launches, batch_row),
         kernel_row("yuv420_to_rgb[band]", K8_SOURCE, "tiatoolbox_tpu/ops/colorconv.py:107", c_launches, band_row),
     ]
+    for row, measured in zip(rows, (batch_row, band_row)):
+        row.update(cold_ms=measured["cold_ms"], design=K8_DESIGN)
+    return rows
 
 
 def phase_dp(tmp: Path, card: str) -> float:

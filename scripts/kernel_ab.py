@@ -1,11 +1,11 @@
-"""Time the port's K2-K7 kernels against an earlier tree's, in turns, on one card.
+"""Time the port's K2-K8 kernels against an earlier tree's, in turns, on one card.
 
-    python3 scripts/kernel_ab.py --old DIR [--cases k2,k3,k4,k5,k6,k7]
+    python3 scripts/kernel_ab.py --old DIR [--cases k2,k3,k4,k5,k6,k7,k8]
 
 ``DIR`` holds an earlier checkout's ``tiatoolbox_tpu_torch/csrc``, for
 example from ``git archive <commit> tiatoolbox_tpu_torch/csrc | tar -x -C DIR``.
 The script builds that tree's ``canvas.cu``, ``region.cu``,
-``hv_energy.cu`` and ``stain.cu`` with the port's nvcc flags into
+``hv_energy.cu``, ``stain.cu`` and ``colorconv.cu`` with the port's nvcc flags into
 ``DIR/build``, and calls their C entries through ctypes with buffers made
 once. The tree's kernels run through the port's wrappers. Shapes are
 ``chip_smoke.py``'s:
@@ -42,6 +42,18 @@ once. The tree's kernels run through the port's wrappers. Shapes are
   instructions of each kernel's main loop (the loop with the most
   ``MUFU.EX2``, one a colour channel), its branches, and the kernel's
   ``CALL``s (a 64-bit division by a runtime value is one).
+- K8 (the yuv420 unpack, ``colorconv.cu`` ``colorconv_yuv420_to_rgb``) at
+  phase B's batch (64x224x224, float32 and bfloat16 out, divided by 255),
+  phase C's first band (1474x6874 from planes padded to 1476 rows) and a
+  ragged crop of it (1473x6871), each warm and with the L2 cache cold (a
+  256 MB fill before each call, less the fill's own time), both in turns;
+  the tree's per-launch device time from a ``utils.profiling.trace``
+  window beside its event time, and the time of a fill of the output
+  alone (``zero_``, the write half of the traffic); and for both trees' kernels ``ptxas -v``'s
+  registers, spills and shared memory, and from ``cuobjdump -sass`` the
+  global loads (``LDG``; ``LDGSTS``, cp.async into shared memory) and
+  stores (``STG``) by width, 128-bit against narrower. The earlier entry
+  is that of 5b4b39d (the same C signature).
 
 The order of the runs is old, new, new, old; each is the mean of 20
 back-to-back calls timed with CUDA events. The old and new outputs are
@@ -73,9 +85,11 @@ import torch  # noqa: E402
 
 from tiatoolbox_tpu_torch import _build  # noqa: E402
 from tiatoolbox_tpu_torch.ops import canvas as canvas_ops  # noqa: E402
+from tiatoolbox_tpu_torch.ops import colorconv  # noqa: E402
 from tiatoolbox_tpu_torch.ops import hv_energy as energy_ops  # noqa: E402
 from tiatoolbox_tpu_torch.ops import region as region_ops  # noqa: E402
 from tiatoolbox_tpu_torch.ops import stain as stain_ops  # noqa: E402
+from tiatoolbox_tpu_torch.utils import profiling  # noqa: E402
 
 REPS = 20
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA's data sheet
@@ -85,6 +99,10 @@ K2_SHAPES = {"C": (4608, 6362, 5, 512, 450, 16), "D": (3072, 4100, 4, 164, 164, 
 K4_SHAPES = {"C": (1474, 6874, 1024, 450, 16), "D": (748, 4192, 256, 164, 32)}
 K7_BATCH = (64, 224, 224, 3)
 HE = np.array([[0.65, 0.70, 0.29], [0.07, 0.99, 0.11]], np.float32)
+K8_BATCH = (64, 224, 224)
+K8_BAND = (1476, 6874)  # phase C's first band's planes: 1474 rows padded to a multiple of 4
+# per pixel K8 reads 1.5 bytes of planes and writes 3 values
+K8_BYTES_PER_PIX = {torch.float32: 13.5, torch.bfloat16: 7.5, torch.uint8: 4.5}
 HED = np.array([[0.65, 0.70, 0.29], [0.07, 0.99, 0.11], [0.27, 0.57, 0.78]], np.float32)
 
 
@@ -373,14 +391,18 @@ def k6_cases(libs: dict, gen: torch.Generator) -> list[dict]:
 
 
 def kernel_name(mangled: str) -> str:
-    """``_Z26stain_augment_tiles_kernelILi2EE...`` -> ``stain_augment_tiles_kernel<2>``."""
-    size = re.match(r"_Z(\d+)", mangled)
+    """``_Z26stain_augment_tiles_kernelILi2EE...`` -> ``stain_augment_tiles_kernel<2>``;
+    a kernel in an anonymous namespace,
+    ``_ZN45_GLOBAL__N__<hash>13yuv420_kernelILi0ELi252ELb1EEE...`` -> ``yuv420_kernel<0,252,1>``."""
+    nested = re.match(r"_ZN(\d+)_GLOBAL__N_", mangled)
+    start = 3 + len(nested.group(1)) + int(nested.group(1)) if nested else 2
+    size = re.match(r"\d+", mangled[start:]) if mangled.startswith("_Z") else None
     if not size:
         return mangled
-    start = size.end()
-    name = mangled[start : start + int(size.group(1))]
-    template = re.match(r"ILi(\d+)E", mangled[start + len(name) :])
-    return f"{name}<{template.group(1)}>" if template else name
+    start += size.end()
+    name = mangled[start : start + int(size.group(0))]
+    template = re.match(r"I((?:L[a-z]-?\d+E)+)E", mangled[start + len(name) :])
+    return f"{name}<{','.join(re.findall(r'L[a-z](-?\d+)E', template.group(1)))}>" if template else name
 
 
 def ptxas_kernels(lines: list[str], name: str) -> dict:
@@ -396,8 +418,11 @@ def ptxas_kernels(lines: list[str], name: str) -> dict:
             continue
         regs = re.search(r"Used (\d+) registers", line)
         spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        smem = re.search(r"(\d+) bytes smem", line)
         if regs:
             found.setdefault(current, {})["registers"] = int(regs.group(1))
+        if smem:
+            found.setdefault(current, {})["static_smem_bytes"] = int(smem.group(1))
         if spill:
             found.setdefault(current, {})["spill_bytes"] = int(spill.group(1)) + int(spill.group(2))
     return found
@@ -512,13 +537,122 @@ def k7_cases(lib: ctypes.CDLL, old_dir: Path, gen: torch.Generator) -> list[dict
     return rows
 
 
+def access_width(op: str) -> str:
+    """The bits one lane moves in a global load or store: ``LDG.E.128`` -> "128",
+    ``STG.E.U8`` -> "8", ``LDG.E`` -> "32"."""
+    for width in ("128", "64", "16", "8"):
+        if re.search(rf"\.[US]?{width}\b", op):
+            return width
+    return "32"
+
+
+def sass_global_access(library: Path, name: str) -> dict:
+    """From ``cuobjdump -sass``: for each kernel whose name holds ``name``, its
+    global loads (``LDG``), copies into shared memory (``LDGSTS``) and global
+    stores (``STG``), counted by the bits a lane moves."""
+    tool = Path(_build.find_nvcc()).parent / "cuobjdump"
+    if not tool.exists():
+        return {"cuobjdump": "not available"}
+    text = subprocess.run([str(tool), "-sass", str(library)], capture_output=True, text=True, check=True).stdout
+    found, current = {}, None
+    for line in text.splitlines():
+        if "Function :" in line:
+            entry = kernel_name(line.split("Function :")[1].strip())
+            current = entry if name in entry else None
+            if current:
+                found[current] = {"LDG": {}, "LDGSTS": {}, "STG": {}}
+            continue
+        insn = SASS_INSN.search(line)
+        if current is None or not insn:
+            continue
+        op = opcode(insn.group(2))
+        kind = op.split(".")[0]
+        if kind in found[current]:
+            counts = found[current][kind]
+            width = access_width(op)
+            counts[width] = counts.get(width, 0) + 1
+    return found
+
+
+def cold_ms(fn, reps: int = 10) -> float:
+    """Device time of ``fn()`` with the 50 MB L2 cache cold: ``time_ms`` of a
+    256 MB fill then ``fn()``, less that of the fill alone."""
+    scrub = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+    return time_ms(lambda: (scrub.zero_(), fn()), reps) - time_ms(scrub.zero_, reps)
+
+
+def trace_ms(fn, name: str, reps: int = REPS) -> float:
+    """Mean device time of the kernels whose name holds ``name`` over ``reps``
+    calls of ``fn`` in a ``utils.profiling.trace`` window."""
+    fn()
+    torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        with profiling.trace(tmp):
+            for _ in range(reps):
+                fn()
+        events = json.loads((Path(tmp) / profiling.TRACE_FILE).read_text())["traceEvents"]
+    spans = [e["dur"] for e in events if e.get("cat") == "kernel" and name in e.get("name", "")]
+    return statistics.mean(spans) / 1e3 if spans else float("nan")
+
+
+def k8_cases(lib: ctypes.CDLL, old_dir: Path) -> list[dict]:
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.colorconv_yuv420_to_rgb.argtypes = [ptr, i32, i32, i32, ptr, i32, i32, i32, ctypes.c_float, ptr]
+    lib.colorconv_yuv420_to_rgb.restype = i32
+    rng = np.random.default_rng(24)
+    rgb = rng.integers(0, 256, (*K8_BATCH, 3), dtype=np.uint8)
+    batch = torch.from_numpy(colorconv.rgb_batch_to_yuv420(rgb)).cuda()
+    band_h, band_w = K8_BAND
+    band = torch.from_numpy(rng.integers(0, 256, (band_h * 3 // 2, band_w), dtype=np.uint8)).cuda()
+    cases = [("B batch", batch, torch.float32, None), ("B batch", batch, torch.bfloat16, None),
+             ("C first band", band, torch.uint8, (1474, 6874)), ("ragged band crop", band, torch.uint8, (1473, 6871))]
+    rows = []
+    for what, planes, dtype, band_hw in cases:
+        h, w = planes.shape[-2] * 2 // 3, planes.shape[-1]
+        n = planes.shape[0] if planes.ndim == 3 else 1
+        out_h, out_w = band_hw or (h, w)
+        mode = colorconv._MODES[dtype]
+        factor = colorconv.INV_255 if band_hw is None else 1.0
+        out = torch.empty((n, out_h, out_w, 3) if band_hw is None else (out_h, out_w, 3), dtype=dtype, device="cuda")
+
+        def old(planes=planes, n=n, h=h, w=w, out=out, mode=mode, out_h=out_h, out_w=out_w, factor=factor):
+            stream = torch.cuda.current_stream().cuda_stream
+            code = lib.colorconv_yuv420_to_rgb(planes.data_ptr(), n, h, w, out.data_ptr(), mode, out_h, out_w,
+                                               factor, stream)
+            assert code == 0, code
+
+        def new(planes=planes, dtype=dtype, band_hw=band_hw):
+            if band_hw is None:
+                return colorconv.yuv420_to_rgb(planes, dtype, scale=True)
+            return colorconv.yuv420_to_rgb(planes, band_hw=band_hw)
+
+        old()
+        same = bool(torch.equal(out, new()))
+        n_bytes = n * out_h * out_w * K8_BYTES_PER_PIX[dtype]
+        warm = in_turns(old, new)
+        cold = [cold_ms(old), cold_ms(new), cold_ms(new), cold_ms(old)]
+        rows.append({"kernel": "K8 yuv420_to_rgb", "input": what, "planes": list(planes.shape), "out": list(out.shape),
+                     "dtype": str(dtype), "bytes": n_bytes, "bound_ms": n_bytes / HBM_BYTES_PER_S * 1e3,
+                     "identical": same, **warm, "old_cold_ms": [cold[0], cold[3]], "new_cold_ms": [cold[1], cold[2]],
+                     "new_trace_ms": trace_ms(new, "yuv420_kernel"), "old_trace_ms": trace_ms(old, "yuv420_kernel"),
+                     "write_only_ms": time_ms(out.zero_)})
+    old_so = old_dir / "build" / "libcolorconv.so"
+    new_so = _build.library_path("colorconv.cu")
+    rows.append({"kernel": "K8 compiled",
+                 "old": {"ptxas": ptxas_kernels(old_so.with_suffix(".ptxas").read_text().splitlines(), "yuv420"),
+                         "sass_global": sass_global_access(old_so, "yuv420")},
+                 "new": {"ptxas": ptxas_kernels(_build.ptxas_report("colorconv.cu"), "yuv420"),
+                         "sass_global": sass_global_access(new_so, "yuv420")}})
+    return rows
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--old", type=Path, required=True, help="directory holding an older tiatoolbox_tpu_torch/csrc")
-    parser.add_argument("--cases", default="k2,k3,k4,k5,k6", help="comma-separated kernels to time (k2 to k7)")
+    parser.add_argument("--cases", default="k2,k3,k4,k5,k6", help="comma-separated kernels to time (k2 to k8)")
     args = parser.parse_args()
     cases = set(args.cases.split(","))
-    known = {"k2", "k3", "k4", "k5", "k6", "k7"}
+    known = {"k2", "k3", "k4", "k5", "k6", "k7", "k8"}
     if not cases <= known:
         parser.error(f"unknown cases {sorted(cases - known)}")
     if not torch.cuda.is_available():
@@ -529,7 +663,7 @@ def main() -> int:
     print(card, flush=True)
     gen = torch.Generator(device="cuda").manual_seed(8)
     sources = {"k2": ["canvas.cu"], "k3": ["canvas.cu"], "k4": ["region.cu"], "k5": ["hv_energy.cu"],
-               "k6": ["canvas.cu", "hv_energy.cu"], "k7": ["stain.cu"]}
+               "k6": ["canvas.cu", "hv_energy.cu"], "k7": ["stain.cu"], "k8": ["colorconv.cu"]}
     runs = {
         "k2": lambda libs, gen: k2_cases(libs["canvas.cu"], gen),
         "k3": lambda libs, gen: k3_cases(libs["canvas.cu"], gen),
@@ -537,6 +671,7 @@ def main() -> int:
         "k5": lambda libs, gen: k5_cases(libs["hv_energy.cu"], gen),
         "k6": k6_cases,
         "k7": lambda libs, gen: k7_cases(libs["stain.cu"], args.old, gen),
+        "k8": lambda libs, gen: k8_cases(libs["colorconv.cu"], args.old),
     }
     libs = {src: build_old(args.old, src) for src in sorted({src for k in cases for src in sources[k]})}
     for kernel in sorted(cases):

@@ -3,7 +3,11 @@
 These tests import the port only (the card machine has no flax). K8 is held
 against its plain version bit for bit: the batch entry in float32 with and
 without the division by 255 and in bfloat16, over every (Y, Cb, Cr) triple,
-and the band entry at full size, cropped and ragged. A mesh of two replicas
+and the band entry at full size, cropped and ragged. The edges of the
+strip design: rows that start off a 16-byte boundary (widths 226, 2050,
+6874), band crops with an odd width below the planes', batches of 1 and 65
+images, an image smaller than a strip (4x2), and planes that are a view at
+a 2-byte offset, each bit for bit and counted as one launch. A mesh of two replicas
 on ``cuda:0`` (``mesh.local_devices`` replaced) is held against one device
 within 1e-5, TF32 off. Each test skips without a card; run them there with
 ``python -m pytest -m cuda tests/test_torch_colorconv_card.py``.
@@ -79,6 +83,74 @@ def test_band_entry_on_packed_bands(card, size_wh) -> None:
     torch.cuda.synchronize()
     assert torch.equal(got.cpu(), colorconv.unpack_yuv420_band_reference(planes, image.shape[:2]))
     assert np.abs(got.cpu().numpy().astype(int) - image.astype(int)).mean() < 4.0
+
+
+def random_planes(n: int, h: int, w: int, seed: int) -> torch.Tensor:
+    return torch.from_numpy(np.random.default_rng(seed).integers(0, 256, (n, h * 3 // 2, w), dtype=np.uint8))
+
+
+def held(planes: torch.Tensor, card, dtype=torch.float32, band_hw=None) -> None:
+    """One launch of K8 on ``planes`` equals the plain version bit for bit."""
+    before = colorconv.yuv420_to_rgb.launches
+    if band_hw is None:
+        want = colorconv.yuv420_batch_to_rgb_reference(planes, dtype, scale=True)
+        got = colorconv.yuv420_to_rgb(planes.to(card), dtype, scale=True)
+    else:
+        want = colorconv.unpack_yuv420_band_reference(planes, band_hw)
+        got = colorconv.yuv420_to_rgb(planes.to(card), band_hw=band_hw)
+    torch.cuda.synchronize()
+    assert colorconv.yuv420_to_rgb.launches == before + 1
+    assert got.dtype == want.dtype and tuple(got.shape) == tuple(want.shape)
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["float32", "bfloat16"])
+@pytest.mark.parametrize("w", [226, 2050, 6874])
+def test_batch_rows_off_16_byte_boundaries(card, w: int, dtype) -> None:
+    held(random_planes(3, 12, w, seed=w), card, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("band_hw", [(11, 2047), (9, 2049), (12, 1001), (1, 3)])
+def test_band_crop_odd_width_below_the_planes(card, band_hw) -> None:
+    held(random_planes(1, 12, 2050, seed=band_hw[1])[0], card, band_hw=band_hw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["float32", "bfloat16"])
+@pytest.mark.parametrize("n", [1, 65])
+def test_batch_of_one_and_of_65(card, n: int, dtype) -> None:
+    held(random_planes(n, 224, 224, seed=n), card, dtype)
+
+
+@pytest.mark.cuda
+def test_image_smaller_than_a_strip(card) -> None:
+    planes = random_planes(1, 4, 2, seed=4)
+    held(planes, card, torch.float32)
+    held(planes, card, torch.bfloat16)
+    held(planes[0], card, band_hw=(4, 2))
+    held(planes[0], card, band_hw=(3, 1))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 12, 226), (1, 1476, 6874)], ids=["batch", "band"])
+def test_planes_at_a_2_byte_offset(card, shape) -> None:
+    n, h, w = shape
+    size = n * h * 3 // 2 * w
+    storage = torch.from_numpy(np.random.default_rng(2).integers(0, 256, size + 16, dtype=np.uint8)).to(card)
+    planes = storage[2 : 2 + size].view(n, h * 3 // 2, w)
+    assert planes.is_contiguous() and planes.data_ptr() % 16 == 2
+    before = colorconv.yuv420_to_rgb.launches
+    if n > 1:
+        got = colorconv.yuv420_to_rgb(planes, torch.float32, scale=True)
+        want = colorconv.yuv420_batch_to_rgb_reference(planes.cpu(), torch.float32, scale=True)
+    else:
+        got = colorconv.yuv420_to_rgb(planes[0], band_hw=(h - 1, w - 1))
+        want = colorconv.unpack_yuv420_band_reference(planes[0].cpu(), (h - 1, w - 1))
+    torch.cuda.synchronize()
+    assert colorconv.yuv420_to_rgb.launches == before + 1
+    assert torch.equal(got.cpu(), want)
 
 
 @pytest.mark.cuda

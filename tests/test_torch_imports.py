@@ -390,7 +390,7 @@ def test_no_top_level_import_of_refused_packages() -> None:
     import re
 
     pattern = re.compile(
-        r"^\s*(import|from) (jax|flax|cv2|yaml|PIL|sklearn|fsspec|matplotlib|transformers|safetensors|"
+        r"^\s*(import|from) (jax|flax|cv2|yaml|PIL|psutil|sklearn|fsspec|matplotlib|transformers|safetensors|"
         r"huggingface_hub|click|joblib|tiatoolbox_tpu)\b",
         re.M,
     )

@@ -225,14 +225,17 @@ def yuv420_to_rgb(
     """Launch K8 on CUDA uint8 planes.
 
     Args:
-        planes: ``[B, 1.5 H, W]`` (batch) or ``[1.5 H, W]`` (band), contiguous uint8.
+        planes: ``[B, 1.5 H, W]`` (batch) or ``[1.5 H, W]`` (band), contiguous
+            uint8 at an even address (a view at any even offset will do: K8
+            copies the 16-byte aligned cover of each row it reads).
         dtype: float32 or bfloat16 for a batch; a band is uint8.
         scale: multiply by ``float32(1 / 255)`` before the cast (batch).
         band_hw: the band's (h, w): selects the band entry.
 
     Returns:
-        A new tensor on the planes' device. ``yuv420_to_rgb.launches`` counts
-        the launches.
+        A new tensor on the planes' device (a fresh allocation, 16-byte
+        aligned, as K8's 16-byte stores need). ``yuv420_to_rgb.launches``
+        counts the launches.
     """
     if planes.device.type != "cuda":
         msg = f"yuv420_to_rgb launches K8 on a CUDA tensor, got {planes.device}."
