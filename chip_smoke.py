@@ -39,7 +39,14 @@ temporary directory, and drives the port's entry points on them:
   with the packed foreground/type plane and the watershed energy computed
   on the card, the per-patch feed with the Otsu mask, and tile mode with
   the host Sobel front-end; the watershed and contours run on the host in
-  the port's C++;
+  the port's C++. Each run's maps leave the card through the drain
+  (parallel/pipeline.py: copies on a copy stream, row-gated views), and
+  post-processing starts on them while they land (each run's last row
+  must land after post-processing started): run 1's line gives the
+  fetch's dispatch seconds, which must be a small share of the seconds
+  from its flush to the uint8 plane's last row, the seconds to the
+  energy's, and its post-processing repeated on the materialised views
+  (identical instances);
 - "wire", the yuv420 wire: K8 (csrc/colorconv.cu) held against its plain
   version bit for bit (the batch entry at B's 64x224^2 in float32 and
   bfloat16 and over every (Y, Cb, Cr) triple, the band entry at C's first
@@ -301,6 +308,7 @@ from tiatoolbox_tpu_torch.ops.stain import (  # noqa: E402
     stain_transform_reference,
 )
 from tiatoolbox_tpu_torch.parallel import BatchLoader, mesh  # noqa: E402
+from tiatoolbox_tpu_torch.parallel.pipeline import LazyRowsView  # noqa: E402
 from tiatoolbox_tpu_torch.tools.patchextraction import get_patch_extractor  # noqa: E402
 from tiatoolbox_tpu_torch.tools.registration.wsi_registration import (  # noqa: E402
     DFBRegister,
@@ -1535,6 +1543,11 @@ INST_TILE_LIMIT = 4096 * 2048
 INST_TILE_RATIO = 0.84
 INST_TILE_RATIO_TOL = 0.03
 ENERGY_TOL = 2e-6  # K5 against its plain version, on [0, 1]
+# run 1's fetch dispatch (two launches, two pinned allocations) against the
+# seconds from its flush to the uint8 plane's last row (the forward's queued
+# tail): 0.0034 against 0.5805 s when nothing waits, 0.6056 against 0.5758
+# when a first module load did (H100 80GB HBM3, 700 W)
+DISPATCH_SHARE = 0.25
 # Per pixel K5 must read the hv pair (8 B) and write the energy (4 B, 2 B as
 # float16); it does 2 x (21 + 21) multiply-adds for the two separable Sobels
 # and about 10 more operations (normalisations, the max).
@@ -1774,7 +1787,8 @@ def repeat_postproc_on_plain_planes(model: HoVerNet, canvas_obj, calls: list, h:
     reports how far the watershed partition moves with the kernel's energy.
     The run's energy (K5 from K6's hv min/max) also equals K5's raw-canvas
     entry with its own min/max pass, bit for bit."""
-    (maps, (task,)), = calls
+    (views, (task,)), = calls
+    maps = [np.asarray(m) for m in views]
     cv, cn = canvas_obj.canvas, canvas_obj.count
     packed = canvas_ops.pack_fg_tp_reference(cv, cn, h, w, 3)[0].cpu().numpy()
     check(np.array_equal(packed, maps[0]), "plain packed plane == the run's")
@@ -1797,6 +1811,38 @@ def repeat_postproc_on_plain_planes(model: HoVerNet, canvas_obj, calls: list, h:
         "foreground_share_moved": moved,
         "foreground_share": float((packed & 1).mean()),
     }
+
+
+def postproc_on_materialised_views(model: HoVerNet, calls: list) -> dict:
+    """Run 1's post-processing got the drain's ``LazyRowsView``s, still filling;
+    ``postproc_func`` again on ``np.asarray`` of the same views must give the
+    same instances: the label map bit for bit, the count, every contour."""
+    (views, (task,)), = calls
+    check(all(isinstance(m, LazyRowsView) for m in views), f"run 1's maps are {[type(m).__name__ for m in views]}")
+    (again,) = model.postproc_func([np.asarray(m) for m in views])
+    check(np.array_equal(again["predictions"], task["predictions"]), "labels from the materialised views differ")
+    got, want = again["info_dict"], task["info_dict"]
+    check(len(got["box"]) == len(want["box"]), f"instances {len(got['box'])} vs {len(want['box'])} through the views")
+    check(
+        all(np.array_equal(a, b) for a, b in zip(got["contours"], want["contours"])),
+        "contours from the materialised views differ",
+    )
+    return {"maps": [type(m).__name__ for m in views], "instances": len(want["box"]), "identical": True}
+
+
+def drain_stages(line: dict, names: tuple[str, ...]) -> dict:
+    """Each drain's stage of a run's summary, with a time: its last row must
+    have landed after post-processing started (the engine reads that from
+    the two clocks, ``multi_task_segmentor.py::drain_stage``)."""
+    out = {}
+    for name in names:
+        stage = line["stages"].get(name)
+        check(
+            stage is not None and stage["overlapped_with_postproc"] is True and stage["seconds"] >= 0,
+            f"{line['path']}: drain stage {name} is {stage}",
+        )
+        out[name] = stage
+    return out
 
 
 def partition_moved(got: np.ndarray, want: np.ndarray) -> float:
@@ -1880,6 +1926,27 @@ def phase_instance(tmp: Path, card: str) -> tuple[list[dict], dict]:
         counts1["normalize_rows"] == 0 and all(n > 0 for k, n in counts1.items() if k != "normalize_rows"),
         f"region-feed launches {counts1}",
     )
+    # the banded fetch: K6 packs the one whole-canvas block, K5 the energy from its min/max
+    check(counts1["pack_fg_tp"] == 1 and counts1["hv_energy"] == 1, f"banded fetch launches {counts1}")
+    drains = drain_stages(region, ("fetch-banded", "fetch"))
+    region["drain"] = {
+        "fetch_dispatch_seconds": region["stages"]["fetch-dispatch"]["seconds"],
+        "u8_plane_after_flush_seconds": drains["fetch-banded"]["after_flush_seconds"],
+        "energy_after_flush_seconds": drains["fetch"]["after_flush_seconds"],
+        "fetch_seconds": drains["fetch"]["seconds"],
+        "landed_after_postproc_start_seconds": {k: d["landed_after_postproc_start_seconds"] for k, d in drains.items()},
+        "overlapped_with_postproc": all(d["overlapped_with_postproc"] for d in drains.values()),
+        "instance_postproc_seconds": region["stages"]["instance-postproc"]["seconds"],
+        "card": card,
+    }
+    # Nothing at dispatch may wait for the loop's queued work (a module load,
+    # the stream pool): the uint8 plane then lands while the forward's tail
+    # still runs, long after the dispatch returned.
+    check(
+        region["drain"]["fetch_dispatch_seconds"] < DISPATCH_SHARE * region["drain"]["u8_plane_after_flush_seconds"],
+        f"the fetch's dispatch waited for the card: {region['drain']}",
+    )
+    region["views"] = postproc_on_materialised_views(model, calls1)
     KEPT["D"] = {"model": model, "slide": slide, "ioconfig": ioconfig, "instances": inst1}
     region.update(forward_ms_per_batch=forward_ms, setup_seconds=setup_seconds, slide_seconds=slide_seconds)
     region["stages"]["forward_estimate"] = {
@@ -1909,6 +1976,7 @@ def phase_instance(tmp: Path, card: str) -> tuple[list[dict], dict]:
         and counts2["extract_patches"] == 0 and counts2["pack_fg_tp"] == 0,
         f"per-patch launches {counts2}",
     )
+    drain_stages(masked, ("fetch",))
     inside = covered_interior(rec2.canvas.count[:h, :w], margin=48).cpu().numpy()
     n1, n2 = instances_inside(inst1, inside), instances_inside(inst2, inside)
     masked["compared_with_region_feed"] = {
@@ -1936,6 +2004,7 @@ def phase_instance(tmp: Path, card: str) -> tuple[list[dict], dict]:
         and counts3["hv_energy"] == 0 and counts3["pack_fg_tp"] == 0,
         f"tile-mode launches {counts3}",
     )
+    drain_stages(tiled, ("fetch",))
     ratio = len(inst3) / len(inst1)
     tiled["compared_with_region_feed"] = {"instances_region_feed": len(inst1), "ratio": ratio}
     # The reference's tile scheme keeps fewer of this checkpoint's instances

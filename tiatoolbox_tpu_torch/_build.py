@@ -8,6 +8,8 @@ named by a hash of the source, every ``csrc/*.cuh`` and ``csrc/*.h``
 header and the compiler's flags, and are built at first use. Beside each CUDA library a
 ``.ptxas`` file keeps what ``ptxas -v`` said of its kernels (registers,
 spills, shared memory). A failed build raises; nothing falls back.
+``load_cuda_modules`` loads every CUDA library's module into the current
+context ahead of the work that would otherwise wait for that load.
 """
 
 from __future__ import annotations
@@ -155,3 +157,24 @@ def load(source: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(str(build(source)))
             _loaded[source] = lib
         return lib
+
+
+def load_cuda_modules() -> None:
+    """Build (in parallel, if needed) and load every CUDA library (``csrc/*.cu``),
+    and load each one's module into the current CUDA context.
+
+    CUDA loads a module at the first use of one of its kernels and
+    synchronises the context to do so; each library's ``module_load``
+    (``csrc/common.cuh``) does that now, without a launch.
+
+    Raises:
+        RuntimeError: a build fails, or CUDA cannot load a module.
+    """
+    names = [p.name for p in sorted(CSRC_DIR.glob("*.cu"))]
+    with ThreadPoolExecutor(max(1, len(names))) as pool:
+        list(pool.map(build, names))
+    for name in names:
+        code = load(name).module_load()
+        if code != 0:
+            msg = f"CUDA could not load the module of {name} (cudaError {code})."
+            raise RuntimeError(msg)

@@ -1,13 +1,26 @@
-// Helpers shared by the port's kernels: persistent-grid sizing, the
-// 4-element vector stores of float32 or float16 outputs, the division by a
-// reciprocal, and the min/max of a pair of channels over a whole grid (K5's
-// first pass and K6 reduce the hv pair with the same code).
+// Helpers shared by the port's kernels: each library's module_load entry,
+// persistent-grid sizing, the 4-element vector stores of float32 or float16
+// outputs, the division by a reciprocal, and the min/max of a pair of
+// channels over a whole grid (K5's first pass and K6 reduce the hv pair with
+// the same code). Every csrc/*.cu includes it once.
 #pragma once
 
 #include <atomic>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
+
+// CUDA loads a library's module at the first use of one of its kernels and
+// synchronises the context to do so, so a first launch queued behind other
+// work waits for all of it. module_load() loads the module into the current
+// context without a launch (an attribute query of an empty kernel); the
+// port calls it before a loop queues work (_build.py::load_cuda_modules).
+__global__ void module_anchor() {}
+
+extern "C" int module_load() {
+    cudaFuncAttributes attr;
+    return static_cast<int>(cudaFuncGetAttributes(&attr, module_anchor));
+}
 
 namespace occupancy {
 

@@ -98,6 +98,8 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "common.cuh"
+
 struct StainCoefs {
     float p[6];  // P, 3x2 row-major: OD -> concentrations
     float s[2];  // per-stain concentration scale

@@ -22,7 +22,13 @@ OpenCV's order of operations (row taps in order, column taps paired
 around the centre), so each equals cv2's result bit for bit; the 5x5
 elliptical opening and the hole filling with ``scipy.ndimage``; the marker
 watershed and the contour follower in the port's own host C++
-(``csrc/watershed.cpp`` through ``tiatoolbox_tpu_torch.native``).
+(``csrc/watershed.cpp`` through ``tiatoolbox_tpu_torch.native``). It runs
+on a per-thread scratch pool (``_Scratch``, :755-822): each step writes
+into a named array of the map's shape (the helpers' ``out=``), which a
+tile-mode worker keeps from one same-shaped tile to the next; the pool is
+dropped after a call that needs more than 256 MiB. ``postproc`` takes
+numpy maps or the engine's ``LazyRowsView``s (``postproc_accepts_views``)
+and reads the energy only after the foreground is labelled.
 ``transform_canvas_for_postproc``, ``banded_fetch_spec``,
 ``block_fetch_transform`` and ``final_fetch_transform`` (:610-680) are the
 engine's hooks: they run kernels K6 (pack, and the hv pair's min/max) and
@@ -31,8 +37,7 @@ K5 (energy, from that min/max) on the card.
 Not ported (TPU-only): the block-diagonal dense-unit rewrite of
 ``optimize_for_inference`` (:127-158, :289-318; a bfloat16
 ``compute_dtype`` casts the weights when the model is built,
-``ModelABC.place``) and the per-thread scratch pool ``_Scratch``
-(:764-822).
+``ModelABC.place``).
 """
 
 from __future__ import annotations
@@ -323,42 +328,66 @@ class HoVerNet(ModelABC):
     @staticmethod
     def _proc_np_hv(np_map: np.ndarray, hv_map: np.ndarray, scale_factor: float = 1) -> np.ndarray:
         """NP + HV maps -> labelled instances through the Sobel-energy
-        watershed (``hovernet.py:374``), with cv2's arithmetic."""
-        blb = _foreground_labels(np.asarray(np_map)[..., 0])
-        hv_map = np.asarray(hv_map)
-        h_dir = normalize_minmax(hv_map[..., 0])
-        v_dir = normalize_minmax(hv_map[..., 1])
+        watershed (``hovernet.py:374``), with cv2's arithmetic, on this
+        thread's scratch pool."""
+        np_map, hv_map = np.asarray(np_map), np.asarray(hv_map)
+        sc = _proc_scratch(np_map.shape[:2])
+        blb = _foreground_labels(np_map[..., 0], out=sc["i32_a"])
+        h_dir = normalize_minmax(hv_map[..., 0], out=sc["f32_a"])
+        v_dir = normalize_minmax(hv_map[..., 1], out=sc["f32_b"])
         ksize = int((20 * scale_factor) + 1)
-        sobel_h = np.subtract(1, normalize_minmax(sobel(h_dir, 1, 0, ksize)))
-        sobel_v = np.subtract(1, normalize_minmax(sobel(v_dir, 0, 1, ksize)))
-        overall32 = np.maximum(sobel_h, sobel_v)
-        return HoVerNet._proc_np_overall(blb, overall32, scale_factor=scale_factor)
+        # the normalised directions are dead once filtered: they take the normalised Sobels
+        sobel_h = normalize_minmax(sobel(h_dir, 1, 0, ksize, out=sc["f64_a"]), out=sc["f32_a"])
+        sobel_v = normalize_minmax(sobel(v_dir, 0, 1, ksize, out=sc["f64_b"]), out=sc["f32_b"])
+        np.subtract(1, sobel_h, out=sobel_h)
+        np.subtract(1, sobel_v, out=sobel_v)
+        overall32 = np.maximum(sobel_h, sobel_v, out=sobel_h)
+        return HoVerNet._proc_np_overall(blb, overall32, sc, scale_factor=scale_factor)
 
     @staticmethod
-    def _proc_np_energy(np_map: np.ndarray, energy_map: np.ndarray, scale_factor: float = 1) -> np.ndarray:
-        """As ``_proc_np_hv`` from an energy map computed on the card (``hovernet.py:429``)."""
-        blb = _foreground_labels(np.asarray(np_map)[..., 0])
+    def _proc_np_energy(np_map: np.ndarray, energy_map, scale_factor: float = 1) -> np.ndarray:
+        """As ``_proc_np_hv`` from an energy map computed on the card (``hovernet.py:429``).
+
+        The energy is read only after the foreground is labelled: where it
+        arrives as a ``LazyRowsView`` of a buffer still filling, the
+        labelling runs while the energy is on its way.
+        """
+        np_map = np.asarray(np_map)
+        sc = _proc_scratch(np_map.shape[:2])
+        blb = _foreground_labels(np_map[..., 0], out=sc["i32_a"])
         energy = np.asarray(energy_map)
         if energy.ndim == 3:
             energy = energy[..., 0]
-        overall32 = np.ascontiguousarray(energy, dtype=np.float32)
-        return HoVerNet._proc_np_overall(blb, overall32, scale_factor=scale_factor)
+        overall32 = sc.contiguous("f32_energy", energy.astype(np.float32, copy=False))
+        return HoVerNet._proc_np_overall(blb, overall32, sc, scale_factor=scale_factor)
 
     @staticmethod
-    def _proc_np_overall(blb: np.ndarray, overall32: np.ndarray, scale_factor: float = 1) -> np.ndarray:
+    def _proc_np_overall(blb: np.ndarray, overall32: np.ndarray, sc: _Scratch, scale_factor: float = 1) -> np.ndarray:
         """Energy + foreground -> instances (``hovernet.py:459-496``): markers
         where the energy is low, hole-filled, opened with the 5x5 ellipse,
-        labelled, then flooded over the blurred distance map inside ``blb``."""
+        labelled, then flooded over the blurred distance map inside ``blb``.
+
+        ``blb`` is ``sc["i32_a"]``; ``overall32`` may be ``sc["f32_a"]``, which
+        is read before anything else is written. The pool is trimmed after.
+        """
         obj_size = math.ceil(10 * (scale_factor**2))
+        one_minus_blb = np.subtract(1, blb, out=sc["i32_b"])
         # float32 - int32 promotes to float64, as in the reference
-        overall = np.maximum(overall32 - (1 - blb), 0)
-        dist = gaussian_blur_3x3((1.0 - overall) * blb)
-        dist = np.negative(dist)
-        marker = np.maximum(blb - (overall >= 0.4), 0)
-        marker_u8 = binary_open(fill_holes(marker), ellipse_kernel((5, 5)))
-        marker = ndimage.label(marker_u8)[0].astype(np.int32)
-        marker = _remove_small_objects(marker, min_size=obj_size)
-        return native.watershed(dist, marker, blb)
+        overall = np.subtract(overall32, one_minus_blb, out=sc["f64_a"])
+        np.maximum(overall, 0, out=overall)
+        dist = np.subtract(1.0, overall, out=sc["f64_b"])
+        np.multiply(dist, blb, out=dist)
+        dist = gaussian_blur_3x3(dist, out=sc["f64_c"])
+        np.negative(dist, out=dist)
+        marker = np.subtract(blb, np.greater_equal(overall, 0.4, out=sc["bool_a"]), out=sc["i32_b"])
+        np.maximum(marker, 0, out=marker)
+        marker_u8 = binary_open(fill_holes(marker, out=sc["u8_a"]), ellipse_kernel((5, 5)), out=sc["u8_b"])
+        ndimage.label(marker_u8, output=marker)
+        _remove_small_objects(marker, min_size=obj_size, out=marker)
+        result = native.watershed(dist, marker, blb)
+        # tile-sized working sets stay for the next call; a whole canvas's does not
+        sc.trim()
+        return result
 
     @staticmethod
     def get_instance_info(
@@ -486,32 +515,40 @@ class HoVerNet(ModelABC):
         crop = (slice(0, height), slice(0, width))
         return hv_energy(canvas[crop][..., 1:3], count=count[crop], dtype=dtype, minmax=state)[..., None]
 
+    # postproc reads its maps in its own order (the foreground before the
+    # energy), so the engine may hand it ``LazyRowsView``s still filling
+    postproc_accepts_views = True
+
     def postproc(self, raw_maps: list, offset: tuple[int, int] = (0, 0)) -> tuple:
         """[np, hv | energy(, tp)] maps -> ({instance result},) (``hovernet.py:682``).
 
         A uint8 first map of two is the packed plane (fg in bit 0, the
         rounded type above it when the model has a type head); a
         one-channel second map is the energy computed on the card; two
-        channels are hv maps for the host front-end.
+        channels are hv maps for the host front-end. The maps are numpy
+        arrays or ``LazyRowsView``s: the foreground is read first, the
+        energy only after the foreground is labelled, and a separate type
+        map after the instances.
         """
-        if len(raw_maps) == 2 and np.asarray(raw_maps[0]).dtype == np.uint8:
+        tp_map = None
+        if len(raw_maps) == 2 and raw_maps[0].dtype == np.uint8:
             packed = np.asarray(raw_maps[0])
             np_map = packed & 1
-            tp_map = (packed[..., 0] >> 1).astype(np.uint8) if self.num_types is not None else None
-            hv_map = np.asarray(raw_maps[1])
-        elif len(raw_maps) == 3:
-            np_map, hv_map, tp_map = (np.asarray(m) for m in raw_maps)
-            if tp_map.dtype != np.uint8:
-                tp_map = np.around(tp_map).astype("uint8")
+            if self.num_types is not None:
+                tp_map = (packed[..., 0] >> 1).astype(np.uint8)
+            hv_map = raw_maps[1]
         else:
-            tp_map = None
-            np_map, hv_map = (np.asarray(m) for m in raw_maps)
+            np_map, hv_map = np.asarray(raw_maps[0]), raw_maps[1]
         t0 = time.perf_counter()
         if hv_map.ndim == 3 and hv_map.shape[-1] == 1:
             pred_inst = HoVerNet._proc_np_energy(np_map, hv_map)
         else:
             pred_inst = HoVerNet._proc_np_hv(np_map, hv_map)
         t1 = time.perf_counter()
+        if len(raw_maps) == 3:
+            tp_map = np.asarray(raw_maps[2])
+            if tp_map.dtype != np.uint8:
+                tp_map = np.around(tp_map).astype("uint8")
         info_dict = HoVerNet.get_instance_info(pred_inst, tp_map, offset)
         t2 = time.perf_counter()
         # accumulated across the tile-mode calls of a run (worker threads)
@@ -536,25 +573,107 @@ class HoVerNet(ModelABC):
 # -- host pieces of the watershed, without cv2 ----------------------------------------
 
 
-def normalize_minmax(x: np.ndarray) -> np.ndarray:
-    """``cv2.normalize(x, None, 0, 1, NORM_MINMAX, CV_32F)`` bit for bit.
+_SCRATCH_DTYPES = {
+    "f64": np.float64,
+    "f32": np.float32,
+    "i32": np.int32,
+    "u8": np.uint8,
+    "bool": np.bool_,
+}
+_SCRATCH_MAX_RETAIN_BYTES = 256 * 1024 * 1024
+_ROW_BLOCK = 256  # rows the filters and the normalisation take at once
+
+
+class _Scratch(threading.local):
+    """Per-thread pool of named arrays of one map shape (JAX ``hovernet.py:764-819``).
+
+    ``sc["f64_a"]`` is a float64 array of ``shape`` (a name's prefix is its
+    dtype), made on first use and kept, so a post-processing thread that runs
+    many same-shaped tiles reuses one working set instead of allocating
+    (and having the kernel zero) tens of megabytes a call. Only the latest
+    shape is kept, and ``trim`` drops the pool above
+    ``_SCRATCH_MAX_RETAIN_BYTES``, so a whole-canvas call does not stay
+    resident.
+    """
+
+    shape: tuple | None = None
+
+    def _bufs(self) -> dict:
+        bufs = getattr(self, "bufs", None)
+        if bufs is None:
+            bufs = self.bufs = {}
+        return bufs
+
+    def __getitem__(self, key: str) -> np.ndarray:
+        bufs = self._bufs()
+        buf = bufs.get(key)
+        if buf is None:
+            buf = bufs[key] = np.empty(self.shape, _SCRATCH_DTYPES[key.rsplit("_", 1)[0]])
+        return buf
+
+    def contiguous(self, key: str, arr: np.ndarray) -> np.ndarray:
+        """``arr`` where it is C-contiguous, else its copy in the pool's ``key``."""
+        if arr.flags.c_contiguous:
+            return arr
+        bufs = self._bufs()
+        buf = bufs.get(key)
+        if buf is None or buf.dtype != arr.dtype:
+            buf = bufs[key] = np.empty(self.shape, arr.dtype)
+        np.copyto(buf, arr)
+        return buf
+
+    def trim(self, max_bytes: int | None = None) -> None:
+        """Drop the pool if it holds more than ``max_bytes`` (``_SCRATCH_MAX_RETAIN_BYTES``)."""
+        bufs = getattr(self, "bufs", None)
+        if not bufs:
+            return
+        cap = _SCRATCH_MAX_RETAIN_BYTES if max_bytes is None else max_bytes
+        if sum(b.nbytes for b in bufs.values()) > cap:
+            self.bufs = {}
+            self.shape = None
+
+
+_SCRATCH = _Scratch()
+
+
+def _proc_scratch(shape: tuple) -> _Scratch:
+    """This thread's pool, emptied first if it was for another shape."""
+    shape = tuple(shape)
+    if _SCRATCH.shape != shape:
+        _SCRATCH.shape = shape
+        _SCRATCH.bufs = {}
+    return _SCRATCH
+
+
+def _pooled(shape: tuple, key: str, out) -> np.ndarray | None:
+    """The pool's ``key`` for a helper given an ``out`` buffer, else None (numpy allocates)."""
+    return None if out is None else _proc_scratch(shape)[key]
+
+
+def normalize_minmax(x: np.ndarray, out: np.ndarray | None = None) -> np.ndarray:
+    """``cv2.normalize(x, None, 0, 1, NORM_MINMAX, CV_32F)`` bit for bit, into ``out``.
 
     OpenCV takes the min and max in float64, a scale ``1 / (max - min)``
     (0 when the range is at most DBL_EPSILON) rounded to float32, a shift
     ``-min * scale`` from that rounded scale, also rounded to float32, and
     then ``x * scale + shift`` in float64 with one rounding (a fused
     multiply-add) before rounding to float32. For float32 input the product
-    is exact in float64, so a plain multiply and add is the same.
+    is exact in float64, so a plain multiply and add is the same. The
+    float64 work goes ``_ROW_BLOCK`` rows at a time.
     """
     x = np.asarray(x)
     smin, smax = float(x.min()), float(x.max())
     scale = 1.0 / (smax - smin) if smax - smin > np.finfo(np.float64).eps else 0.0
     a = float(np.float32(scale))
     b = float(np.float32(0.0 - smin * a))
-    x64 = x.astype(np.float64)
-    if np.finfo(x.dtype).nmant <= 23:
-        return (x64 * a + b).astype(np.float32)
-    return _fused_multiply_add(x64, a, b).astype(np.float32)
+    exact_product = np.finfo(x.dtype).nmant <= 23
+    if out is None:
+        out = np.empty(x.shape, np.float32)
+    for y0 in range(0, x.shape[0], _ROW_BLOCK):
+        rows = slice(y0, y0 + _ROW_BLOCK)
+        x64 = x[rows].astype(np.float64)
+        out[rows] = x64 * a + b if exact_product else _fused_multiply_add(x64, a, b)
+    return out
 
 
 def _two_sum(a: np.ndarray, b: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
@@ -579,90 +698,143 @@ def _fused_multiply_add(x: np.ndarray, a: float, b: float) -> np.ndarray:
     return s + (err + (mid * a + lo * a))
 
 
-def _separable_filter64(x: np.ndarray, k_row: np.ndarray, k_col: np.ndarray) -> np.ndarray:
-    """OpenCV's float64 separable filter with BORDER_REFLECT_101.
+def _separable_filter64(
+    x: np.ndarray, k_row: np.ndarray, k_col: np.ndarray, out: np.ndarray | None = None
+) -> np.ndarray:
+    """OpenCV's float64 separable filter with BORDER_REFLECT_101, into ``out``.
 
     The row pass sums the taps in order (``RowFilter``); the column pass
     adds the rows paired around the centre before multiplying
     (``SymmColumnFilter``, symmetric or antisymmetric kernel), which is what
-    makes the result equal cv2's bit for bit.
+    makes the result equal cv2's bit for bit. Both passes go
+    ``_ROW_BLOCK`` rows at a time (the reflected border gathered per
+    block); the row pass's result is the pool's ``f64_rows`` when ``out``
+    is given.
     """
     h, w = x.shape
-    r = len(k_row) // 2
-    xp = x.astype(np.float64)[:, reflect101_index(w, r)]
-    rows = k_row[0] * xp[:, 0:w]
-    for j in range(1, len(k_row)):
-        rows = rows + k_row[j] * xp[:, j : j + w]
-    r = len(k_col) // 2
-    bp = rows[reflect101_index(h, r)]
-    centre = k_col[r:]
-    if np.array_equal(k_col, k_col[::-1]):
-        out = centre[0] * bp[r : r + h] + 0.0
-        for j in range(1, r + 1):
-            out = out + centre[j] * (bp[r + j : r + j + h] + bp[r - j : r - j + h])
-    elif np.array_equal(k_col, -k_col[::-1]):
-        out = np.zeros((h, w))
-        for j in range(1, r + 1):
-            out = out + centre[j] * (bp[r + j : r + j + h] - bp[r - j : r - j + h])
-    else:
+    sym = np.array_equal(k_col, k_col[::-1])
+    if not sym and not np.array_equal(k_col, -k_col[::-1]):
         msg = "The column kernel must be symmetric or antisymmetric."
         raise ValueError(msg)
+    rows = _pooled((h, w), "f64_rows", out)
+    if rows is None:
+        rows = np.empty((h, w))
+    if out is None:
+        out = np.empty((h, w))
+    r = len(k_row) // 2
+    cols = reflect101_index(w, r)
+    for y0 in range(0, h, _ROW_BLOCK):
+        xp = x[y0 : y0 + _ROW_BLOCK].astype(np.float64)[:, cols]
+        acc = rows[y0 : y0 + _ROW_BLOCK]
+        np.multiply(xp[:, 0:w], k_row[0], out=acc)
+        for j in range(1, len(k_row)):
+            acc += k_row[j] * xp[:, j : j + w]
+    r = len(k_col) // 2
+    centre = k_col[r:]
+    row_idx = reflect101_index(h, r)
+    for y0 in range(0, h, _ROW_BLOCK):
+        n = min(_ROW_BLOCK, h - y0)
+        bp = rows[row_idx[y0 : y0 + n + 2 * r]]
+        acc = out[y0 : y0 + n]
+        if sym:
+            np.multiply(bp[r : r + n], centre[0], out=acc)
+            acc += 0.0
+            for j in range(1, r + 1):
+                acc += centre[j] * (bp[r + j : r + j + n] + bp[r - j : r - j + n])
+        else:
+            acc.fill(0.0)
+            for j in range(1, r + 1):
+                acc += centre[j] * (bp[r + j : r + j + n] - bp[r - j : r - j + n])
     return out
 
 
-def sobel(x: np.ndarray, dx: int, dy: int, ksize: int) -> np.ndarray:
+def sobel(x: np.ndarray, dx: int, dy: int, ksize: int, out: np.ndarray | None = None) -> np.ndarray:
     """``cv2.Sobel(x, CV_64F, dx, dy, ksize=ksize)`` for a first derivative, bit for bit."""
     deriv, smooth = (k.astype(np.float64) for k in sobel_kernels(ksize))
     k_row, k_col = (deriv, smooth) if dx else (smooth, deriv)
-    return _separable_filter64(x, k_row, k_col)
+    return _separable_filter64(x, k_row, k_col, out)
 
 
-def gaussian_blur_3x3(x: np.ndarray) -> np.ndarray:
+def gaussian_blur_3x3(x: np.ndarray, out: np.ndarray | None = None) -> np.ndarray:
     """``cv2.GaussianBlur(x, (3, 3), 0)`` on float64, bit for bit (taps 1-2-1 / 4)."""
     taps = np.array([0.25, 0.5, 0.25])
-    return _separable_filter64(x, taps, taps)
+    return _separable_filter64(x, taps, taps, out)
 
 
-def binary_open(mask: np.ndarray, kernel: np.ndarray) -> np.ndarray:
-    """``cv2.morphologyEx(mask, MORPH_OPEN, kernel)`` on a 0/1 uint8 mask.
+def binary_open(mask: np.ndarray, kernel: np.ndarray, out: np.ndarray | None = None) -> np.ndarray:
+    """``cv2.morphologyEx(mask, MORPH_OPEN, kernel)`` on a 0/1 uint8 mask, into uint8 ``out``.
 
     OpenCV's border values leave the image edge alone: erosion treats
     outside pixels as set, dilation as unset. The kernel is symmetric
     with its anchor at the centre.
     """
     structure = kernel.astype(bool)
-    eroded = ndimage.binary_erosion(mask != 0, structure=structure, border_value=1)
-    return ndimage.binary_dilation(eroded, structure=structure).astype(np.uint8)
+    fg = np.not_equal(mask, 0, out=_pooled(mask.shape, "bool_open", out))
+    eroded = ndimage.binary_erosion(
+        fg, structure=structure, border_value=1, output=_pooled(mask.shape, "bool_eroded", out)
+    )
+    if out is None:
+        out = np.empty(mask.shape, np.uint8)
+    ndimage.binary_dilation(eroded, structure=structure, output=out)
+    return out
 
 
-def fill_holes(marker: np.ndarray) -> np.ndarray:
-    """``ndimage.binary_fill_holes(marker != 0)`` as uint8: a zero pixel is a
-    hole unless 4-connected to the image border (``hovernet.py:825``)."""
-    fg = np.asarray(marker) != 0
-    background, n = ndimage.label(~fg)
+def fill_holes(marker: np.ndarray, out: np.ndarray | None = None) -> np.ndarray:
+    """``ndimage.binary_fill_holes(marker != 0)`` as uint8 ``out``: a zero pixel is
+    a hole unless 4-connected to the image border (``hovernet.py:825``)."""
+    marker = np.asarray(marker)
+    fg = np.not_equal(marker, 0, out=_pooled(marker.shape, "bool_fill", out))
+    not_fg = np.logical_not(fg, out=_pooled(marker.shape, "bool_notfill", out))
+    background = _pooled(marker.shape, "i32_fill", out)
+    if background is None:
+        background = np.empty(marker.shape, np.int32)
+    n = ndimage.label(not_fg, output=background)
+    if out is None:
+        out = np.empty(marker.shape, np.uint8)
     if n == 0:
-        return fg.astype(np.uint8)
+        np.copyto(out, fg)
+        return out
     edge = np.concatenate([background[0], background[-1], background[:, 0], background[:, -1]])
     outside = np.zeros(n + 1, bool)
     outside[edge] = True
     outside[0] = True  # label 0 is the foreground itself
-    return (fg | ~outside[background]).astype(np.uint8)
+    # ``not_fg`` is dead: it takes ``~outside[background]``
+    hole = np.take(outside, background, out=not_fg, mode="clip")
+    np.logical_not(hole, out=hole)
+    np.logical_or(fg, hole, out=hole)
+    np.copyto(out, hole)
+    return out
 
 
-def _foreground_labels(blb_raw: np.ndarray) -> np.ndarray:
-    """``np >= 0.5``, labelled, objects under 10 pixels removed, then 0/1 int32."""
-    blb = ndimage.label(blb_raw >= 0.5)[0].astype(np.int32)
-    blb = _remove_small_objects(blb, min_size=10)
-    return np.minimum(blb, 1)
+def _foreground_labels(blb_raw: np.ndarray, out: np.ndarray | None = None) -> np.ndarray:
+    """``np >= 0.5``, labelled, objects under 10 pixels removed, then 0/1, into int32 ``out``."""
+    blb_raw = np.asarray(blb_raw)
+    fg = np.greater_equal(blb_raw, 0.5, out=_pooled(blb_raw.shape, "bool_fg", out))
+    blb = np.empty(blb_raw.shape, np.int32) if out is None else out
+    ndimage.label(fg, output=blb)
+    _remove_small_objects(blb, min_size=10, out=blb)
+    np.minimum(blb, 1, out=blb)
+    return blb
 
 
-def _remove_small_objects(labelled: np.ndarray, min_size: int) -> np.ndarray:
-    """Zero the labelled components smaller than ``min_size`` pixels (``hovernet.py:843``)."""
+def _remove_small_objects(labelled: np.ndarray, min_size: int, out: np.ndarray | None = None) -> np.ndarray:
+    """Zero the labelled components smaller than ``min_size`` pixels (``hovernet.py:843``).
+
+    Into ``out`` (which may be ``labelled`` itself); without one, a copy, or
+    ``labelled`` itself where nothing is removed.
+    """
     if min_size <= 1 or labelled.max() == 0:
-        return labelled
+        if out is None or out is labelled:
+            return labelled
+        np.copyto(out, labelled)
+        return out
     counts = np.bincount(labelled.ravel())
     too_small = counts < min_size
     too_small[0] = False
-    out = labelled.copy()
-    out[too_small[labelled]] = 0
+    drop = np.take(too_small, labelled, out=_pooled(labelled.shape, "bool_small", out), mode="clip")
+    if out is None:
+        out = labelled.copy()
+    elif out is not labelled:
+        np.copyto(out, labelled)
+    out[drop] = 0
     return out

@@ -14,11 +14,12 @@ needs:
   ``final_fetch_transform`` takes that state and computes the watershed
   energy (K5) from the raw canvas and count, dividing on load, so this path
   makes no normalised copy of the canvas (no K3) and K5 no min/max pass; the
-  engine passes the state on and never reads it; each plane leaves in one
-  copy to pinned memory, the uint8 plane first.
+  engine passes the state on and never reads it. The plane is JAX's one
+  whole-canvas ``BlockDrain`` block, its copy queued first, and the energy
+  follows through ``fetch_chunked_async``.
 - **transformed** (per-patch feed, :376-427): the normalised canvas goes
   through ``transform_canvas_for_postproc`` (``[np, energy, tp]``, K5) and
-  leaves in one copy.
+  leaves through ``fetch_chunked_async``.
 - **raw**: a canvas over ``full_postproc_limit`` (tile mode) or a caller
   that wants the maps leaves as the normalised ``[np, hv, tp]`` (K3).
 - **host canvas** (:105-206): a canvas over the device budget is added up
@@ -41,9 +42,16 @@ is owned by exactly one pass. Instances are keyed by ``uuid4``.
 (types named by the model's ``nuc_type_dict``), QuPath JSON, or a zarr
 group holding them as JSON attributes; patch mode keeps ``"dict"`` only.
 
-Not ported (TPU-only): the relay drains (``BlockDrain``, ``LazyRowsView``,
-``fetch_chunked_async``) and ``drain_during_loop``; each plane is one
-device-to-pinned copy.
+Every copy to the host is a drain (``parallel/pipeline.py``): queued on the
+device's copy stream after the kernels that wrote the plane, into pinned
+memory, and marked row chunk by row chunk by a waiter thread; on a card
+``prepare_device`` runs before the loop, so that dispatching the drain
+waits for none of the loop's queued work. The engine returns ``LazyRowsView``s of the filling buffers at once, and
+``post_process_wsi`` hands them to a model with ``postproc_accepts_views``
+(HoVerNet labels the foreground of the uint8 plane while the energy is
+still on its way) and materialises them for any other. JAX's
+``drain_during_loop`` (row blocks drained while later bands are still
+scattered) has no counterpart: JAX itself drains one whole-canvas block.
 """
 
 from __future__ import annotations
@@ -64,19 +72,47 @@ from tiatoolbox_tpu_torch.models.engine.semantic_segmentor import (
     SemanticSegmentorRunParams,
     add_patches,
     spill_bytes,
-    to_pinned_host,
 )
 from tiatoolbox_tpu_torch.ops.canvas import DeviceCanvas, normalize_rows
 from tiatoolbox_tpu_torch.parallel import BatchLoader
+from tiatoolbox_tpu_torch.parallel.pipeline import (
+    BlockDrain,
+    LazyRowsView,
+    RowWatermark,
+    fetch_chunked_async,
+    prepare_device,
+)
 from tiatoolbox_tpu_torch.tools.patchextraction import PatchExtractor
 from tiatoolbox_tpu_torch.utils.profiling import StageTimer
 from tiatoolbox_tpu_torch.utils.zarrlite import ZarrArray, ZarrGroup
 
 
+def drain_stage(watermark: RowWatermark, items: int, flushed: float, postproc_start: float) -> dict:
+    """One drain's stage entry, from ``time.perf_counter()`` readings.
+
+    ``seconds``: from the drain's start (its pinned allocation included) to
+    its last row landed; ``after_flush_seconds``: from the flush (every copy
+    of the fetch queued but the banded path's energy) to that last row;
+    ``landed_after_postproc_start_seconds``: from the start of
+    post-processing to that last row, and ``overlapped_with_postproc``
+    whether it is positive, that is, whether post-processing started while
+    rows were still on their way.
+    """
+    landed = watermark.finished_at - postproc_start
+    return {
+        "seconds": round(watermark.drain_seconds, 4),
+        "after_flush_seconds": round(watermark.finished_at - flushed, 4),
+        "landed_after_postproc_start_seconds": round(landed, 4),
+        "items": items,
+        "overlapped_with_postproc": landed > 0,
+    }
+
+
 class MultiTaskSegmentorRunParams(SemanticSegmentorRunParams, total=False):
     """``MultiTaskSegmentor.run`` keyword arguments (JAX ``multi_task_segmentor.py:28-30``, with keys).
 
-    JAX's ``drain_during_loop`` (its ``BlockDrain`` overlap) has no counterpart.
+    JAX's ``drain_during_loop`` (its ``BlockDrain`` of row blocks during the
+    loop) has no counterpart; the banded fetch drains one whole-canvas block.
     """
 
     return_predictions: bool
@@ -114,6 +150,8 @@ class MultiTaskSegmentor(SemanticSegmentor):
         self.margin = 128
         self.full_postproc_limit = 4096 * 4096  # pixels; a larger canvas goes tile by tile
         self.return_predictions = False
+        # the drains of the last device canvas: ``{"since": flush time, stage: (watermark, items)}``
+        self._pending_fetch: dict | None = None
 
     _RUN_PARAMS = tuple(MultiTaskSegmentorRunParams.__annotations__)
 
@@ -121,6 +159,7 @@ class MultiTaskSegmentor(SemanticSegmentor):
 
     def infer_wsi(self, dataloader: BatchLoader) -> dict:
         """Stitch every head into canvases and return ``{"head_maps", "canvas_wh"}`` (:74)."""
+        self._pending_fetch = None
         dataset = dataloader.dataset
         ioconfig = self._ioconfig
         out_res = (
@@ -213,6 +252,8 @@ class MultiTaskSegmentor(SemanticSegmentor):
     ) -> dict:
         """All heads in one device canvas, fed by bands or per patch (:236-427)."""
         dataset = dataloader.dataset
+        if self.model.device.type == "cuda":
+            prepare_device(self.model.device)  # not behind the loop's queued forwards
         ph, pw = np.asarray(probe[0]).shape[1:3]
         positions_all = self._multihead_positions(dataset, probe, coord_scale)
         pad_h = max(int(canvas_wh[1]), int(positions_all[:, 0].max()) + ph)
@@ -263,25 +304,40 @@ class MultiTaskSegmentor(SemanticSegmentor):
             path_name = "multitask-device-canvas"
         timer.add("dispatch-wall", time.perf_counter() - t_loop)
 
+        pending: dict = {}
         if banded:
-            # the uint8 plane first: the host labels the foreground before it
-            # touches the energy (``_proc_np_energy``)
-            with timer.stage("fetch", items=h * w * 2):
+            # JAX's one whole-canvas block (:292-300): K6 packs the uint8 plane
+            # and reduces the hv pair's min/max over the whole canvas, which K5
+            # takes. The plane's copy is queued first, so the host labels the
+            # foreground (``_proc_np_energy``) while the energy is on its way.
+            fetch_state: dict = {}
+
+            def block_fn(y0: int, rows: int) -> torch.Tensor:
                 # ``state``: whatever the model's first hook hands its second
                 # (``banded_fetch_spec``); the engine only passes it on
-                packed, state = self.model.block_fetch_transform(
-                    canvas.canvas, canvas.count, h, w, head_channels
+                plane, fetch_state["state"] = self.model.block_fetch_transform(
+                    canvas.canvas[y0:], canvas.count[y0:], rows, w, head_channels
                 )
-                packed_host = to_pinned_host(packed)
+                return plane
+
+            with timer.stage("fetch-dispatch"):
+                drain = BlockDrain(block_fn, n_rows=h, out_shape=(h, w, 1), out_dtype=np.uint8, block_h=h)
+                drain.flush()
+                since = time.perf_counter()
                 energy = self.model.final_fetch_transform(
-                    canvas.canvas, canvas.count, h, w, head_channels, state, dtype=self._wire_dtype()
+                    canvas.canvas, canvas.count, h, w, head_channels, fetch_state["state"],
+                    dtype=self._wire_dtype(),
                 )
-                energy_host = to_pinned_host(energy).astype(np.float32, copy=False)
-            head_maps = [packed_host, energy_host]
+                ebuf, ewm = fetch_chunked_async(energy, dtype=np.float32)
+            head_maps = [
+                LazyRowsView(drain.buf, drain.watermark, slice(0, 1)),
+                LazyRowsView(ebuf, ewm, slice(0, 1)),
+            ]
+            pending = {"fetch-banded": (drain.watermark, h * w), "fetch": (ewm, h * w)}
             path_name += "+banded-u8+device-energy"
         else:
             fetch_channels = head_channels
-            with timer.stage("fetch", items=h * w * sum(head_channels)):
+            with timer.stage("fetch-dispatch"):
                 transformed = None
                 transform = getattr(self.model, "transform_canvas_for_postproc", None)
                 if transform is not None and full_canvas_postproc:
@@ -289,15 +345,15 @@ class MultiTaskSegmentor(SemanticSegmentor):
                     transformed = transform(normalized, head_channels)
                 if transformed is not None:
                     dev_final, fetch_channels = transformed
-                    dev_final = dev_final.to(self._wire_dtype())
+                    buf, watermark = fetch_chunked_async(dev_final.to(self._wire_dtype()), dtype=np.float32)
                     path_name += "+device-energy"
                 else:
-                    dev_final = normalize_rows(
-                        canvas.canvas, canvas.count, 0, h, w, self._wire_dtype()
-                    )
-                host = to_pinned_host(dev_final).astype(np.float32, copy=False)
+                    buf, watermark = self._fetch_canvas_async(canvas, h, w)
+                since = time.perf_counter()
             bounds = np.cumsum([0, *fetch_channels])
-            head_maps = [host[..., a:b] for a, b in zip(bounds[:-1], bounds[1:])]
+            head_maps = [LazyRowsView(buf, watermark, slice(a, b)) for a, b in zip(bounds[:-1], bounds[1:])]
+            pending = {"fetch": (watermark, h * w * int(bounds[-1]))}
+        self._pending_fetch = {"since": since, **pending}
         summary = timer.summary()
         summary["path"] = path_name
         summary["wire_pixels"] = wire_pixels
@@ -323,21 +379,44 @@ class MultiTaskSegmentor(SemanticSegmentor):
         return raw_predictions
 
     def post_process_wsi(self, raw_predictions: dict, **kwargs) -> dict:  # noqa: ARG002
-        """Instances of the whole map, or tile by tile above ``full_postproc_limit`` (:449)."""
+        """Instances of the whole map, or tile by tile above ``full_postproc_limit`` (:449-490).
+
+        A device canvas arrives as ``LazyRowsView``s of buffers that are still
+        filling. A model with ``postproc_accepts_views`` (and no caller's
+        ``postproc_func``) gets them as they are and reads them in its own
+        order; any other gets them materialised. Tile mode slices them, so
+        each tile waits only for its rows. Afterwards each drain's time goes
+        into the stage summary (``drain_stage``): ``"fetch"`` and the banded
+        path's ``"fetch-banded"``.
+        """
         head_maps = raw_predictions["head_maps"]
         canvas_wh = raw_predictions["canvas_wh"]
+        pending, self._pending_fetch = self._pending_fetch, None
         semantic: dict = {}
         if hasattr(self.model, "last_postproc_seconds"):
             self.model.last_postproc_seconds = None  # accumulated over one run
         t0 = time.perf_counter()
         if canvas_wh[0] * canvas_wh[1] <= self.full_postproc_limit:
-            results = self.model.postproc_func([np.asarray(m) for m in head_maps])
+            if (
+                getattr(self.model, "postproc_accepts_views", False)
+                and getattr(self.model, "_postproc_func", None) is None
+            ):
+                maps = list(head_maps)
+            else:
+                maps = [np.asarray(m) for m in head_maps]
+            results = self.model.postproc_func(maps)
             instances = self._results_to_instance_dict(results, offset=(0, 0))
             for task in results:
                 if task.get("seg_type") == "semantic" and "predictions" in task:
                     semantic[task["task_type"]] = np.asarray(task["predictions"])
         else:
             instances, semantic = self._process_tile_mode(head_maps, canvas_wh)
+        if pending is not None:
+            since = pending.pop("since")
+            for name, (watermark, items) in pending.items():
+                watermark.wait_all()  # post-processing has read every row already
+                if self.last_stage_summary is not None:
+                    self.last_stage_summary[name] = drain_stage(watermark, items, since, t0)
         if self.last_stage_summary is not None:
             self.last_stage_summary["instance-postproc"] = {
                 "seconds": round(time.perf_counter() - t0, 4)

@@ -33,8 +33,10 @@ methods keep the JAX names:
 
 ``wire_format="auto"`` resolves to ``"rgb"``: JAX probes a TPU relay link
 for it (``parallel/pipeline.py:27-91``), which one local card does not
-have. ``load_torch_model`` (:386) loads a ``.pth`` ``state_dict`` (or a flax
-``.npz``, through the converter) into a model, and ``model_to`` (:396)
+have. ``load_torch_model`` (:386), like the method
+``load_weights_from_file`` (:192) and its static alias
+``ModelABC.load_torch_model`` (:202), loads a ``.pth`` ``state_dict`` (or a
+flax ``.npz``, through the converter) into a model, and ``model_to`` (:396)
 moves it to a device; JAX's is a no-op, as JAX places arrays itself.
 """
 
@@ -253,6 +255,20 @@ class ModelABC(nn.Module):
 
             return self(yuv420_batch_to_rgb(batch, self.compute_dtype, scale=True))
         return self(batch.to(self.compute_dtype).div_(255.0))
+
+    def load_weights_from_file(self, weights) -> "ModelABC":
+        """Load a ``.pth`` ``state_dict`` or a flax ``.npz`` into this model and
+        return it (JAX ``models_abc.py:192-200``), through
+        ``models.architecture.load_weights``."""
+        from tiatoolbox_tpu_torch.models.architecture import load_weights
+
+        load_weights(self, weights)
+        return self
+
+    @staticmethod
+    def load_torch_model(model: "ModelABC", weights) -> "ModelABC":
+        """Upstream's name (JAX ``models_abc.py:202-205``): ``model.load_weights_from_file(weights)``."""
+        return model.load_weights_from_file(weights)
 
     @property
     def preproc_func(self) -> Callable:

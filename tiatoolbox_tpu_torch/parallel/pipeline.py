@@ -14,18 +14,36 @@ passed an event recorded after that copy. With a pack function (the
 yuv420 wire, ``ModelABC.pack_wire``) the reader thread packs each batch
 into a buffer of its own under a "pack" stage, and the RGB slot goes back
 to the ring as soon as the pack has read it: the device never reads it.
+
+The other direction is the drain (:281-496), which lets host
+post-processing start on rows that have landed while the rest of a device
+map is still on its way. ``fetch_chunked_async`` and ``BlockDrain`` queue
+row chunks on one copy stream per device (``copy_stream``), each after an
+event recorded on the stream that produced it, into a host buffer that is
+pinned wherever CUDA is available; a daemon thread waits for each chunk's
+event and marks it on a ``RowWatermark``, and a ``LazyRowsView`` reads a
+channel slice of the buffer, waiting for the rows it is asked for. For a
+CPU tensor the thread copies the chunk itself, so the same watermark logic
+runs in the CPU tests. Every device-to-host copy of a map goes this way,
+the synchronous ones too (they wait on the watermark). ``prepare_device``
+does before a loop what a drain's first use would otherwise do behind the
+loop's queued work.
 """
 
 from __future__ import annotations
 
 import contextlib
+import math
 import queue
 import threading
+import time
 from concurrent.futures import ThreadPoolExecutor
 from typing import Callable, Iterator
 
 import numpy as np
 import torch
+
+from tiatoolbox_tpu_torch import _build
 
 
 class _PinnedSlot:
@@ -248,3 +266,269 @@ class BatchLoader:
             if slot is not None:
                 slots.release(slot, batch["image"].device)
             yield batch
+
+
+# -- the device-to-host drain (JAX ``parallel/pipeline.py:281-496``) -------------
+
+_COPY_STREAMS: dict[torch.device, torch.cuda.Stream] = {}
+_COPY_STREAMS_LOCK = threading.Lock()
+
+
+def copy_stream(device: torch.device) -> torch.cuda.Stream:
+    """The one stream of ``device`` that every drain's device-to-host copies queue on."""
+    with _COPY_STREAMS_LOCK:
+        stream = _COPY_STREAMS.get(device)
+        if stream is None:
+            stream = _COPY_STREAMS[device] = torch.cuda.Stream(device)
+        return stream
+
+
+def prepare_device(device: torch.device) -> None:
+    """Make ready, before a loop queues work on ``device``, what would
+    otherwise synchronise the CUDA context at the drain's first use after
+    it: the copy stream (the stream pool's first use waits for the card) and
+    the module of every kernel library (``_build.load_cuda_modules``), whose
+    first launch, queued behind the loop's forwards, would wait for all of
+    them (``scripts/probe_drain_syncs.py`` measures both)."""
+    with torch.cuda.device(device):
+        _build.load_cuda_modules()
+    copy_stream(device)
+
+
+class RowWatermark:
+    """Completion tracker for an asynchronously filling row-major buffer (:281).
+
+    Chunks may finish out of order; ``rows_ready`` is the contiguous prefix of
+    rows that have landed. ``wait_rows(y)`` blocks until rows ``[0, y)`` are
+    present; an error raised while copying is raised in every waiter.
+    ``drain_seconds`` is the time from the tracker's creation to its last
+    chunk, and ``finished_at`` the ``time.perf_counter()`` of that last chunk.
+    """
+
+    def __init__(self, slices: list, n_rows: int) -> None:
+        self._cond = threading.Condition()
+        self._slices = slices
+        self._done = [False] * len(slices)
+        self._prefix = 0
+        self._n_rows = n_rows
+        self.rows_ready = 0
+        self.drain_seconds: float | None = None
+        self.finished_at: float | None = None
+        self.error: BaseException | None = None
+        self._t0 = time.perf_counter()
+
+    def _mark(self, idx: int) -> None:
+        with self._cond:
+            self._done[idx] = True
+            while self._prefix < len(self._done) and self._done[self._prefix]:
+                self._prefix += 1
+            if self._prefix:
+                self.rows_ready = self._slices[self._prefix - 1].stop
+            if self._prefix == len(self._done):
+                self.finished_at = time.perf_counter()
+                self.drain_seconds = self.finished_at - self._t0
+            self._cond.notify_all()
+
+    def _fail(self, exc: BaseException) -> None:
+        with self._cond:
+            self.error = exc
+            self._cond.notify_all()
+
+    def wait_rows(self, y: int) -> None:
+        target = min(int(y), self._n_rows)
+        with self._cond:
+            while self.rows_ready < target and self.error is None:
+                self._cond.wait()
+            if self.error is not None:
+                raise self.error
+
+    def wait_all(self) -> None:
+        self.wait_rows(self._n_rows)
+
+
+class _HostBuffer:
+    """A drain's numpy buffer, over pinned memory where a card may copy into it."""
+
+    def __init__(self, shape, dtype) -> None:
+        dtype = np.dtype(dtype)
+        self.pinned: torch.Tensor | None = None
+        if torch.cuda.is_available():
+            want = torch.from_numpy(np.empty(0, dtype)).dtype
+            self.pinned = torch.empty(tuple(shape), dtype=want, pin_memory=True)
+            self.array = self.pinned.numpy()
+        else:
+            self.array = np.empty(tuple(shape), dtype)
+
+    def queue_copy(self, dev, rows: slice):
+        """Queue the copy of ``dev`` into ``array[rows]`` and return what completes it.
+
+        A CUDA tensor is copied on its device's copy stream after an event
+        recorded on the stream that produced it, straight into the pinned
+        buffer where the dtypes agree and otherwise into a pinned tensor of
+        its own dtype; the allocator is told that the copy stream reads it.
+        The returned callable waits for the copy's event (the wait lets go of
+        the interpreter lock) and converts a chunk of another dtype. Anything
+        else (a CPU tensor, a numpy array) is copied by the callable itself.
+        """
+        out = self.array
+        if not (isinstance(dev, torch.Tensor) and dev.device.type == "cuda"):
+            def complete_on_host() -> None:
+                out[rows] = dev.numpy() if isinstance(dev, torch.Tensor) else np.asarray(dev)
+
+            return complete_on_host
+        direct = self.pinned is not None and self.pinned.dtype == dev.dtype
+        host = self.pinned[rows] if direct else torch.empty(dev.shape, dtype=dev.dtype, pin_memory=True)
+        stream = copy_stream(dev.device)
+        written = torch.cuda.Event()
+        written.record(torch.cuda.current_stream(dev.device))
+        copied = torch.cuda.Event(blocking=True)
+        stream.wait_event(written)
+        with torch.cuda.stream(stream):
+            host.copy_(dev, non_blocking=True)
+            copied.record(stream)
+        dev.record_stream(stream)
+
+        def complete_on_card() -> None:
+            copied.synchronize()
+            if not direct:
+                torch.from_numpy(out[rows]).copy_(host)
+
+        return complete_on_card
+
+
+def _complete_in_order(watermark: RowWatermark, jobs: list) -> None:
+    """One daemon thread completes ``jobs`` (``(chunk index, callable)``) in order,
+    marking each chunk; the first error fails the watermark."""
+
+    def run() -> None:
+        try:
+            for idx, complete in jobs:
+                complete()
+                watermark._mark(idx)
+        except BaseException as exc:  # noqa: BLE001 - raised again in every waiter
+            watermark._fail(exc)
+
+    threading.Thread(target=run, name="drain", daemon=True).start()
+
+
+def fetch_chunked_async(tensor, n_chunks: int = 1, dtype=None) -> tuple[np.ndarray, RowWatermark]:
+    """Start copying ``tensor`` to the host; return the filling buffer and its watermark (:328-368).
+
+    The buffer has ``tensor``'s shape and ``dtype`` (the tensor's own by
+    default; a float16 wire chunk lands in a pinned tensor of its own and
+    is converted into a float32 buffer before its rows are marked). A CUDA
+    tensor's ``n_chunks`` row chunks are copied on the device's copy stream
+    after the work queued so far on the current stream, and one daemon
+    thread waits for them in order and marks each; so host post-processing
+    that gates on the watermark overlaps the copy. JAX's ``n_threads`` has
+    no counterpart: the copies queue on one stream. The watermark is made
+    first, so ``drain_seconds`` includes the pinned allocation. A CPU
+    tensor is copied by the same thread.
+    """
+    n = int(tensor.shape[0])
+    n_chunks = max(1, min(int(n_chunks), n))
+    step = math.ceil(n / n_chunks) if n else 1
+    slices = [slice(i, min(i + step, n)) for i in range(0, n, step)]
+    watermark = RowWatermark(slices, n)
+    if dtype is None:
+        dtype = torch.empty(0, dtype=tensor.dtype).numpy().dtype
+    out = _HostBuffer(tensor.shape, dtype)
+    _complete_in_order(watermark, [(i, out.queue_copy(tensor[s], s)) for i, s in enumerate(slices)])
+    return out.array, watermark
+
+
+class BlockDrain:
+    """Row-block device-to-host drain that can overlap a producing loop (:371-448).
+
+    Canvas rows become final in band order, so each block of ``block_h``
+    rows can be computed on the device (``block_fn(y0, rows)``, a tensor
+    ``[rows, W, C]`` dispatched without a wait) and copied to the host as
+    soon as ``advance`` learns that no later scatter touches it. Copies go
+    as ``fetch_chunked_async``'s do: on the copy stream after an event,
+    completed in order by a daemon thread per ``advance`` call that
+    dispatched blocks. ``bytes_hidden`` is the bytes that had landed when
+    ``flush`` was called.
+    """
+
+    def __init__(self, block_fn, n_rows: int, out_shape, out_dtype, block_h: int = 256) -> None:
+        self._block_fn = block_fn
+        self._n_rows = int(n_rows)
+        self._slices = [
+            slice(i, min(i + block_h, self._n_rows)) for i in range(0, self._n_rows, block_h)
+        ]
+        self._out = _HostBuffer(out_shape, out_dtype)
+        self.buf = self._out.array
+        self.watermark = RowWatermark(self._slices, self._n_rows)
+        self._next = 0
+        self.bytes_hidden = 0
+
+    def advance(self, final_rows: int) -> None:
+        """Dispatch every block not yet drained that lies inside ``[0, final_rows)``."""
+        jobs = []
+        while self._next < len(self._slices) and self._slices[self._next].stop <= final_rows:
+            idx = self._next
+            self._next += 1
+            s = self._slices[idx]
+            jobs.append((idx, self._out.queue_copy(self._block_fn(s.start, s.stop - s.start), s)))
+        if jobs:
+            _complete_in_order(self.watermark, jobs)
+
+    def flush(self) -> None:
+        """Dispatch every remaining block without waiting; consumers gate on
+        ``watermark`` (or a ``LazyRowsView``)."""
+        self.bytes_hidden = self.watermark.rows_ready * (self.buf.nbytes // max(self._n_rows, 1))
+        self.advance(self._n_rows)
+
+    def finish(self) -> np.ndarray:
+        """Dispatch what remains, wait for every copy, return the full buffer."""
+        self.flush()
+        self.watermark.wait_all()
+        return self.buf
+
+
+class LazyRowsView:
+    """Read-only channel slice of a filling buffer whose row reads wait for the rows (:451-496).
+
+    ``view[y0:y1, ...]`` waits for rows ``[0, y1)``, an int row (negative
+    too) for the rows up to it, any other index and ``np.asarray(view)`` for
+    every row; then the rows are read from the buffer.
+    """
+
+    def __init__(self, buf: np.ndarray, watermark: RowWatermark, channels: slice) -> None:
+        self._buf = buf
+        self._wm = watermark
+        self._ch = channels
+
+    @property
+    def shape(self) -> tuple:
+        n_ch = len(range(*self._ch.indices(self._buf.shape[-1])))
+        return (*self._buf.shape[:-1], n_ch)
+
+    @property
+    def dtype(self) -> np.dtype:
+        return self._buf.dtype
+
+    @property
+    def ndim(self) -> int:
+        return self._buf.ndim
+
+    def __len__(self) -> int:
+        return self._buf.shape[0]
+
+    def __getitem__(self, key):
+        rows = key[0] if isinstance(key, tuple) else key
+        n = self._buf.shape[0]
+        if isinstance(rows, slice):
+            picked = range(*rows.indices(n))
+            stop = max(picked[0], picked[-1]) + 1 if len(picked) else 0
+        elif isinstance(rows, (int, np.integer)):
+            stop = (int(rows) % n) + 1
+        else:  # fancy indexing, an ellipsis: every row
+            stop = n
+        self._wm.wait_rows(stop)
+        return self._buf[..., self._ch][key]
+
+    def __array__(self, dtype=None, copy=None):  # noqa: ARG002 - numpy's protocol
+        self._wm.wait_all()
+        arr = self._buf[..., self._ch]
+        return arr.astype(dtype) if dtype is not None else arr
