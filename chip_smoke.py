@@ -185,6 +185,18 @@ temporary directory, and drives the port's entry points on them:
   (masked MSE). No hand-written kernel is on this path (VGG16 and the
   B-spline step are library calls); the kernel counts are printed (all
   zero);
+- "predict_40x", phase B where the reads resample: the golden set
+  tiatoolbox_tpu_torch/data/imgproc_golden.npz (cv2's resizes, warps,
+  remaps, blurs and morphology) replayed bit for bit through the port's
+  host C++ (csrc/imgproc.cpp, built by this machine's g++); the JPEG
+  phase's 8192x6144 pixels written after it as a slide at 0.25 mpp with no
+  other level (AppMag 40), so that the kather100k
+  ioconfig's 0.5 mpp patches are each a 448^2 level-0 read shrunk to 224^2
+  (JAX's "optimise": OpenCV's cubic); PatchPredictor (resnet18, batch 64,
+  the Otsu mask) over it, its first batch against the CPU within 1e-3;
+  patches/s, the ms of one patch's read and resize, and the registration
+  phase's prealignment seconds beside the parent commit's on this card
+  model; the run within 20 s;
 - "render", results drawn on the host by the port's C++ rasteriser
   (csrc/raster.cpp, cv2's LINE_8 drawing): the golden set
   tiatoolbox_tpu_torch/data/raster_golden.npz (cv2's draws, blurs and
@@ -321,6 +333,7 @@ from tiatoolbox_tpu_torch.tools.stainaugment import augment_tiles  # noqa: E402
 from tiatoolbox_tpu_torch.tools.stainnorm import get_normalizer  # noqa: E402
 from tiatoolbox_tpu_torch.tools.tissuemask import OtsuTissueMasker  # noqa: E402
 from tiatoolbox_tpu_torch.annotation.storage import SQLiteStore  # noqa: E402
+from tiatoolbox_tpu_torch.data.imgproc_golden import check_imgproc_golden  # noqa: E402
 from tiatoolbox_tpu_torch.data.render_golden import check_graph_golden, check_raster_golden  # noqa: E402
 from tiatoolbox_tpu_torch.models.dataset.info import KatherPatchDataset  # noqa: E402
 from tiatoolbox_tpu_torch.tools.graph import SlideGraphConstructor  # noqa: E402
@@ -4545,6 +4558,13 @@ REG_FIELD_TOL = 1e-3  # px, card against the CPU after REG_CPU_STEPS steps
 REG_FEATURE_TOL = 1e-4  # VGG16 features, card against the CPU, of their largest |feature|
 REG_VGG_REPS = 20
 REG_PHASE_LIMIT_S = 90.0  # twice the phase's budget
+PREDICT_40X_WH = JPEG_SLIDE_WH  # the JPEG phase's pixels as a 40x slide (0.25 mpp), no 0.5 mpp level
+PREDICT_40X_LIMIT_S = 20.0  # the run and its checks, the slide's writing apart
+PREDICT_40X_READS = 32  # single patch reads timed
+# prealignment's seconds before its warps went to csrc/imgproc.cpp (numpy): the
+# parent commit's registration phase, twice, on an "NVIDIA H100 80GB HBM3,
+# 700.00 W" host (PERF.md section 6)
+PARENT_PREALIGNMENT_S = (3.2902, 3.6432)
 
 
 def angle_of(transform: np.ndarray) -> float:
@@ -4594,12 +4614,12 @@ def tissue_section(image: np.ndarray) -> np.ndarray:
     return out
 
 
-def phase_registration(slide: Path, tmp: Path, card: str) -> None:
+def phase_registration(slide: Path, tmp: Path, card: str) -> float:
     """Whole-slide registration of a pair made from phase A/B's slide (at
     half resolution, cut to a section's outline): the moving slide is the
     fixed one rotated and shifted by a known amount and written as a TIFF; prealignment, DFBR (VGG16 on the card) and the
     B-spline optimisation on the card, then reads of the moving slide
-    through the affine and through the composed field."""
+    through the affine and through the composed field. Returns prealignment's seconds."""
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     reset_all_counts()
@@ -4707,6 +4727,89 @@ def phase_registration(slide: Path, tmp: Path, card: str) -> None:
     )
     check(seconds <= REG_PHASE_LIMIT_S, f"the registration phase took {seconds:.1f} s")
     shutil.rmtree(root)
+    return pre_s
+
+
+def write_slide_40x(jpeg_slide: Path, tmp: Path) -> tuple[Path, float]:
+    """The JPEG phase's 8192x6144 level 0 written again as a 40x slide: one
+    level at 0.25 mpp (Aperio AppMag 40), JPEG Q 90 tiles of 256^2. Decoding
+    and encoding take seconds where drawing the synthetic tissue anew takes
+    twenty. Returns the path and the seconds it took."""
+    t0 = time.perf_counter()
+    pixels = WSIReader.open(jpeg_slide).read_bounds((0, 0, *PREDICT_40X_WH), resolution=0, units="level")
+    check(pixels.shape == (PREDICT_40X_WH[1], PREDICT_40X_WH[0], 3), f"the JPEG slide's level 0 read as {pixels.shape}")
+    width, height = PREDICT_40X_WH
+    description = (
+        f"Aperio Image Library v0.0.0\n{width}x{height} [0,0 {width}x{height}] ({READER_TILE}x{READER_TILE})"
+        f" JPEG/RGB Q={JPEG_QUALITY}|AppMag = 40|MPP = 0.25"
+    )
+    path = tmp / "slide_40x.tiff"
+    tiffio.TiffPyramidWriter(path, tile_size=READER_TILE, description=description, mpp=(0.25, 0.25),
+                             compression="jpeg", jpeg_quality=JPEG_QUALITY).write([pixels])
+    return path, time.perf_counter() - t0
+
+
+def phase_predict_40x(slide: Path, slide_seconds: float, card: str, prealignment_seconds: float) -> None:
+    """The golden set through the port's host image processing, then phase B
+    on a 0.25 mpp slide read at the kather100k ioconfig's 0.5 mpp: each
+    patch a 448^2 level-0 read shrunk to 224^2 on the loader's threads."""
+    golden = check_imgproc_golden()
+    check(not golden["differing"], f"imgproc golden cases differ from cv2: {golden['differing'][:8]}")
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t_phase = time.perf_counter()
+    info = WSIReader.open(slide).info
+    check(info.level_count == 1 and float(info.mpp[0]) == 0.25, "the 40x slide has one 0.25 mpp level")
+    ioconfig = IOPatchPredictorConfig(**PRETRAINED_MODELS["resnet18-kather100k"]["ioconfig"]["kwargs"])
+    grid = dict(patch_input_shape=(PATCH, PATCH), stride_shape=(PATCH, PATCH), resolution=0.5, units="mpp")
+    expected = WSIPatchDataset(slide, **grid)
+    n_first = min(BATCH, len(expected))
+    check(n_first > 0, "the tissue mask keeps no patch")
+    first = np.stack([expected[i]["image"] for i in range(n_first)])
+    check(first.shape[1:] == (PATCH, PATCH, 3), f"patches read as {first.shape}")
+    read_ms = []  # the loader's read of one patch: a 448^2 level-0 region shrunk to 224^2
+    for i in range(PREDICT_40X_READS):
+        t = time.perf_counter()
+        patch = expected[i % len(expected)]["image"]
+        read_ms.append((time.perf_counter() - t) * 1e3)
+        check(patch.shape == (PATCH, PATCH, 3), f"patch read as {patch.shape}")
+    model = CNNModel("resnet18", num_classes=9, seed=0)
+    calibrate_batch_norm(model, first)
+    CNNModel.infer_batch(model, np.zeros((BATCH, PATCH, PATCH, 3), np.uint8))
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    predictor = PatchPredictor(model=model, batch_size=BATCH, verbose=False)
+    output = predictor.run([slide], patch_mode=False, ioconfig=ioconfig)[str(slide)]
+    run_seconds = time.perf_counter() - t
+    probs = output["probabilities"]
+    check(len(probs) == len(expected), f"patch count {len(probs)} vs {len(expected)}")
+    check(np.array_equal(output["coordinates"], expected.inputs), "patch coordinates")
+    check(bool(np.isfinite(probs).all()), "probabilities finite")
+    cpu_model = CNNModel("resnet18", num_classes=9, device="cpu")
+    cpu_model.load_state_dict(model.state_dict())
+    cpu_err = float(np.abs(CNNModel.infer_batch(cpu_model, first) - probs[:n_first]).max())
+    check(cpu_err <= 1e-3, f"card vs CPU probabilities max abs diff {cpu_err} > 1e-3")
+    seconds = time.perf_counter() - t_phase
+    stages = predictor.stages
+    emit(
+        {
+            "phase": "predict_40x",
+            "slide": {"wh": list(PREDICT_40X_WH), "mpp": 0.25, "levels": 1, "seconds": slide_seconds},
+            "imgproc_golden_arrays": golden["arrays"],
+            "seconds": seconds,
+            "run_seconds": run_seconds,
+            "patches": int(len(probs)),
+            "patches_per_s": len(probs) / run_seconds,
+            "patch_read_and_resize_ms": {"median": float(np.median(read_ms)), "min": float(np.min(read_ms))},
+            "stages": stages,
+            "cpu_max_abs_diff": cpu_err,
+            "prealignment_seconds": prealignment_seconds,
+            "parent_prealignment_seconds": list(PARENT_PREALIGNMENT_S),
+            "card": card,
+        }
+    )
+    check(seconds <= PREDICT_40X_LIMIT_S, f"the predict_40x phase took {seconds:.1f} s")
+    slide.unlink()
 
 
 # -- rendering and tiles, the slide graph ---------------------------------------
@@ -5205,6 +5308,7 @@ def main() -> int:
         jpeg_slide = phase_jpeg(Path(tmp), card)
         phase_mask_extract(Path(tmp), card)
         phase_predict_jpeg(jpeg_slide, card)
+        slide_40x, slide_40x_seconds = write_slide_40x(jpeg_slide, Path(tmp))
         jpeg_slide.unlink()
         mark("jpeg_phases")
         # Peak allocated bytes depend on which cached blocks the allocator
@@ -5249,8 +5353,10 @@ def main() -> int:
         mark("jp2")
         phase_sam(slide, Path(tmp), card)
         mark("sam")
-        phase_registration(slide, Path(tmp), card)
+        prealignment_seconds = phase_registration(slide, Path(tmp), card)
         mark("registration")
+        phase_predict_40x(slide_40x, slide_40x_seconds, card, prealignment_seconds)
+        mark("predict_40x")
         phase_render(Path(tmp), card)
         mark("render")
         phase_graph(slide, Path(tmp), card)

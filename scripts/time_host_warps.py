@@ -1,7 +1,12 @@
-"""Time the port's host warps (``tiatoolbox_tpu_torch/utils/warp.py``)
-against OpenCV's on the same CPU, on ``chip_smoke.py``'s registration pair.
+"""Time the port's host image processing against OpenCV's on the same CPU:
+the warps of ``chip_smoke.py``'s registration pair and the resizes, blur and
+morphology the slide reads and the post-processing run.
 
-    python3 scripts/time_host_warps.py [--reps N] [--out FILE]
+    python3 scripts/time_host_warps.py [--reps N] [--out FILE] [--tree DIR]
+
+``--tree`` times the ``tiatoolbox_tpu_torch`` of another checkout (say, an
+older commit unpacked with ``git archive``) on the same inputs; the default
+is this one.
 
 The pair is the smoke's: its 4096x3072 synthetic slide read at 1.0 mpp
 (2048x1536), cut to a section's outline, and that image rotated by 33
@@ -13,10 +18,30 @@ inputs, with the outputs checked equal:
 - ``affine_read``: one warp of the 2048x1536 RGB image through the true
   transform (what a read through ``TransformedWSIReader`` does per region);
 - ``field_read``: one ``remap_linear`` of the RGB image through float32
-  maps of that transform plus a smooth displacement (``cv2.remap``).
+  maps of that transform plus a smooth displacement (``cv2.remap``);
 
-Each time is the median of ``--reps`` runs, in ms; cv2 runs with its
-default threads, the port's warps with one thread per core. Needs cv2,
+and, on seeded inputs:
+
+- ``patch_area_2x``: ``imresize(..., "area")`` of a 448^2 RGB patch to
+  224^2 (phase B on a 0.25 mpp slide read at 0.5 mpp), on the calling
+  thread as the engines' loader threads run it;
+- ``patch_area_fractional``: the same patch to 187^2 (a non-integer factor);
+- ``thumbnail_area_4x``: a 4096x3072 RGB image to 1024x768 by area;
+- ``patch_cubic``: ``imresize(..., "cubic")`` of a 150^2 RGB image to 224^2
+  (cv2 runs Intel IPP's cubic here: differing values are counted);
+- ``resize_linear``: ``resize_linear`` of the 2048x1536 RGB image to 1536x1152;
+- ``box_blur_5``: ``box_blur`` 5x5 of the 2048x1536 RGB image;
+- ``linear_exact_4x``: ``shrink_linear_exact`` of the 4096x3072 RGB image by 4;
+- ``hovernet_open``: ``hovernet.binary_open`` with the 5x5 ellipse of a
+  4096x3072 0/1 mask;
+- ``efficientunet_close_open``: EfficientUNet's close then open with the
+  31x31 ellipse of the same mask;
+- ``hovernetplus_close_open``: HoVer-Net+'s 20x20 box close then open;
+- ``tissue_dilate``: ``MorphologicalMasker``'s dilation with a 64x64 ellipse.
+
+Each time is the median of ``--reps`` runs, in ms (a warm-up run first);
+cv2 runs with its default threads, the port's calls with their own
+choice (one thread below a million elements, else up to 16). Needs cv2,
 which the port does not import: this script compares, it is not part of
 the port. Prints one JSON object.
 """
@@ -36,16 +61,31 @@ from pathlib import Path
 import cv2
 import numpy as np
 
-sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+
+def _tree() -> Path:
+    """The checkout to time: ``--tree`` if given (read before argparse runs,
+    as the imports below come from it), else this one."""
+    if "--tree" in sys.argv:
+        return Path(sys.argv[sys.argv.index("--tree") + 1]).resolve()
+    return Path(__file__).resolve().parents[1]
+
+
+sys.path.insert(0, str(_tree()))
 
 import chip_smoke  # noqa: E402
 from tiatoolbox_tpu_torch.data.synth import make_synthetic_slide  # noqa: E402
-from tiatoolbox_tpu_torch.tools.tissuemask import OtsuTissueMasker  # noqa: E402
-from tiatoolbox_tpu_torch.utils.warp import remap_linear, warp_affine  # noqa: E402
+from tiatoolbox_tpu_torch.models.architecture import efficientunet_tissue_mask_model as effunet  # noqa: E402
+from tiatoolbox_tpu_torch.models.architecture import hovernetplus  # noqa: E402
+from tiatoolbox_tpu_torch.models.architecture.hovernet import binary_open  # noqa: E402
+from tiatoolbox_tpu_torch.tools import tissuemask  # noqa: E402
+from tiatoolbox_tpu_torch.tools.tissuemask import OtsuTissueMasker, ellipse_kernel  # noqa: E402
+from tiatoolbox_tpu_torch.utils.transforms import imresize, shrink_linear_exact  # noqa: E402
+from tiatoolbox_tpu_torch.utils.warp import box_blur, remap_linear, resize_linear, warp_affine  # noqa: E402
 from tiatoolbox_tpu_torch.wsicore.wsireader import WSIReader  # noqa: E402
 
 
 def median_ms(fn, reps: int) -> float:
+    fn()
     times = []
     for _ in range(reps):
         t = time.perf_counter()
@@ -74,6 +114,7 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--reps", type=int, default=5)
     parser.add_argument("--out", type=Path, default=None)
+    parser.add_argument("--tree", type=Path, default=None, help="checkout whose port is timed")
     args = parser.parse_args()
 
     with tempfile.TemporaryDirectory() as tmp:
@@ -97,6 +138,19 @@ def main() -> int:
     map_x = (xs + field[..., 0]).astype(np.float32)
     map_y = (ys + field[..., 1]).astype(np.float32)
 
+    rng = np.random.default_rng(0)
+    patch = rng.integers(0, 256, (448, 448, 3)).astype(np.uint8)
+    big = rng.integers(0, 256, (3072, 4096, 3)).astype(np.uint8)
+    small = rng.integers(0, 256, (150, 150, 3)).astype(np.uint8)
+    # a 0/1 mask of blobs and noise at phase D's canvas size
+    mask = (cv2.GaussianBlur(rng.random((3072, 4096)).astype(np.float32), (0, 0), 6) > 0.5).astype(np.uint8)
+    mask[rng.random(mask.shape) < 0.01] ^= 1
+    ell5, ell31, ell64 = ellipse_kernel((5, 5)), ellipse_kernel((31, 31)), ellipse_kernel((64, 64))
+    box20 = np.ones((20, 20), np.uint8)
+
+    def cv_close_open(m, k):
+        return cv2.morphologyEx(cv2.morphologyEx(m, cv2.MORPH_CLOSE, k), cv2.MORPH_OPEN, k)
+
     workloads = {
         "prealignment_masks": (
             lambda: [warp_affine(moving_mask, m, (w, h)) for m in matrices],
@@ -113,8 +167,64 @@ def main() -> int:
             lambda: [cv2.remap(moving, map_x, map_y, cv2.INTER_LINEAR, borderValue=(255, 255, 255))],
             w * h,
         ),
+        "patch_area_2x": (
+            lambda: [imresize(patch, output_size=(224, 224), interpolation="area")],
+            lambda: [cv2.resize(patch, (224, 224), interpolation=cv2.INTER_AREA)],
+            448 * 448,
+        ),
+        "patch_area_fractional": (
+            lambda: [imresize(patch, output_size=(187, 187), interpolation="area")],
+            lambda: [cv2.resize(patch, (187, 187), interpolation=cv2.INTER_AREA)],
+            448 * 448,
+        ),
+        "thumbnail_area_4x": (
+            lambda: [imresize(big, output_size=(1024, 768), interpolation="area")],
+            lambda: [cv2.resize(big, (1024, 768), interpolation=cv2.INTER_AREA)],
+            4096 * 3072,
+        ),
+        "patch_cubic": (
+            lambda: [imresize(small, output_size=(224, 224), interpolation="cubic")],
+            lambda: [cv2.resize(small, (224, 224), interpolation=cv2.INTER_CUBIC)],
+            224 * 224,
+        ),
+        "resize_linear": (
+            lambda: [resize_linear(moving, (1536, 1152))],
+            lambda: [cv2.resize(moving, (1536, 1152), interpolation=cv2.INTER_LINEAR)],
+            1536 * 1152,
+        ),
+        "box_blur_5": (
+            lambda: [box_blur(moving, (5, 5))],
+            lambda: [cv2.blur(moving, (5, 5))],
+            w * h,
+        ),
+        "linear_exact_4x": (
+            lambda: [shrink_linear_exact(big, 4)],
+            lambda: [cv2.resize(big, (1024, 768), interpolation=cv2.INTER_LINEAR_EXACT)],
+            4096 * 3072,
+        ),
+        "hovernet_open": (
+            lambda: [binary_open(mask, ell5)],
+            lambda: [cv2.morphologyEx(mask, cv2.MORPH_OPEN, ell5)],
+            mask.size,
+        ),
+        "efficientunet_close_open": (
+            lambda: [effunet.morphology_open(effunet.morphology_close(mask))],
+            lambda: [cv_close_open(mask, ell31)],
+            mask.size,
+        ),
+        "hovernetplus_close_open": (
+            lambda: [hovernetplus.morphology_open(hovernetplus.morphology_close(mask))],
+            lambda: [cv_close_open(mask, box20)],
+            mask.size,
+        ),
+        "tissue_dilate": (
+            lambda: [tissuemask._dilate(mask.astype(bool), ell64)],  # noqa: SLF001
+            lambda: [cv2.morphologyEx(mask, cv2.MORPH_DILATE, ell64)],
+            mask.size,
+        ),
     }
     result = {
+        "tree": str(args.tree or _tree()),
         "pair": [w, h],
         "cpu": platform.processor() or platform.machine(),
         "cores": os.cpu_count(),
@@ -123,11 +233,13 @@ def main() -> int:
         "reps": args.reps,
     }
     for name, (port, ref, pixels) in workloads.items():
-        equal = all(np.array_equal(a, b) for a, b in zip(port(), ref()))
+        pairs = list(zip(port(), ref()))
+        differing = sum(int(np.count_nonzero(np.asarray(a).reshape(b.shape) != b)) for a, b in pairs)
         port_ms = median_ms(port, args.reps)
         cv2_ms = median_ms(ref, args.reps)
         result[name] = {
-            "bit_exact": equal,
+            "bit_exact": differing == 0,
+            "differing_values": differing,
             "port_ms": port_ms,
             "cv2_ms": cv2_ms,
             "port_mpix_per_s": pixels / 1e3 / port_ms,
@@ -138,7 +250,8 @@ def main() -> int:
     print(text)
     if args.out is not None:
         args.out.write_text(text + "\n")
-    return 0 if all(result[k]["bit_exact"] for k in workloads) else 1
+    # cv2's cubic runs Intel IPP, which the port reproduces to about 1e-5 of values
+    return 0 if all(result[k]["bit_exact"] for k in workloads if k != "patch_cubic") else 1
 
 
 if __name__ == "__main__":

@@ -7,9 +7,12 @@ and without overlap, at ``res`` 1 and 2, with each ``pad_mode`` and
 arithmetic and the Zoomify tile groups and paths are JAX's; ``dump`` to a
 directory, a ``.zip`` and a ``.tar`` writes the same members with the same
 JPEG bytes (the port's encoder gives ``cv2.imencode``'s stream). The one
-exception is the thumbnail tile where the slide does not shrink to it by an
-integer factor: ``imresize`` shrinks it with OpenCV's cubic, where the port
-is within one level of cv2 on sums that lie within about 4e-4 of a half.
+exception is a tile that ``imresize`` shrinks to its output size at a
+non-integer factor (the thumbnail, the unpadded whole slide): that is
+OpenCV's cubic there, and cv2 runs Intel IPP's, which the port reproduces
+but for about one value in 10^5 (``ROADMAP.md`` section 3). Those tiles are
+held to their counts of values one level apart (``THUMB_IPP_DIFFERING``,
+``UNPADDED_IPP_DIFFERING``).
 """
 
 from __future__ import annotations
@@ -35,6 +38,10 @@ from tiatoolbox_tpu_torch.wsicore import wsimeta as port_wsimeta
 from tiatoolbox_tpu_torch.wsicore import wsireader as port_wsireader
 
 SIZES = [(1024, 768), (1000, 700)]
+# values of the thumbnail tile one level from cv2's, by (slide size, overlap)
+THUMB_IPP_DIFFERING = {((1000, 700), 0): 1, ((1024, 768), 3): 0, ((1000, 700), 3): 2}
+# values of the unpadded level-0 tile one level from cv2's
+UNPADDED_IPP_DIFFERING = 1
 
 
 def _info(meta, w: int, h: int):
@@ -98,9 +105,10 @@ def test_tiles_and_geometry(size, overlap: int) -> None:
     if all(d % t == 0 for d, t in zip(size, want.shape[1::-1])):
         np.testing.assert_array_equal(got, want)
     else:
-        # cubic shrinking at a non-integer factor: within one level of cv2
-        # where a sum lies near a half (utils/transforms.py::_resize_cubic_u8)
-        assert np.abs(got.astype(int) - want).max() <= 1
+        # cubic shrinking at a non-integer factor: IPP's cubic in cv2
+        diff = np.abs(got.astype(int) - want)
+        assert diff.max() <= 1
+        assert np.count_nonzero(diff) <= THUMB_IPP_DIFFERING[(size, overlap)]
 
 
 @pytest.mark.parametrize(
@@ -118,8 +126,10 @@ def test_tile_options(kwargs) -> None:
         got, want = port_gen.get_tile(level, x, y, **kwargs), jax_gen.get_tile(level, x, y, **kwargs)
         if level == 0 and "pad_mode" in kwargs:
             # the unpadded whole slide shrinks to 250 x 175 by OpenCV's cubic
-            # first: within one level where a sum lies near a half
-            assert got.shape == want.shape and np.abs(got.astype(int) - want).max() <= 1
+            # first, IPP's in cv2
+            diff = np.abs(got.astype(int) - want)
+            assert got.shape == want.shape and diff.max() <= 1
+            assert np.count_nonzero(diff) <= UNPADDED_IPP_DIFFERING
         else:
             np.testing.assert_array_equal(got, want)
 

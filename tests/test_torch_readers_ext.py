@@ -84,18 +84,39 @@ def _info_equal(a, b) -> None:
     assert a.objective_power == b.objective_power
 
 
-def _reads_equal(jax_reader, port_reader, reads=READS) -> None:
+# A read at a fractional factor. The readers resize a region read at a
+# level to its ``output_size`` with ``imresize``'s "optimise", which takes
+# OpenCV's cubic there (JAX's rule), and cv2 runs Intel IPP's cubic wherever
+# both sides are 4 pixels or more: the port reproduces it but for about one
+# value in 10^5 (ROADMAP.md section 3). Such a read is held to a count of
+# differing values, each one level apart; the count is each caller's
+# ``fractional_differing``, 0 by default.
+FRACTIONAL_READ = (0.4, "baseline")
+
+
+def _reads_equal(jax_reader, port_reader, reads=READS, fractional_differing: int = 0) -> None:
     _info_equal(jax_reader.info, port_reader.info)
     w, h = port_reader.info.slide_dimensions
-    for resolution, units in reads:
+    differing = 0
+    for resolution, units in [*reads, FRACTIONAL_READ]:
+        pairs = []
         for loc, size in (((0, 0), (w, h)), ((w // 3 + 5, h // 4 + 3), (97, 61)), ((w - 40, h - 30), (64, 48))):
             want = jax_reader.read_rect(loc, size, resolution=resolution, units=units)
             got = port_reader.read_rect(loc, size, resolution=resolution, units=units)
-            np.testing.assert_array_equal(got, want, err_msg=f"read_rect {loc} {size} {resolution} {units}")
+            pairs.append((got, want, f"read_rect {loc} {size} {resolution} {units}"))
         bounds = (w // 5, h // 6, w // 5 + 120, h // 6 + 90)
         want = jax_reader.read_bounds(bounds, resolution=resolution, units=units)
         got = port_reader.read_bounds(bounds, resolution=resolution, units=units)
-        np.testing.assert_array_equal(got, want, err_msg=f"read_bounds {resolution} {units}")
+        pairs.append((got, want, f"read_bounds {resolution} {units}"))
+        for got, want, what in pairs:
+            if (resolution, units) != FRACTIONAL_READ:
+                np.testing.assert_array_equal(got, want, err_msg=what)
+                continue
+            assert got.shape == want.shape and got.dtype == want.dtype, what
+            diff = np.abs(got.astype(int) - want)
+            assert diff.max(initial=0) <= 1, what
+            differing += int(np.count_nonzero(diff))
+    assert differing <= fractional_differing
 
 
 # -- a PNG writer for the cases cv2 cannot write --------------------------------
@@ -348,7 +369,8 @@ def test_mirax_against_jax(tmp_path, case) -> None:
             )
     assert port_file.read_associated(0) == jax_file.read_associated(0)
     reads = [(0, "level"), (0.5, "mpp"), (1.0, "mpp")] if len(jax_file.levels) > 1 else [(0, "level")]
-    _reads_equal(jax_wsireader.WSIReader.open(mrxs), port_wsireader.WSIReader.open(mrxs), reads=reads)
+    _reads_equal(jax_wsireader.WSIReader.open(mrxs), port_wsireader.WSIReader.open(mrxs), reads=reads,
+                 fractional_differing={"plain": 8, "data_files": 5}.get(case, 0))
 
 
 def test_mirax_refuses_a_tile_it_cannot_decode(tmp_path) -> None:
@@ -482,11 +504,10 @@ def test_zarr_and_ngff_against_jax(tmp_path, kind) -> None:
     jax_reader = jax_wsireader.WSIReader.open(root)
     port_reader = port_wsireader.WSIReader.open(root)
     assert type(port_reader).__name__ == type(jax_reader).__name__
-    # integer factors: at others the packages' area resizes may part by a level
     reads = [(0, "level"), (1, "level"), (0.25, "baseline")] if kind != "zarr_array" else [(0, "level")]
     if kind.startswith("ngff"):
         reads += [(0.5, "mpp"), (1.0, "mpp")]
-    _reads_equal(jax_reader, port_reader, reads=reads)
+    _reads_equal(jax_reader, port_reader, reads=reads, fractional_differing=0 if kind == "zarr_array" else 1)
 
 
 def test_zattrs_defaults_name_the_port() -> None:
@@ -559,7 +580,8 @@ def test_fsspec_references_against_jax(deflate_slide, tmp_path, where) -> None:
         tiff_reader = port_wsireader.WSIReader.open(deflate_slide)
         np.testing.assert_array_equal(port_reader.read_rect((0, 0), (640, 480)), tiff_reader.read_rect((0, 0), (640, 480)))
         if where != "http":  # fsspec's reference filesystem would fetch through aiohttp
-            _reads_equal(JaxFsspecReader(tmp_path / "jax.json"), port_reader, reads=[(0, "level"), (1, "level"), (0.25, "baseline")])
+            _reads_equal(JaxFsspecReader(tmp_path / "jax.json"), port_reader,
+                         reads=[(0, "level"), (1, "level"), (0.25, "baseline")], fractional_differing=4)
     finally:
         if server is not None:
             server.shutdown()

@@ -3,11 +3,13 @@
 Tolerance: none. A seeded SQLite store of polygons, points and lines is
 read as a slide by both packages, alone (composited onto white) and over a
 seeded base slide with ``alpha``, through ``WSIReader.open(".db")`` and the
-constructor: ``read_rect``, ``read_bounds`` at baseline and at power-of-two
+constructor: ``read_rect``, ``read_bounds`` at baseline, at power-of-two
 resolutions, and the thumbnail are equal arrays. A read at a scale that is
-not a power of two (0.7) shrinks the baseline render by area at a
-non-integer factor, where the port's ``imresize`` is within one grey level
-of ``cv2.INTER_AREA`` (``ROADMAP.md`` section 3): that read is held to 1.
+not a power of two (0.7) shrinks the baseline render to its output size
+with ``imresize``'s "optimise", which is OpenCV's cubic there (JAX's rule),
+and cv2 runs Intel IPP's cubic, which the port reproduces but for about one
+value in 10^5 (``ROADMAP.md`` section 3): that read is held to its count
+of values one level apart (``IPP_CUBIC_DIFFERING``).
 """
 
 from __future__ import annotations
@@ -62,10 +64,16 @@ def db(tmp_path):
     return path
 
 
-def _assert_read(got: np.ndarray, want: np.ndarray, kwargs: dict) -> None:
+# values of the 0.7 read one level from cv2's, by case: alone, over the base at alpha 0.5, 1.0
+IPP_CUBIC_DIFFERING = {None: 19, 0.5: 3, 1.0: 4}
+
+
+def _assert_read(got: np.ndarray, want: np.ndarray, kwargs: dict, alpha: float | None = None) -> None:
     assert got.shape == want.shape
     if kwargs.get("resolution", 1.0) == 0.7:
-        assert np.abs(got.astype(int) - want).max() <= 1
+        diff = np.abs(got.astype(int) - want)
+        assert diff.max() <= 1
+        assert np.count_nonzero(diff) <= IPP_CUBIC_DIFFERING[alpha]
     else:
         np.testing.assert_array_equal(got, want)
 
@@ -103,7 +111,7 @@ def test_store_over_base(db, tmp_path, method, args, kwargs, alpha: float) -> No
     )
     want = getattr(jax_reader, method)(*args, **kwargs)
     got = getattr(port_reader, method)(*args, **kwargs)
-    _assert_read(got, want, kwargs)
+    _assert_read(got, want, kwargs, alpha)
 
 
 def test_thumbnail_and_info(db, tmp_path) -> None:

@@ -554,7 +554,7 @@ def test_compile_model_modes() -> None:
 
 def test_run_params_keys() -> None:
     """The typed dicts' keys are the port's run parameters; against JAX's the
-    differences are the relay and drain options and ``output_type``."""
+    one difference is ``output_type`` (``run``'s own argument in the port)."""
     from tiatoolbox_tpu.models.engine.multi_task_segmentor import MultiTaskSegmentor as JaxMT
     from tiatoolbox_tpu.models.engine.nucleus_detector import NucleusDetector as JaxND
     from tiatoolbox_tpu.models.engine.patch_predictor import PatchPredictor as JaxPP
@@ -565,7 +565,7 @@ def test_run_params_keys() -> None:
     from tiatoolbox_tpu_torch.models.engine.patch_predictor import PatchPredictor, PredictorRunParams
     from tiatoolbox_tpu_torch.models.engine.semantic_segmentor import SemanticSegmentor, SemanticSegmentorRunParams
 
-    jax_only = {"output_type", "transfer_threads", "drain_during_loop"}
+    jax_only = {"output_type"}
     for typed, engine, jax_engine in (
         (EngineABCRunParams, EngineABC, None),
         (PredictorRunParams, PatchPredictor, JaxPP),

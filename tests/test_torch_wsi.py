@@ -10,9 +10,9 @@ PackBits decoders equal the Python ones, and a malformed stream falls back
 to them as in JAX. Tissue masks (Otsu and
 morphological) must be identical: the port reproduces OpenCV's greyscale,
 structuring element and dilation anchor. ``imresize`` must equal OpenCV's
-``INTER_AREA`` for integer downscales and ``INTER_NEAREST``; area at other
-factors is held to one grey level, because OpenCV's general area path
-accumulates in float32 and the port in float64.
+``INTER_AREA`` at integer and other factors and ``INTER_NEAREST``;
+``INTER_CUBIC`` is held to a count of values one level apart where cv2
+runs Intel IPP's cubic.
 """
 
 from __future__ import annotations
@@ -405,7 +405,7 @@ def _write_stripped_tiff(path, width: int, height: int, strip: bytes, compressio
         ((96, 128), (32, 24), "area", 0),
         ((96, 128), (16, 12), "area", 0),
         ((90, 120), (40, 15), "area", 0),
-        ((96, 128), (50, 37), "area", 1),
+        ((96, 128), (50, 37), "area", 0),
         ((96, 128), (50, 37), "nearest", 0),
         ((40, 30), (91, 77), "nearest", 0),
     ],
@@ -419,16 +419,24 @@ def test_imresize_matches_jax(in_hw, out_wh, interp, max_diff, dtype) -> None:
     np.testing.assert_allclose(got.astype(float), want.astype(float), atol=max_diff, rtol=1e-6)
 
 
+# values of ``test_imresize_uint8_area_enlarge_and_cubic_as_cv2``'s cubic
+# resizes that differ from cv2's, by seed: where both sides are 4 pixels or
+# more cv2 runs Intel IPP's cubic, which the port reproduces but for about
+# one value in 10^5 (ROADMAP.md section 3); each differs by one level
+CUBIC_IPP_DIFFERING = {0: 0, 1: 2, 2: 1, 3: 1, 4: 8, 5: 1}
+
+
 @pytest.mark.parametrize("seed", range(6))
 def test_imresize_uint8_area_enlarge_and_cubic_as_cv2(seed: int) -> None:
     """uint8 ``"area"`` enlarging (``get_tile(res=2)``, unpadded edge tiles) is
     ``cv2.INTER_AREA`` bit for bit, along either axis or both; ``"cubic"``
     (``"optimise"`` shrinking to an ``output_size``) is ``cv2.INTER_CUBIC``
-    within one level: under 0.3 % of values differ where both sides are 4
-    pixels or more (sums within about 4e-4 of a half)."""
+    bit for bit where cv2 runs its own code (a side under 4 pixels) and
+    within ``CUBIC_IPP_DIFFERING`` values of one level where it runs IPP's."""
     import cv2
 
     rng = np.random.default_rng(seed)
+    differing = 0
     for _ in range(12):
         h, w = (int(v) for v in rng.integers(1, 90, 2))
         cn = int(rng.choice([1, 3, 4]))
@@ -442,10 +450,13 @@ def test_imresize_uint8_area_enlarge_and_cubic_as_cv2(seed: int) -> None:
             np.testing.assert_array_equal(got, jax.reshape(got.shape))
         want = cv2.resize(img, (out_w, out_h), interpolation=cv2.INTER_CUBIC)
         got = port_transforms.imresize(img, output_size=(out_w, out_h), interpolation="cubic")
-        diff = np.abs(got.astype(int) - want.reshape(got.shape))
+        assert got.shape == want.shape
+        if min(h, w) < 4:
+            np.testing.assert_array_equal(got, want)
+        diff = np.abs(got.astype(int) - want)
         assert diff.max() <= 1
-        if min(h, w) >= 4:  # smaller images differ more often, still by one level
-            assert np.count_nonzero(diff) <= max(1, 0.003 * diff.size)
+        differing += int(np.count_nonzero(diff))
+    assert differing <= CUBIC_IPP_DIFFERING[seed]
 
 
 def _packbits_encode(data: bytes) -> bytes:

@@ -19,7 +19,8 @@ at widths (256, 128, 64, 32, 16); the head ``segmentation_head.0`` is a 3x3
 conv with bias. ``infer_batch_device`` returns its sigmoid in float32
 (:122-134). ``postproc`` (:105-120) thresholds at 0.95 and runs OpenCV's
 ``MORPH_CLOSE`` then ``MORPH_OPEN`` with the 31x31 ellipse, bit for bit in
-numpy (``morphology_close`` and ``morphology_open``).
+the port's host C++ (``morphology_close`` and ``morphology_open`` through
+``native.morphology``, ``csrc/imgproc.cpp``).
 """
 
 from __future__ import annotations
@@ -27,10 +28,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 import torch.nn.functional as F
-from scipy import ndimage
 from torch import nn
 
-from tiatoolbox_tpu_torch import resolve_device
+from tiatoolbox_tpu_torch import native, resolve_device
 from tiatoolbox_tpu_torch.models.architecture.cnn_backbones import init_backbone_weights
 from tiatoolbox_tpu_torch.models.architecture.efficientnet import _B0_BLOCKS, _conv
 from tiatoolbox_tpu_torch.models.architecture.kongnet import imagenet_normalise
@@ -134,43 +134,14 @@ class _UNetDecoder(nn.Module):
         return h
 
 
-def _ellipse_rows(ksize: int) -> list[tuple[int, int]]:
-    """(row offset, half width) of each row of the ``ksize`` ellipse."""
-    kernel = ellipse_kernel((ksize, ksize))
-    r = ksize // 2
-    return [(i - r, int(kernel[i].sum()) // 2) for i in range(ksize) if kernel[i].any()]
-
-
-def _ellipse_filter(mask: np.ndarray, ksize: int, *, dilate: bool) -> np.ndarray:
-    """``cv2.dilate`` / ``cv2.erode`` of a 0/1 uint8 mask with the ``ksize``
-    ellipse and the default anchor and border: pixels outside the image
-    neither set a dilation nor clear an erosion. The ellipse is symmetric,
-    so each output pixel takes the max (min) over its own rows' runs: one
-    1-D filter per run width, then one shifted max (min) per row."""
-    r = ksize // 2
-    border = 0 if dilate else 1
-    filt = ndimage.maximum_filter1d if dilate else ndimage.minimum_filter1d
-    combine = np.maximum if dilate else np.minimum
-    padded = np.pad(mask, ((r, r), (0, 0)), constant_values=border)
-    runs = {}
-    out = None
-    h = mask.shape[0]
-    for dy, half in _ellipse_rows(ksize):
-        if half not in runs:
-            runs[half] = filt(padded, 2 * half + 1, axis=1, mode="constant", cval=border)
-        rows = runs[half][r + dy : r + dy + h]
-        out = rows.copy() if out is None else combine(out, rows, out=out)
-    return out
-
-
 def morphology_close(mask: np.ndarray, ksize: int = MORPH_KERNEL_SIZE) -> np.ndarray:
     """``cv2.morphologyEx(mask, MORPH_CLOSE, ellipse(ksize))`` of a 0/1 uint8 mask."""
-    return _ellipse_filter(_ellipse_filter(mask, ksize, dilate=True), ksize, dilate=False)
+    return native.morphology(mask, ellipse_kernel((ksize, ksize)), "close")
 
 
 def morphology_open(mask: np.ndarray, ksize: int = MORPH_KERNEL_SIZE) -> np.ndarray:
     """``cv2.morphologyEx(mask, MORPH_OPEN, ellipse(ksize))`` of a 0/1 uint8 mask."""
-    return _ellipse_filter(_ellipse_filter(mask, ksize, dilate=False), ksize, dilate=True)
+    return native.morphology(mask, ellipse_kernel((ksize, ksize)), "open")
 
 
 class EfficientUNetTissueMaskModel(ModelABC):

@@ -20,7 +20,8 @@ The host post-processing (:374-760) is here without cv2: min-max
 normalisation, the ksize-21 Sobel and the 3x3 Gaussian blur in numpy with
 OpenCV's order of operations (row taps in order, column taps paired
 around the centre), so each equals cv2's result bit for bit; the 5x5
-elliptical opening and the hole filling with ``scipy.ndimage``; the marker
+elliptical opening in the port's host C++ (``csrc/imgproc.cpp``), the hole
+filling with ``scipy.ndimage``; the marker
 watershed and the contour follower in the port's own host C++
 (``csrc/watershed.cpp`` through ``tiatoolbox_tpu_torch.native``). It runs
 on a per-thread scratch pool (``_Scratch``, :755-822): each step writes
@@ -764,19 +765,13 @@ def gaussian_blur_3x3(x: np.ndarray, out: np.ndarray | None = None) -> np.ndarra
 def binary_open(mask: np.ndarray, kernel: np.ndarray, out: np.ndarray | None = None) -> np.ndarray:
     """``cv2.morphologyEx(mask, MORPH_OPEN, kernel)`` on a 0/1 uint8 mask, into uint8 ``out``.
 
-    OpenCV's border values leave the image edge alone: erosion treats
-    outside pixels as set, dilation as unset. The kernel is symmetric
-    with its anchor at the centre.
+    The port's erosion and dilation (``native.morphology``,
+    ``csrc/imgproc.cpp``): OpenCV's border values leave the image edge
+    alone (erosion treats outside pixels as set, dilation as unset), the
+    anchor at the kernel's centre. With ``out`` the eroded mask goes
+    through the pool's ``u8_open``.
     """
-    structure = kernel.astype(bool)
-    fg = np.not_equal(mask, 0, out=_pooled(mask.shape, "bool_open", out))
-    eroded = ndimage.binary_erosion(
-        fg, structure=structure, border_value=1, output=_pooled(mask.shape, "bool_eroded", out)
-    )
-    if out is None:
-        out = np.empty(mask.shape, np.uint8)
-    ndimage.binary_dilation(eroded, structure=structure, output=out)
-    return out
+    return native.morphology(mask, kernel, "open", out=out, work=_pooled(np.shape(mask), "u8_open", out))
 
 
 def fill_holes(marker: np.ndarray, out: np.ndarray | None = None) -> np.ndarray:

@@ -10,8 +10,8 @@ all NHWC on the device.
 ``postproc`` runs HoVer-Net's instance post-processing on ``[np, hv, tp]``
 and, on the layer map, ``_proc_ls`` (:132-166) and ``_get_layer_info``
 (:168-199) without cv2: the 20x20 closing and opening of ``cv2.morphologyEx``
-as separable 1-D max/min filters with cv2's anchor (offsets -10..+9 on each
-axis, for dilation and erosion alike) and cv2's neutral border, and the
+in the port's host C++ (``native.morphology``, ``csrc/imgproc.cpp``) with
+cv2's anchor (offsets -10..+9 on each axis) and neutral border, and the
 layer contours from the port's tracer in ``cv2.findContours(RETR_TREE,
 CHAIN_APPROX_NONE)``'s order (``native.find_contours_tree``); both equal
 cv2's bit for bit.
@@ -42,25 +42,14 @@ LS_KERNEL_SIZE = 20
 LS_MIN_EPITHELIUM = 20000
 
 
-def _box_filter(mask: np.ndarray, ksize: int, *, dilate: bool) -> np.ndarray:
-    """``cv2.dilate`` / ``cv2.erode`` of a 0/1 uint8 mask with a ksize x ksize
-    box of ones and the default anchor and border: on each axis the window
-    covers offsets ``-(ksize // 2)`` to ``(ksize - 1) // 2``, and pixels
-    outside the image neither set a dilation nor clear an erosion."""
-    filt = ndimage.maximum_filter1d if dilate else ndimage.minimum_filter1d
-    cval = 0 if dilate else 1
-    out = filt(mask, ksize, axis=0, mode="constant", cval=cval)
-    return filt(out, ksize, axis=1, mode="constant", cval=cval)
-
-
 def morphology_close(mask: np.ndarray, ksize: int = LS_KERNEL_SIZE) -> np.ndarray:
     """``cv2.morphologyEx(mask, MORPH_CLOSE, np.ones((ksize, ksize)))`` of a 0/1 uint8 mask."""
-    return _box_filter(_box_filter(mask, ksize, dilate=True), ksize, dilate=False)
+    return native.morphology(mask, np.ones((ksize, ksize), np.uint8), "close")
 
 
 def morphology_open(mask: np.ndarray, ksize: int = LS_KERNEL_SIZE) -> np.ndarray:
     """``cv2.morphologyEx(mask, MORPH_OPEN, np.ones((ksize, ksize)))`` of a 0/1 uint8 mask."""
-    return _box_filter(_box_filter(mask, ksize, dilate=False), ksize, dilate=True)
+    return native.morphology(mask, np.ones((ksize, ksize), np.uint8), "open")
 
 
 class HoVerNetPlus(HoVerNet):

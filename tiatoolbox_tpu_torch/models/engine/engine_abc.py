@@ -65,8 +65,10 @@ def prepare_engines_save_dir(save_dir, *, patch_mode: bool, overwrite: bool = Fa
 class EngineABCRunParams(TypedDict, total=False):
     """Keyword arguments ``EngineABC.run`` takes (JAX ``engine_abc.py:60-65``, with keys).
 
-    JAX's ``output_type`` is ``run``'s own argument here, and its
-    ``transfer_threads`` (the relay link's threads) has no counterpart.
+    JAX's ``output_type`` is ``run``'s own argument here. ``transfer_threads``
+    (JAX: the threads that stage batches over its relay link) is accepted
+    so that a JAX caller's ``run`` works, and has no effect: the port copies
+    each batch on the device's one CUDA copy stream.
     """
 
     batch_size: int
@@ -86,6 +88,7 @@ class EngineABCRunParams(TypedDict, total=False):
     output_file: str
     wsireader_kwargs: dict
     max_inflight_batches: int
+    transfer_threads: int
 
 
 class EngineABC(ABC):

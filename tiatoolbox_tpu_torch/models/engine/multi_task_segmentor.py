@@ -51,7 +51,8 @@ waits for none of the loop's queued work. The engine returns ``LazyRowsView``s o
 (HoVerNet labels the foreground of the uint8 plane while the energy is
 still on its way) and materialises them for any other. JAX's
 ``drain_during_loop`` (row blocks drained while later bands are still
-scattered) has no counterpart: JAX itself drains one whole-canvas block.
+scattered) is a run parameter here with no effect: the drain always runs,
+and JAX itself drains one whole-canvas block.
 """
 
 from __future__ import annotations
@@ -111,11 +112,14 @@ def drain_stage(watermark: RowWatermark, items: int, flushed: float, postproc_st
 class MultiTaskSegmentorRunParams(SemanticSegmentorRunParams, total=False):
     """``MultiTaskSegmentor.run`` keyword arguments (JAX ``multi_task_segmentor.py:28-30``, with keys).
 
-    JAX's ``drain_during_loop`` (its ``BlockDrain`` of row blocks during the
-    loop) has no counterpart; the banded fetch drains one whole-canvas block.
+    ``drain_during_loop`` (JAX: drain finished row blocks of the canvas
+    while the loop runs) is accepted so that a JAX caller's ``run`` works,
+    and has no effect: the port's drain always runs, its fetch copied on a
+    CUDA copy stream while the host post-processes.
     """
 
     return_predictions: bool
+    drain_during_loop: bool
 
 
 class MultiTaskSegmentor(SemanticSegmentor):

@@ -44,6 +44,15 @@ back to another decoder.
   (``cv2.fillPoly``, ``cv2.polylines``, ``cv2.drawContours``, ``cv2.line``
   and ``cv2.circle`` of JAX's ``utils/visualization.py``), bit for bit with
   cv2 5.0 wherever the points lie, on or off the canvas.
+- ``csrc/imgproc.cpp``: ``resize``, ``warp_affine``, ``remap``, ``blur`` and
+  ``morphology``, OpenCV 5.0's ``cv2.resize`` (every interpolation JAX's
+  ``imresize`` takes, and ``INTER_LINEAR_EXACT``), ``cv2.warpAffine`` and
+  ``cv2.remap`` (bilinear, constant border), ``cv2.blur`` and
+  ``cv2.erode`` / ``cv2.dilate`` / ``cv2.morphologyEx`` (open, close) with
+  any structuring element, bit for bit with cv2 but for the resizes cv2
+  hands to Intel IPP's cubic (``tests/test_torch_imgproc.py`` counts what
+  differs). Large calls split their rows over threads; the result does not
+  depend on how many.
 - ``csrc/j2kenc.cpp``: ``encode_j2k``, a tiled codestream written in one
   pass (the role of the cv2 encodes JAX's ``jp2.py:319-384`` stitches):
   lossless by default, with test-stream options for every feature the
@@ -69,6 +78,7 @@ PNG = "png.cpp"
 J2K_DECODER = "j2kdec.cpp"
 J2K_ENCODER = "j2kenc.cpp"
 RASTER = "raster.cpp"
+IMGPROC = "imgproc.cpp"
 # JAX's batch decoder takes min(cpu_count, n, 16) threads (its __init__.py:168-169)
 MAX_DECODE_THREADS = 16
 
@@ -739,3 +749,226 @@ def circle(img: np.ndarray, center, radius: int, color) -> np.ndarray:
     cx, cy = (int(v) for v in center)
     _raster().raster_circle(_ptr(img), h, w, cn, cx, cy, int(radius), _ptr(colour_bytes(color, cn)))
     return img
+
+
+# ---------------------------------------------------------------- image processing
+
+_IMGPROC_DEPTHS = {
+    np.dtype(np.uint8): 0,
+    np.dtype(np.uint16): 1,
+    np.dtype(np.int16): 2,
+    np.dtype(np.float32): 3,
+    np.dtype(np.float64): 4,
+}
+# cv2's INTER_* numbers
+RESIZE_INTERPOLATIONS = {"nearest": 0, "linear": 1, "cubic": 2, "area": 3, "linear_exact": 5}
+# a call that reads and writes fewer elements runs on the calling thread
+# (a 448^2 RGB patch: the engines' loader threads already run those in parallel)
+IMGPROC_SERIAL_ELEMENTS = 1 << 20
+_MORPH_OPS = {"erode": 0, "dilate": 1}
+
+
+@functools.cache
+def _imgproc() -> ctypes.CDLL:
+    lib = _build.load(IMGPROC)
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.imgproc_resize.argtypes = [ptr, i32, i32, i32, i32, ptr, i32, i32, i32, i32]
+    lib.imgproc_warp_affine.argtypes = [ptr, i32, i32, i32, i32, ptr, i32, i32, ptr, ptr, i32]
+    lib.imgproc_remap.argtypes = [ptr, i32, i32, i32, i32, ptr, ptr, ptr, i32, i32, ptr, i32]
+    lib.imgproc_blur.argtypes = [ptr, i32, i32, i32, i32, ptr, i32, i32, i32]
+    lib.imgproc_morph.argtypes = [ptr, i32, i32, i32, ptr, ptr, i32, i32, i32, i32]
+    for fn in (lib.imgproc_resize, lib.imgproc_warp_affine, lib.imgproc_remap, lib.imgproc_blur, lib.imgproc_morph):
+        fn.restype = i32
+    return lib
+
+
+def imgproc_threads(n_elements: int, n_threads: int | None = None) -> int:
+    """Threads for a call that reads and writes ``n_elements``: ``n_threads``
+    if given, else 1 below ``IMGPROC_SERIAL_ELEMENTS`` and up to 16 above."""
+    if n_threads is not None:
+        return max(1, int(n_threads))
+    if n_elements < IMGPROC_SERIAL_ELEMENTS:
+        return 1
+    return min(os.cpu_count() or 4, MAX_DECODE_THREADS)
+
+
+def _image(image, what: str, depths=tuple(_IMGPROC_DEPTHS)) -> tuple[np.ndarray, int, int, int]:
+    """A C-contiguous ``[h, w, c]`` view of an ``[h, w]`` or ``[h, w, c]`` image (1-4 channels)."""
+    image = np.asarray(image)
+    if image.dtype not in depths:
+        names = [str(d) for d in depths]
+        listed = names[0] if len(names) == 1 else f"{', '.join(names[:-1])} or {names[-1]}"
+        msg = f"{what} takes {listed} images, got {image.dtype}."
+        raise ValueError(msg)
+    if image.ndim not in (2, 3) or 0 in image.shape:
+        msg = f"{what} takes a non-empty [h, w] or [h, w, c] image, got shape {image.shape}."
+        raise ValueError(msg)
+    cn = 1 if image.ndim == 2 else image.shape[2]
+    if not 1 <= cn <= 4:
+        msg = f"{what} takes 1 to 4 channels, got {cn}."
+        raise ValueError(msg)
+    return np.ascontiguousarray(image), image.shape[0], image.shape[1], cn
+
+
+def _shaped(out: np.ndarray, cn: int) -> np.ndarray:
+    """``[h, w, 1]`` comes back ``[h, w]``, as from ``cv2``."""
+    return out.reshape(out.shape[:2]) if cn == 1 else out
+
+
+def _imgproc_call(fn, *args) -> None:
+    code = fn(*args)
+    if code != 0:
+        reason = {1: "the image type is not supported", 2: "unknown mode", 3: "empty size"}.get(code, f"code {code}")
+        msg = f"{fn.__name__}: {reason}."
+        raise ValueError(msg)
+
+
+def resize(image: np.ndarray, dsize, interpolation: str, n_threads: int | None = None) -> np.ndarray:
+    """``cv2.resize(image, dsize, interpolation=INTER_<interpolation>)``.
+
+    Args:
+        image: uint8, uint16, int16, float32 or float64 ``[h, w]`` or
+            ``[h, w, c]`` (1-4 channels); ``linear_exact`` takes uint8 only.
+        dsize: Output (width, height).
+        interpolation: ``"nearest"``, ``"linear"``, ``"cubic"``, ``"area"`` or
+            ``"linear_exact"``.
+        n_threads: Threads (``imgproc_threads`` by default).
+
+    Raises:
+        ValueError: an unsupported type, shape, size or interpolation.
+    """
+    src, h, w, cn = _image(image, "resize")
+    out_w, out_h = int(dsize[0]), int(dsize[1])
+    if out_w < 1 or out_h < 1:
+        msg = f"resize needs a positive output size, got {tuple(dsize)}."
+        raise ValueError(msg)
+    if interpolation not in RESIZE_INTERPOLATIONS:
+        msg = f"Invalid interpolation: {interpolation}"
+        raise ValueError(msg)
+    out = np.empty((out_h, out_w, cn), src.dtype)
+    threads = imgproc_threads(src.size + out.size, n_threads)
+    _imgproc_call(
+        _imgproc().imgproc_resize, _ptr(src), h, w, cn, _IMGPROC_DEPTHS[src.dtype], _ptr(out), out_h, out_w,
+        RESIZE_INTERPOLATIONS[interpolation], threads,
+    )
+    return _shaped(out, cn)
+
+
+def _border(border_value, cn: int) -> np.ndarray:
+    """The border value per channel, as double: a scalar repeats, a longer
+    sequence (cv2's four-value Scalar) gives its first ``cn``."""
+    values = np.asarray(border_value, np.float64).ravel()
+    return np.ascontiguousarray(np.broadcast_to(values[:cn], (cn,)), np.float64)
+
+
+_WARP_DEPTHS = (np.dtype(np.uint8), np.dtype(np.float32), np.dtype(np.float64))
+
+
+def warp_affine(image: np.ndarray, matrix, dsize, border_value=0, n_threads: int | None = None) -> np.ndarray:
+    """``cv2.warpAffine(image, matrix, dsize, flags=INTER_LINEAR,
+    borderMode=BORDER_CONSTANT, borderValue=border_value)`` of a uint8,
+    float32 or float64 image; ``matrix`` is the 2x3 (or 3x3) forward affine."""
+    src, h, w, cn = _image(image, "warp_affine", _WARP_DEPTHS)
+    out_w, out_h = int(dsize[0]), int(dsize[1])
+    if out_w < 1 or out_h < 1:
+        msg = f"warp_affine needs a positive output size, got {tuple(dsize)}."
+        raise ValueError(msg)
+    m = np.ascontiguousarray(np.asarray(matrix, np.float64).reshape(-1)[:6])
+    out = np.empty((out_h, out_w, cn), src.dtype)
+    _imgproc_call(
+        _imgproc().imgproc_warp_affine, _ptr(src), h, w, cn, _IMGPROC_DEPTHS[src.dtype], _ptr(out), out_h, out_w,
+        _ptr(m), _ptr(_border(border_value, cn)), imgproc_threads(src.size + out.size, n_threads),
+    )
+    return _shaped(out, cn)
+
+
+def remap(image: np.ndarray, map_x, map_y, border_value=0, n_threads: int | None = None) -> np.ndarray:
+    """``cv2.remap(image, map_x, map_y, INTER_LINEAR, borderMode=BORDER_CONSTANT,
+    borderValue=border_value)`` with float32 ``[h, w]`` maps of the output's shape."""
+    src, h, w, cn = _image(image, "remap", _WARP_DEPTHS)
+    map_x = np.ascontiguousarray(map_x, np.float32)
+    map_y = np.ascontiguousarray(map_y, np.float32)
+    if map_x.shape != map_y.shape or map_x.ndim != 2 or 0 in map_x.shape:
+        msg = f"remap takes two [h, w] maps of one shape, not empty, got {map_x.shape} and {map_y.shape}."
+        raise ValueError(msg)
+    out_h, out_w = map_x.shape
+    out = np.empty((out_h, out_w, cn), src.dtype)
+    _imgproc_call(
+        _imgproc().imgproc_remap, _ptr(src), h, w, cn, _IMGPROC_DEPTHS[src.dtype], _ptr(map_x), _ptr(map_y),
+        _ptr(out), out_h, out_w, _ptr(_border(border_value, cn)), imgproc_threads(src.size + out.size, n_threads),
+    )
+    return _shaped(out, cn)
+
+
+def blur(image: np.ndarray, ksize, n_threads: int | None = None) -> np.ndarray:
+    """``cv2.blur(image, ksize)`` of a uint8, float32 or float64 image: the mean
+    over a (width, height) ``ksize`` window anchored at ``ksize // 2``, the
+    border reflected (101). A scalar ``ksize`` is square."""
+    src, h, w, cn = _image(image, "blur", _WARP_DEPTHS)
+    kw, kh = (int(ksize), int(ksize)) if np.ndim(ksize) == 0 else (int(ksize[0]), int(ksize[1]))
+    if kw < 1 or kh < 1:
+        msg = f"blur needs a positive kernel size, got {ksize}."
+        raise ValueError(msg)
+    out = np.empty(src.shape if src.ndim == 3 else (h, w, 1), src.dtype)
+    _imgproc_call(
+        _imgproc().imgproc_blur, _ptr(src), h, w, cn, _IMGPROC_DEPTHS[src.dtype], _ptr(out), kw, kh,
+        imgproc_threads(2 * src.size, n_threads),
+    )
+    return _shaped(out, cn)
+
+
+def morphology(
+    image: np.ndarray,
+    kernel,
+    op: str,
+    out: np.ndarray | None = None,
+    work: np.ndarray | None = None,
+    n_threads: int | None = None,
+) -> np.ndarray:
+    """``cv2.erode`` / ``cv2.dilate`` (``op`` ``"erode"``, ``"dilate"``) or
+    ``cv2.morphologyEx`` (``"open"``, ``"close"``) of a uint8 (or bool,
+    taken as 0/1) ``[h, w]`` or ``[h, w, c]`` image with the structuring
+    element ``kernel`` (its non-zero pixels), the default anchor
+    ``(kw // 2, kh // 2)`` and border: outside pixels neither clear an
+    erosion nor set a dilation. An ``[h, w, 1]`` image comes back ``[h, w]``
+    (a view of ``out``), as from ``cv2``.
+
+    Args:
+        out: uint8 C-contiguous array of the image's shape written and
+            returned (it may be ``image`` itself); a new array without one.
+        work: uint8 C-contiguous array of the image's shape that holds the
+            first step of ``"open"`` and ``"close"``; a new one without it.
+    """
+    image = np.asarray(image)
+    if image.dtype == np.bool_:
+        image = image.view(np.uint8)
+    src, h, w, cn = _image(image, "morphology", (np.dtype(np.uint8),))
+    k = np.ascontiguousarray(np.asarray(kernel) != 0, np.uint8)
+    if k.ndim != 2 or 0 in k.shape:
+        msg = f"morphology takes a non-empty 2-D kernel, got shape {k.shape}."
+        raise ValueError(msg)
+    steps = {"erode": ("erode",), "dilate": ("dilate",), "open": ("erode", "dilate"), "close": ("dilate", "erode")}
+    if op not in steps:
+        msg = f"morphology op must be one of {sorted(steps)}, got {op!r}."
+        raise ValueError(msg)
+    for name, buf in (("out", out), ("work", work)):
+        if buf is not None and (buf.dtype != np.uint8 or buf.shape != src.shape or not buf.flags.c_contiguous):
+            msg = f"{name} must be a C-contiguous uint8 array of shape {src.shape}, got {buf.dtype} {buf.shape}."
+            raise ValueError(msg)
+    if out is None:
+        out = np.empty(src.shape, np.uint8)
+    if np.shares_memory(out, src):
+        np.copyto(out, morphology(src, k, op, n_threads=n_threads).reshape(out.shape))
+        return out
+    threads = imgproc_threads(2 * src.size, n_threads)
+    lib = _imgproc()
+    first = steps[op][0]
+    mid = out
+    if len(steps[op]) == 2:
+        mid = work if work is not None and not np.shares_memory(work, src) else np.empty(src.shape, np.uint8)
+    _imgproc_call(lib.imgproc_morph, _ptr(src), h, w, cn, _ptr(mid), _ptr(k), k.shape[0], k.shape[1],
+                  _MORPH_OPS[first], threads)
+    if len(steps[op]) == 2:
+        _imgproc_call(lib.imgproc_morph, _ptr(mid), h, w, cn, _ptr(out), _ptr(k), k.shape[0], k.shape[1],
+                      _MORPH_OPS[steps[op][1]], threads)
+    return out.reshape(h, w) if out.ndim == 3 and cn == 1 else out

@@ -3,8 +3,10 @@
 ``otsu_threshold`` (:19) and ``OtsuTissueMasker`` (:76) are copied, with the
 greyscale conversion done by ``rgb2gray_u8`` (bit-exact to OpenCV's).
 ``MorphologicalMasker`` (:103) uses ``scipy.ndimage`` for the 8-connected
-small-region removal and the dilation, with OpenCV's elliptical
-structuring element and anchor, so its masks equal the OpenCV ones.
+small-region removal and the port's host C++ (``native.morphology``) for
+the dilation, with OpenCV's elliptical structuring element and anchor, so
+its masks equal the OpenCV ones. ``ellipse_kernel`` is the port's one
+``getStructuringElement(MORPH_ELLIPSE)``.
 """
 
 from __future__ import annotations
@@ -14,6 +16,7 @@ from abc import ABC, abstractmethod
 import numpy as np
 from scipy import ndimage
 
+from tiatoolbox_tpu_torch import native
 from tiatoolbox_tpu_torch.utils.misc import objective_power2mpp, rgb2gray_u8
 
 
@@ -35,14 +38,10 @@ def ellipse_kernel(ksize: tuple[int, int]) -> np.ndarray:
 
 
 def _dilate(mask: np.ndarray, kernel: np.ndarray) -> np.ndarray:
-    """OpenCV-style binary dilation: anchor at the kernel centre, zero border.
-
-    ``dst[p] = any(src[p + k - anchor] for k in kernel)``; scipy places the
-    structure's centre at ``size // 2``, the same anchor, and reflects it.
-    """
-    structure = kernel[::-1, ::-1].astype(bool)
-    origin = [-(1 - s % 2) for s in structure.shape]
-    return ndimage.binary_dilation(mask, structure=structure, origin=origin)
+    """``cv2.morphologyEx(mask, MORPH_DILATE, kernel)`` of a boolean mask, as
+    uint8 0/1: the anchor at ``ksize // 2``, outside pixels unset
+    (``native.morphology``, ``csrc/imgproc.cpp``)."""
+    return native.morphology(mask, kernel, "dilate")
 
 
 def otsu_threshold(values: np.ndarray, nbins: int = 256) -> float:

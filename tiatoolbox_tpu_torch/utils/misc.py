@@ -449,8 +449,8 @@ def write_probability_heatmap_as_ome_tiff(
         mpp: Optional (x, y) microns-per-pixel metadata.
 
     Each level halves the one above (sizes rounded down) by area averaging
-    with the port's ``imresize``: bit for bit with ``cv2.INTER_AREA`` where
-    the sizes are even, within one grey level where a size is odd.
+    with the port's ``imresize``: bit for bit with ``cv2.INTER_AREA``, odd
+    sizes included.
     """
     from tiatoolbox_tpu_torch.utils.transforms import imresize
     from tiatoolbox_tpu_torch.utils.visualization import apply_color_map

@@ -7,8 +7,8 @@ colours with matplotlib; the port has neither, so:
   (``csrc/raster.cpp`` through ``native.fill_poly``, ``native.polylines``,
   ``native.line`` and ``native.circle``), OpenCV's ``LINE_8`` walks bit for
   bit;
-- ``cv2.blur`` is ``box_blur``, OpenCV's normalised box filter over uint8
-  with ``BORDER_REFLECT_101`` and its rounding of the mean, bit for bit;
+- ``cv2.blur`` is ``box_blur``, the port's one box filter (``native.blur``,
+  ``csrc/imgproc.cpp``), bit for bit;
 - ``cv2.applyColorMap`` is a lookup in the ``cv2_<id>`` tables of
   ``data/colormaps.npz``;
 - matplotlib's colormaps are ``colormap_rgba``, ``Colormap.__call__``'s
@@ -76,13 +76,11 @@ def apply_color_map(grey: np.ndarray, colour_map: int) -> np.ndarray:
 def box_blur(img: np.ndarray, ksize: int) -> np.ndarray:
     """``cv2.blur(img, (ksize, ksize))`` of a uint8 ``[h, w]`` or ``[h, w, c]`` image.
 
-    The box sums run over ``BORDER_REFLECT_101`` padding with the anchor at
-    ``ksize // 2``. OpenCV rounds the mean three ways, and so does this:
-    up to 255 * ksize**2 <= 65535 it divides in 16.16 fixed point, which for a
-    power-of-two area adds half the area plus one before the shift and
-    otherwise rounds half up; above that it multiplies by ``1 / ksize**2`` in
-    float32 over the row's 8-wide vectors and in float64 over the row's
-    remaining elements, rounding half to even.
+    The port's one blur, ``native.blur`` (``csrc/imgproc.cpp``): box sums
+    over ``BORDER_REFLECT_101`` padding with the anchor at ``ksize // 2``,
+    the mean rounded as OpenCV rounds it (23-bit fixed point up to
+    255 * ksize**2 <= 65535; above that float32 over the row's 8-wide
+    vectors and float64 over its remaining elements, half to even).
     """
     img = np.asarray(img)
     if img.dtype != np.uint8:
@@ -92,28 +90,7 @@ def box_blur(img: np.ndarray, ksize: int) -> np.ndarray:
     if k < 1:
         msg = f"ksize must be positive, got {ksize}."
         raise ValueError(msg)
-    h, w = img.shape[:2]
-    cn = 1 if img.ndim == 2 else img.shape[2]
-    a = k // 2
-    x = img.reshape(h, w, cn).astype(np.int64)
-    pad = np.pad(x, ((a, k - 1 - a), (a, k - 1 - a), (0, 0)), mode="reflect")
-    c = np.pad(np.cumsum(np.cumsum(pad, 0), 1), ((1, 0), (1, 0), (0, 0)))
-    s = c[k : k + h, k : k + w] - c[:h, k : k + w] - c[k : k + h, :w] + c[:h, :w]
-    n = k * k
-    if n == 1:
-        out = s
-    elif n * 255 <= 65535:
-        if n & (n - 1) == 0:
-            out = (s + n // 2 + 1) >> (n.bit_length() - 1)
-        else:
-            out = (2 * s + n) // (2 * n)
-    else:
-        flat = s.reshape(h, w * cn)
-        body = w * cn - (w * cn) % 8
-        out = np.empty_like(flat)
-        out[:, :body] = np.rint(flat[:, :body].astype(np.float32) * np.float32(1.0 / n))
-        out[:, body:] = np.rint(flat[:, body:] * (1.0 / n))
-    return np.clip(out, 0, 255).astype(np.uint8).reshape(img.shape)
+    return native.blur(img, (k, k)).reshape(img.shape)
 
 
 def random_colors(num_colors: int, *, bright: bool = True) -> np.ndarray:
